@@ -1,0 +1,223 @@
+"""FaceFormer inference: wav2vec2 encoder + autoregressive mesh decoder.
+
+Port of ``audio2face_tpu/models/faceformer.py`` (vocaset mode). The decoder
+is the single sequential KV-cached pass that equals the reference's
+per-frame re-decoding loop:
+
+- the diagonal-only cross attention reduces exactly to
+  ``out_proj(v_proj(memory[t]))``, hoisted out of the loop as one product;
+- the per-step feedback ``vertice_map(vertice_map_r(h_t)) + style`` runs
+  through the composed 64x64 matrix ``W_r W_m``; vertices come after the
+  loop from one (B*T, 64) @ (64, 3V) product;
+- the periodic positional encoding is a (period, 64) table indexed mod
+  period; the ALiBi bias is computed from indices.
+
+Padded batches carry ``lengths`` (samples) and return a frame mask. On CUDA
+the decode loop is one launch of the decode kernel (``select_decode_impl``).
+BIWI mode and training are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from audio2face_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Encoder, _lecun_normal_
+from audio2face_tpu_torch.ops import decode_kernel
+from audio2face_tpu_torch.ops.dsp import wav2vec2_zero_mean_unit_var
+
+FEATURE_DIM = 64
+N_HEADS = 4
+PERIOD = 60
+FPS = 60
+AUDIO_SR = 16000
+
+
+def periodic_positional_encoding(period: int = PERIOD, d_model: int = FEATURE_DIM) -> np.ndarray:
+    """The (period, d_model) sinusoid table of the reference PPE; position t
+    uses row t % period."""
+    position = np.arange(period, dtype=np.float64)[:, None]
+    div_term = np.exp(np.arange(0, d_model, 2, dtype=np.float64) * (-math.log(10000.0) / d_model))
+    pe = np.zeros((period, d_model), dtype=np.float64)
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term)
+    return pe.astype(np.float32)
+
+
+def normalize_waveform(audio: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Wav2Vec2Processor zero-mean/unit-var normalization, masked to each
+    item's valid prefix for padded batches."""
+    if lengths is None:
+        return wav2vec2_zero_mean_unit_var(audio)
+    n_samples = audio.shape[1]
+    lengths = lengths.to(audio.device)
+    valid = (torch.arange(n_samples, device=audio.device)[None, :] < lengths[:, None]).float()
+    n = lengths.float().clamp(min=1.0)[:, None]
+    mean = (audio * valid).sum(dim=1, keepdim=True) / n
+    var = ((audio - mean).square() * valid).sum(dim=1, keepdim=True) / n
+    return (audio - mean) / torch.sqrt(var + 1e-7) * valid
+
+
+def frame_count(n_samples, fps: int = FPS):
+    """frame_num = samples * fps // 16000, for python ints or integer
+    tensors, evaluated as ``q*fps + r*fps//SR`` (n = q*SR + r) so int32
+    sample counts cannot overflow."""
+    q, r = n_samples // AUDIO_SR, n_samples % AUDIO_SR
+    return q * fps + r * fps // AUDIO_SR
+
+
+def select_decode_impl(device: torch.device, dataset: str = "vocaset") -> str:
+    """The decode implementation for ``device``: ``"fused"`` (the decode
+    kernel) on CUDA, ``"loop"`` (its plain Python loop) elsewhere.
+
+    The kernel keeps its KV cache in device memory, so its only capacity
+    limit is shared memory for the weights: on a card where those do not
+    fit this raises (there is no fallback)."""
+    if dataset != "vocaset":
+        raise NotImplementedError(f"dataset={dataset!r} decode is not ported yet")
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "loop"
+    if not decode_kernel.smem_fits(device):
+        raise RuntimeError(
+            f"the decode kernel needs {decode_kernel.SMEM_BYTES} bytes of shared "
+            f"memory per block, more than {torch.cuda.get_device_name(device)} offers"
+        )
+    return "fused"
+
+
+class FaceFormer(nn.Module):
+    """FaceFormer for inference; parameter names follow the JAX module."""
+
+    def __init__(
+        self,
+        n_verts: int,
+        n_onehot: int,
+        dtype: Optional[torch.dtype] = None,
+        dataset: str = "vocaset",
+        encoder_config: Wav2Vec2Config = Wav2Vec2Config(),
+    ):
+        super().__init__()
+        if dataset != "vocaset":
+            raise NotImplementedError(f"dataset={dataset!r} is not ported yet")
+        d = FEATURE_DIM
+        self.n_verts = n_verts
+        self.n_onehot = n_onehot
+        self.dtype = dtype
+        self.dataset = dataset
+        self.audio_encoder = Wav2Vec2Encoder(encoder_config)
+        self.audio_feature_map = nn.Linear(encoder_config.hidden_size, d)
+        self.obj_vector = nn.Linear(n_onehot, d, bias=False)
+        self.vertice_map = nn.Linear(n_verts, d)
+        self.vertice_map_r = nn.Linear(d, n_verts)
+        self.dec_q = nn.Linear(d, d)
+        self.dec_k = nn.Linear(d, d)
+        self.dec_v = nn.Linear(d, d)
+        self.dec_out = nn.Linear(d, d)
+        self.cross_v = nn.Linear(d, d)
+        self.cross_out = nn.Linear(d, d)
+        self.linear1 = nn.Linear(d, 2 * d)
+        self.linear2 = nn.Linear(2 * d, d)
+        self.norm1 = nn.LayerNorm(d)
+        self.norm2 = nn.LayerNorm(d)
+        self.norm3 = nn.LayerNorm(d)
+        self.register_buffer(
+            "ppe", torch.from_numpy(periodic_positional_encoding(PERIOD)), persistent=False
+        )
+
+    @torch.no_grad()
+    def init_parameters(self, generator: torch.Generator) -> None:
+        """Random init from ``generator`` in the JAX module's scheme: LeCun
+        normal kernels, zero biases, unit norms; the motion maps
+        ``vertice_map``/``vertice_map_r`` start at zero."""
+        self.audio_encoder.init_parameters(generator)
+        for name, m in self.named_children():
+            if isinstance(m, nn.Linear):
+                if name in ("vertice_map", "vertice_map_r"):
+                    m.weight.zero_()
+                else:
+                    _lecun_normal_(m.weight, m.in_features, generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+
+    def forward(
+        self,
+        audio: torch.Tensor,  # (B, S) float waveform @ 16 kHz
+        one_hot: torch.Tensor,  # (B, n_onehot)
+        template: torch.Tensor,  # (B, V, 3)
+        lengths: Optional[torch.Tensor] = None,  # (B,) valid sample counts
+        *,
+        return_hidden: bool = False,
+        use_kernels: bool = True,
+    ):
+        """Returns (B, T, V, 3) vertices with T = frame_count(S), plus a
+        (B, T) frame validity mask when ``lengths`` is given.
+
+        ``return_hidden=True`` returns the decoder hidden states (B, T, 64)
+        instead of vertices (serving applies the vertex head per time chunk).
+        ``use_kernels=False`` runs the plain versions of every kernel."""
+        cdt = self.dtype or torch.float32
+        bsz, n_samples = audio.shape
+        n_frames = frame_count(n_samples)
+        frame_lengths = None if lengths is None else frame_count(lengths.to(audio.device))
+
+        hidden = self.audio_encoder(
+            normalize_waveform(audio, lengths), output_len=n_frames, lengths=lengths,
+            output_lengths=frame_lengths, dtype=cdt, use_kernels=use_kernels,
+        )  # (B, T, 768)
+
+        def mm(x, layer):  # f32 products, as JAX promotes bf16 x f32 params
+            return torch.nn.functional.linear(x.float(), layer.weight, layer.bias)
+
+        memory = mm(hidden, self.audio_feature_map)  # (B, T, 64)
+        cross = mm(mm(memory, self.cross_v), self.cross_out).to(cdt)
+        style = mm(one_hot, self.obj_vector).to(cdt)  # (B, 64)
+        pe = self.ppe.to(device=audio.device, dtype=cdt)
+        impl = select_decode_impl(audio.device, self.dataset) if use_kernels else "loop"
+        decode = (
+            decode_kernel.faceformer_decode_loop if impl == "fused"
+            else decode_kernel.decode_loop_reference
+        )
+        hs = decode(cross, style, pe, self.decoder_weights(cdt), period=PERIOD)
+
+        frame_mask = None
+        if lengths is not None:
+            frame_mask = (
+                torch.arange(n_frames, device=audio.device)[None, :] < frame_lengths[:, None]
+            ).float()
+        out = hs if return_hidden else self.vertex_head(hs, template)
+        return out if frame_mask is None else (out, frame_mask)
+
+    def decoder_weights(self, dtype: torch.dtype) -> dict:
+        """The decode loop's weights under the JAX kernel's keys, kernels in
+        (in, out) order, cast to ``dtype`` as the JAX module casts them. The
+        feedback is the composed 64x64 ``vertice_map(vertice_map_r(h)) =
+        h @ fb_kernel + fb_bias``, computed in f32."""
+        wr, wm = self.vertice_map_r.weight.T, self.vertice_map.weight.T  # (64, V), (V, 64)
+        w = {"fb_kernel": wr @ wm, "fb_bias": self.vertice_map_r.bias @ wm + self.vertice_map.bias}
+        for key, layer in (("q", self.dec_q), ("k", self.dec_k), ("v", self.dec_v),
+                           ("o", self.dec_out), ("f1", self.linear1), ("f2", self.linear2)):
+            w[f"{key}_kernel"] = layer.weight.T
+            w[f"{key}_bias"] = layer.bias
+        w = {k: v.to(dtype) for k, v in w.items()}
+        for i, norm in enumerate((self.norm1, self.norm2, self.norm3), start=1):
+            w[f"ln{i}_scale"] = norm.weight
+            w[f"ln{i}_bias"] = norm.bias
+        return w
+
+    def vertex_head(self, hs: torch.Tensor, template: torch.Tensor) -> torch.Tensor:
+        """(B, T, 64) hidden states -> (B, T, V, 3) f32 vertices: one
+        (B*T, 64) @ (64, 3V) product plus the template."""
+        bsz, n_frames, d = hs.shape
+        verts = torch.nn.functional.linear(
+            hs.reshape(-1, d).float(), self.vertice_map_r.weight, self.vertice_map_r.bias
+        ).reshape(bsz, n_frames, -1)
+        verts = verts + template.reshape(bsz, 1, -1).float()
+        return verts.reshape(bsz, n_frames, -1, 3)

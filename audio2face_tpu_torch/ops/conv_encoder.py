@@ -1,0 +1,180 @@
+"""wav2vec2 conv feature encoder: a family of hand-written CUDA kernels + its
+plain version.
+
+Port of ``audio2face_tpu/ops/conv_encoder.py``. ``fused_conv_encoder`` runs
+the 7-layer conv stack (k/s 10/5, 3/2 x4, 2/2 x2, 512 channels, no bias)
+with the length-masked group norm after layer 0 and an exact GELU after
+every layer: (B, L) f32 waveform -> (B, T_out, 512) bf16. CUDA tensors
+launch ``csrc/conv_encoder.cu``; CPU tensors run ``conv_encoder_reference``.
+
+Numerics of both: the group-norm statistics come in f32 from the waveform,
+analytically (conv0 is linear):
+
+    mean_c   = sum_j W0[j,c] mu_j,          mu_j = E_t[x_{5t+j}]
+    E[y^2]_c = sum_jk W0[j,c] W0[k,c] C_jk, C_jk = E_t[x_{5t+j} x_{5t+k}]
+
+over the valid layer-0 windows; every conv takes bf16 operands (layer 0:
+the bf16-rounded samples and weights) with f32 sums, and each layer's
+output is stored in bf16.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from audio2face_tpu_torch.ops import _build
+
+CONV_KERNEL = (10, 3, 3, 3, 3, 2, 2)
+CONV_STRIDE = (5, 2, 2, 2, 2, 2, 2)
+C = 512
+K0, S0 = CONV_KERNEL[0], CONV_STRIDE[0]
+EPS = 1e-5
+_MOM_BLOCKS = 64  # partial-sum blocks per item in csrc/conv_encoder.cu
+_NMOM = 65
+
+
+def stack_output_length(input_length: int) -> int:
+    length = input_length
+    for k, s in zip(CONV_KERNEL, CONV_STRIDE):
+        length = (length - k) // s + 1
+    return length
+
+
+def _im2col10(x: torch.Tensor) -> torch.Tensor:
+    """(B, L) waveform -> (B, T0, 10) windows at stride 5 (layer-0 im2col)."""
+    return x.unfold(1, K0, S0)
+
+
+def conv0_groupnorm_stats(
+    xi: torch.Tensor,  # (B, T0, 10) im2col
+    w0: torch.Tensor,  # (10, C) layer-0 kernel
+    feat_lengths: Optional[torch.Tensor] = None,  # (B,) valid T0 rows
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact per-(item, channel) mean and rstd of the conv0 output (the
+    masked group norm's statistics), in f32."""
+    b, t0, _ = xi.shape
+    xi32 = xi.float()
+    if feat_lengths is None:
+        n = torch.full((b, 1), float(t0), device=xi.device)
+        xm = xi32
+    else:
+        valid = torch.arange(t0, device=xi.device)[None, :] < feat_lengths.to(xi.device)[:, None]
+        n = feat_lengths.to(xi.device).float().clamp(min=1.0)[:, None]
+        xm = xi32 * valid[..., None].float()
+    mu = xm.sum(dim=1) / n  # (B, 10)
+    corr = torch.einsum("btj,btk->bjk", xm, xm) / n[..., None]
+    w0 = w0.float()
+    mean = mu @ w0  # (B, C)
+    ey2 = torch.einsum("bjk,jc,kc->bc", corr, w0, w0)
+    var = (ey2 - mean.square()).clamp(min=0.0)
+    return mean, torch.rsqrt(var + EPS)
+
+
+def _feat_lengths(lengths: Optional[torch.Tensor], b: int, n: int, device) -> torch.Tensor:
+    """Valid layer-0 windows per item, clamped to [0, T0] (a zero-length row
+    would otherwise count negative windows)."""
+    t0 = (n - K0) // S0 + 1
+    if lengths is None:
+        return torch.full((b,), t0, dtype=torch.int32, device=device)
+    return torch.div(lengths.to(device) - K0, S0, rounding_mode="floor").add(1).clamp(0, t0).to(torch.int32)
+
+
+def _check(x, kernels, gn_scale, gn_bias):
+    if x.dim() != 2:
+        raise ValueError(f"waveform must be (B, L), got {tuple(x.shape)}")
+    if len(kernels) != len(CONV_KERNEL):
+        raise ValueError(f"need {len(CONV_KERNEL)} conv kernels, got {len(kernels)}")
+    for i, (k, w) in enumerate(zip(CONV_KERNEL, kernels)):
+        want = (k, 1 if i == 0 else C, C)
+        if tuple(w.shape) != want:
+            raise ValueError(f"conv{i} kernel must be (k, c_in, c_out) = {want}, got {tuple(w.shape)}")
+    if gn_scale.shape != (C,) or gn_bias.shape != (C,):
+        raise ValueError("group-norm scale and bias must be (512,)")
+    if stack_output_length(x.shape[1]) < 1:
+        raise ValueError(f"{x.shape[1]} samples are too short for the conv stack")
+
+
+def conv_encoder_reference(
+    x: torch.Tensor,
+    kernels: Sequence[torch.Tensor],
+    gn_scale: torch.Tensor,
+    gn_bias: torch.Tensor,
+    lengths: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain version of the kernel family, with its numerics (module doc)."""
+    _check(x, kernels, gn_scale, gn_bias)
+    b, n = x.shape
+    x = x.float()
+    w0 = kernels[0].reshape(K0, C).float()
+    xi = _im2col10(x)
+    feat = None if lengths is None else _feat_lengths(lengths, b, n, x.device)
+    mean, rstd = conv0_groupnorm_stats(xi, w0, feat)
+    gs = rstd * gn_scale.float()[None, :]
+    gb = gn_bias.float()[None, :] - mean * gs
+    y0 = xi.to(torch.bfloat16).float() @ w0.to(torch.bfloat16).float()
+    h = F.gelu(y0 * gs[:, None] + gb[:, None]).to(torch.bfloat16)
+    for k, s, w in zip(CONV_KERNEL[1:], CONV_STRIDE[1:], kernels[1:]):
+        wt = w.to(torch.bfloat16).float().permute(2, 1, 0)  # (c_out, c_in, k)
+        y = F.conv1d(h.float().transpose(1, 2), wt, stride=s).transpose(1, 2)
+        h = F.gelu(y).to(torch.bfloat16)
+    return h
+
+
+_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+
+
+def _conv_encoder_cuda(x, kernels, gn_scale, gn_bias, lengths):
+    b, n = x.shape
+    dev = x.device
+    t0 = (n - K0) // S0 + 1
+    t1 = (t0 - CONV_KERNEL[1]) // CONV_STRIDE[1] + 1
+    xf = x.float().contiguous()
+    feat = _feat_lengths(lengths, b, n, dev).contiguous()
+    w0 = kernels[0].reshape(K0, C).to(device=dev, dtype=torch.float32).contiguous()
+    w_stack = torch.cat(
+        [w.to(device=dev, dtype=torch.bfloat16).reshape(-1) for w in kernels[1:]]
+    ).contiguous()
+    scale = gn_scale.to(device=dev, dtype=torch.float32).contiguous()
+    bias = gn_bias.to(device=dev, dtype=torch.float32).contiguous()
+    partials = torch.empty((b, _MOM_BLOCKS, _NMOM), dtype=torch.float32, device=dev)
+    gs = torch.empty((b, C), dtype=torch.float32, device=dev)
+    gb = torch.empty((b, C), dtype=torch.float32, device=dev)
+    buf0 = torch.empty((b, t0, C), dtype=torch.bfloat16, device=dev)
+    buf1 = torch.empty((b, t1, C), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((b, stack_output_length(n), C), dtype=torch.bfloat16, device=dev)
+    fn = _build.function("conv_encoder", "a2f_conv_encoder", _ARGTYPES)
+    rc = fn(
+        xf.data_ptr(), feat.data_ptr(), w0.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), w_stack.data_ptr(), partials.data_ptr(), gs.data_ptr(),
+        gb.data_ptr(), buf0.data_ptr(), buf1.data_ptr(), out.data_ptr(), b, n,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(rc, "fused_conv_encoder")
+    fused_conv_encoder.launches += 1
+    return out
+
+
+def fused_conv_encoder(
+    x: torch.Tensor,  # (B, L) f32 waveform
+    kernels: Sequence[torch.Tensor],  # per layer (k, c_in, c_out)
+    gn_scale: torch.Tensor,  # (C,)
+    gn_bias: torch.Tensor,  # (C,)
+    lengths: Optional[torch.Tensor] = None,  # (B,) valid samples
+) -> torch.Tensor:
+    """Waveform -> (B, T_out, 512) bf16 latents (conv stack + GN + GELU).
+
+    CUDA tensors launch the kernel family; CPU tensors run the plain
+    version."""
+    if x.device.type == "cpu":
+        return conv_encoder_reference(x, kernels, gn_scale, gn_bias, lengths)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_conv_encoder runs on cuda or cpu, not {x.device}")
+    _check(x, kernels, gn_scale, gn_bias)
+    return _conv_encoder_cuda(x, kernels, gn_scale, gn_bias, lengths)
+
+
+fused_conv_encoder.launches = 0

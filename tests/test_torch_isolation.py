@@ -1,0 +1,84 @@
+"""The port stands alone: it imports neither JAX, flax nor the JAX package,
+its entry points refuse to fall back to the CPU, and CPU tensors go through
+the plain versions without launching (or building) any kernel."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+_BLOCKED_IMPORTS = r'''
+import importlib, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "flax", "audio2face_tpu")
+
+def blocked(name):
+    # exact package or its submodules: "audio2face_tpu_torch" is NOT blocked
+    return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if blocked(name):
+            raise ImportError(f"the port must not import {name}")
+        return None
+
+assert not blocked("audio2face_tpu_torch") and blocked("audio2face_tpu.ops")
+sys.meta_path.insert(0, Blocker())
+import audio2face_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(audio2face_tpu_torch.__path__, "audio2face_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules if blocked(m))
+assert not leaked, leaked
+from audio2face_tpu_torch.ops import _build
+assert not _build._libs, "importing the port loaded kernels"
+print(len(names))
+'''
+
+
+def test_port_imports_no_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORTS], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 10  # every module of the slice
+
+
+def test_default_device_raises_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from audio2face_tpu_torch.serving import FaceFormerPredictor
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FaceFormerPredictor(n_verts=30)
+
+
+def test_cpu_tensors_take_plain_versions():
+    from audio2face_tpu_torch.models.faceformer import FaceFormer
+    from audio2face_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+    from audio2face_tpu_torch.ops import _build
+    from audio2face_tpu_torch.ops.attention import flash_attention
+    from audio2face_tpu_torch.ops.conv_encoder import fused_conv_encoder
+    from audio2face_tpu_torch.ops.decode_kernel import faceformer_decode_loop
+
+    wrappers = (flash_attention, fused_conv_encoder, faceformer_decode_loop)
+    for w in wrappers:
+        w.launches = 0
+    # bf16 takes the fused conv-encoder wrapper; every wrapper sees CPU tensors
+    model = FaceFormer(30, 12, dtype=torch.bfloat16, encoder_config=Wav2Vec2Config(num_layers=1))
+    model.init_parameters(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    audio = torch.tensor((rng.normal(size=(2, 4000)) * 0.1).astype(np.float32))
+    with torch.inference_mode():
+        out, mask = model(audio, torch.eye(12)[:2], torch.zeros(2, 10, 3),
+                          torch.tensor([4000, 2500]))
+    assert out.shape == (2, 15, 10, 3) and torch.isfinite(out).all()
+    assert mask.sum(dim=1).tolist() == [15.0, 9.0]
+    assert [w.launches for w in wrappers] == [0, 0, 0]
+    assert not _build._libs
