@@ -7,7 +7,10 @@ port's state dict. Conversions: flax Dense ``(in, out)`` kernels transpose
 into ``nn.Linear`` weights; flax conv kernels ``(k, c_in/groups, c_out)``
 become ``(c_out, c_in/groups, k)``; LayerNorm/GroupNorm ``scale`` becomes
 ``weight``. The positional conv is already weight-norm-folded on the JAX
-side. Imports no JAX.
+side. ``faceformer_jax_tree_from_state_dict`` is the inverse map: it lays a
+port state dict, or a dict of the port's gradients under the same names,
+out as the JAX tree, so that tests compare gradients leaf by leaf with
+``jax.grad``'s. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -64,17 +67,19 @@ def wav2vec2_state_dict_from_jax(params: Mapping, prefix: str = "") -> dict[str,
     return out
 
 
+_DENSE_NAMES = (
+    "audio_feature_map", "obj_vector", "vertice_map", "vertice_map_r",
+    "dec_q", "dec_k", "dec_v", "dec_out", "cross_v", "cross_out",
+    "linear1", "linear2",
+)
+
+
 def faceformer_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     """The port's FaceFormer state dict from the JAX FaceFormer's params."""
     if "cross_q_kernel" in params:
         raise NotImplementedError("BIWI FaceFormer weights are not ported yet")
     out = wav2vec2_state_dict_from_jax(params["audio_encoder"], "audio_encoder.")
-    dense_names = (
-        "audio_feature_map", "obj_vector", "vertice_map", "vertice_map_r",
-        "dec_q", "dec_k", "dec_v", "dec_out", "cross_v", "cross_out",
-        "linear1", "linear2",
-    )
-    for name in dense_names:
+    for name in _DENSE_NAMES:
         p = {"kernel": params[f"{name}_kernel"]}
         if f"{name}_bias" in params:
             p["bias"] = params[f"{name}_bias"]
@@ -82,3 +87,70 @@ def faceformer_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     for i in (1, 2, 3):
         _norm(out, f"norm{i}", {"scale": params[f"norm{i}_scale"], "bias": params[f"norm{i}_bias"]})
     return out
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _module_tree(sd: Mapping, prefix: str, kind: str) -> dict:
+    """One flax module's leaves from ``{prefix}.weight`` / ``{prefix}.bias``:
+    ``kind`` is "dense" (transpose), "conv" ((c_out, c_in, k) -> (k, c_in,
+    c_out)) or "norm" (``weight`` is ``scale``)."""
+    w = _np(sd[f"{prefix}.weight"])
+    if kind == "norm":
+        out = {"scale": w}
+    elif kind == "conv":
+        out = {"kernel": np.transpose(w, (2, 1, 0))}
+    else:
+        out = {"kernel": w.T}
+    if f"{prefix}.bias" in sd:
+        out["bias"] = _np(sd[f"{prefix}.bias"])
+    return out
+
+
+def wav2vec2_jax_tree_from_state_dict(sd: Mapping, prefix: str = "") -> dict:
+    """The JAX encoder's parameter tree (numpy) from a port state dict, or
+    from a dict of gradients under the state dict's names."""
+    fe = {}
+    i = 0
+    while f"{prefix}feature_encoder.conv_layers.{i}.weight" in sd:
+        fe[f"conv{i}"] = _module_tree(sd, f"{prefix}feature_encoder.conv_layers.{i}", "conv")
+        i += 1
+    fe["group_norm"] = _module_tree(sd, f"{prefix}feature_encoder.group_norm", "norm")
+    tree = {
+        "feature_encoder": fe,
+        "feature_projection": {
+            "layer_norm": _module_tree(sd, f"{prefix}feature_projection.layer_norm", "norm"),
+            "projection": _module_tree(sd, f"{prefix}feature_projection.projection", "dense"),
+        },
+        "masked_spec_embed": _np(sd[f"{prefix}masked_spec_embed"]),
+        "pos_conv_embed": {"conv": _module_tree(sd, f"{prefix}pos_conv_embed.conv", "conv")},
+        "layer_norm": _module_tree(sd, f"{prefix}layer_norm", "norm"),
+    }
+    i = 0
+    while f"{prefix}layers.{i}.q_proj.weight" in sd:
+        lpre = f"{prefix}layers.{i}"
+        layer = {
+            name: _module_tree(sd, f"{lpre}.{name}", "dense")
+            for name in ("q_proj", "k_proj", "v_proj", "out_proj", "intermediate_dense", "output_dense")
+        }
+        layer["layer_norm"] = _module_tree(sd, f"{lpre}.layer_norm", "norm")
+        layer["final_layer_norm"] = _module_tree(sd, f"{lpre}.final_layer_norm", "norm")
+        tree[f"layer{i}"] = layer
+        i += 1
+    return tree
+
+
+def faceformer_jax_tree_from_state_dict(sd: Mapping) -> dict:
+    """The JAX FaceFormer's parameter tree (numpy) from a port state dict, or
+    from a dict of gradients under the state dict's names: the inverse of
+    ``faceformer_state_dict_from_jax``."""
+    tree = {"audio_encoder": wav2vec2_jax_tree_from_state_dict(sd, "audio_encoder.")}
+    for name in _DENSE_NAMES:
+        for leaf, value in _module_tree(sd, name, "dense").items():
+            tree[f"{name}_{leaf}"] = value
+    for i in (1, 2, 3):
+        for leaf, value in _module_tree(sd, f"norm{i}", "norm").items():
+            tree[f"norm{i}_{leaf}"] = value
+    return tree

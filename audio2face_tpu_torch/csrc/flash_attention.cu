@@ -3,8 +3,13 @@
 // Replaces the TPU kernel audio2face_tpu/ops/attention.py
 // flash_attention_pallas (_flash_kernel): online-softmax multi-head
 // attention with optional causal mask, the period-bucketed ALiBi bias
-// -slope_h * floor((i - j) / period), per-batch KV lengths, and the per-row
-// logsumexp. Dropout is not ported (inference only).
+// -slope_h * floor((i - j) / period), per-batch KV lengths, the per-row
+// logsumexp, and in-kernel attention dropout: each position's keep bit is a
+// hash of (seed, batch*head, global row, global col), so the backward
+// kernels (flash_attention_bwd.cu) regenerate the same mask from indices.
+// Dropout follows torch semantics: the keep multiplier scales only the
+// probabilities that enter the value product; the running max, the running
+// sum and the logsumexp never see it.
 //
 // Bound: at the encoder's shape (B*H = 96, T = 3600, D = 64, bf16) the two
 // products are 4*T*T*D FLOP per (b, h) against 4*T*D*2 bytes of q/k/v/o, so
@@ -24,6 +29,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
 using namespace nvcuda;
@@ -32,32 +39,6 @@ constexpr int BQ = 64;        // query rows per block (16 per warp)
 constexpr int BK = 64;        // keys per tile
 constexpr int NTHREADS = 128;  // 4 warps
 constexpr float MASK_VALUE = -1e30f;
-
-template <typename T>
-struct Traits;
-
-template <>
-struct Traits<__nv_bfloat16> {
-  static constexpr int PAD = 8;  // keeps WMMA rows 32-byte aligned
-  __device__ static float exp(float x) { return __expf(x); }
-};
-
-template <>
-struct Traits<float> {
-  static constexpr int PAD = 1;  // odd pitch: conflict-free scalar columns
-  __device__ static float exp(float x) { return expf(x); }
-};
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__host__ __device__ constexpr int align128(int bytes) { return (bytes + 127) / 128 * 128; }
 
 template <typename T, int D>
 struct Layout {
@@ -154,18 +135,14 @@ __device__ void accumulate_pv(const T* Ps, const T* Vs, float* Os) {
   }
 }
 
-__device__ __forceinline__ int floor_div(int a, int b) {
-  int q = a / b;  // C truncates toward zero; floor for negative remainders
-  return q - ((a % b != 0) && ((a < 0) != (b < 0)));
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, const int* __restrict__ kv_len,
                  const float* __restrict__ slopes, int heads, int t_q, int t_k,
-                 int causal, int period, float sm_scale) {
+                 int causal, int period, float sm_scale,
+                 const int* __restrict__ seed, uint32_t drop_thr, float keep_scale) {
   using L = Layout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem + L::Q);
@@ -179,6 +156,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * BQ;
   const int kvlen = kv_len[bh / heads];
   const float slope = slopes[bh % heads];
+  const uint32_t seed0 = drop_thr > 0 ? (uint32_t)seed[0] : 0u;
   const T* qb = q + (size_t)bh * t_q * D;
   const T* kb = k + (size_t)bh * t_k * D;
   const T* vb = v + (size_t)bh * t_k * D;
@@ -229,6 +207,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < BK / 2; ++i) {
       float p = Traits<T>::exp(s[i] - m_new);
       sum += p;
+      if (drop_thr > 0)
+        p *= dropout_keep(seed0, bh, row, k0 + half * (BK / 2) + i, drop_thr, keep_scale);
       Ps[r * L::PP + half * (BK / 2) + i] = from_float<T>(p);
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -256,7 +236,8 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, const int* kv_len, const float* slopes,
                    int bh, int heads, int t_q, int t_k, int causal, int period,
-                   float sm_scale, cudaStream_t stream) {
+                   float sm_scale, const int* seed, uint32_t drop_thr,
+                   float keep_scale, cudaStream_t stream) {
   constexpr int bytes = Layout<T, D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -265,7 +246,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   flash_fwd_kernel<T, D><<<grid, NTHREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, kv_len, slopes, heads,
-      t_q, t_k, causal, period, sm_scale);
+      t_q, t_k, causal, period, sm_scale, seed, drop_thr, keep_scale);
   return cudaGetLastError();
 }
 
@@ -273,33 +254,43 @@ template <typename T>
 cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
                      void* o, float* lse, const int* kv_len,
                      const float* slopes, int bh, int heads, int t_q, int t_k,
-                     int causal, int period, float sm_scale, cudaStream_t s) {
+                     int causal, int period, float sm_scale, const int* seed,
+                     uint32_t drop_thr, float keep_scale, cudaStream_t s) {
+#define A2F_LAUNCH(D)                                                          \
+  launch<T, D>(q, k, v, o, lse, kv_len, slopes, bh, heads, t_q, t_k, causal,   \
+               period, sm_scale, seed, drop_thr, keep_scale, s)
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, kv_len, slopes, bh, heads, t_q, t_k, causal, period, sm_scale, s);
-    case 32: return launch<T, 32>(q, k, v, o, lse, kv_len, slopes, bh, heads, t_q, t_k, causal, period, sm_scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, lse, kv_len, slopes, bh, heads, t_q, t_k, causal, period, sm_scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, lse, kv_len, slopes, bh, heads, t_q, t_k, causal, period, sm_scale, s);
+    case 16: return A2F_LAUNCH(16);
+    case 32: return A2F_LAUNCH(32);
+    case 64: return A2F_LAUNCH(64);
+    case 128: return A2F_LAUNCH(128);
     default: return cudaErrorInvalidValue;
   }
+#undef A2F_LAUNCH
 }
 
 }  // namespace
 
 // head_dim must be 16, 32, 64 or 128; period 0 = no bias.
 // kv_len: (B,) int32 on the device, each in [0, t_k]; slopes: (H,) f32.
+// Dropout: a position is kept iff its hash >= drop_thr, where drop_thr =
+// min(int(rate * 2^31), 2^31 - 1) is computed by the caller in double;
+// kept probabilities are scaled by keep_scale = 1 / (1 - rate). drop_thr 0
+// turns dropout off (seed is then not read). seed: (1,) int32 on the device.
 extern "C" int a2f_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, float* lse,
                                        const int* kv_len, const float* slopes,
                                        int batch, int heads, int t_q, int t_k,
                                        int head_dim, int is_bf16, int causal,
                                        int period, float sm_scale,
-                                       void* stream) {
+                                       const int* seed, unsigned int drop_thr,
+                                       float keep_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return dispatch<__nv_bfloat16>(head_dim, q, k, v, o, lse, kv_len, slopes,
                                    batch * heads, heads, t_q, t_k, causal,
-                                   period, sm_scale, s);
+                                   period, sm_scale, seed, drop_thr, keep_scale, s);
   return dispatch<float>(head_dim, q, k, v, o, lse, kv_len, slopes,
                          batch * heads, heads, t_q, t_k, causal, period,
-                         sm_scale, s);
+                         sm_scale, seed, drop_thr, keep_scale, s);
 }

@@ -1,4 +1,4 @@
-"""FaceFormer inference: wav2vec2 encoder + autoregressive mesh decoder.
+"""FaceFormer: wav2vec2 encoder + autoregressive mesh decoder.
 
 Port of ``audio2face_tpu/models/faceformer.py`` (vocaset mode). The decoder
 is the single sequential KV-cached pass that equals the reference's
@@ -12,9 +12,17 @@ per-frame re-decoding loop:
 - the periodic positional encoding is a (period, 64) table indexed mod
   period; the ALiBi bias is computed from indices.
 
-Padded batches carry ``lengths`` (samples) and return a frame mask. On CUDA
-the decode loop is one launch of the decode kernel (``select_decode_impl``).
-BIWI mode and training are not ported yet.
+Padded batches carry ``lengths`` (samples) and return a frame mask. In
+inference on CUDA the decode loop is one launch of the decode kernel
+(``select_decode_impl``), whatever the autograd state: the kernel has no
+backward and raises when a gradient is asked of it. Gradients come only on
+request: ``train=True`` or ``differentiable=True`` decode with the
+differentiable step loop ``decode_kernel.decode_steps``. With
+``train=True`` the loop applies the five dropout keep-masks of the reference
+decoder layer (p = 0.1), drawn once for all frames before the loop, and
+checkpoints the loop at chunk granularity over frames, so that the per-step
+residuals live only inside one chunk's recomputed backward. BIWI mode is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ N_HEADS = 4
 PERIOD = 60
 FPS = 60
 AUDIO_SR = 16000
+DECODER_DROPOUT = 0.1
+MAX_DECODE_CHUNK = 64
 
 
 def periodic_positional_encoding(period: int = PERIOD, d_model: int = FEATURE_DIM) -> np.ndarray:
@@ -70,15 +80,21 @@ def frame_count(n_samples, fps: int = FPS):
     return q * fps + r * fps // AUDIO_SR
 
 
-def select_decode_impl(device: torch.device, dataset: str = "vocaset") -> str:
+def select_decode_impl(
+    device: torch.device, dataset: str = "vocaset", *, train: bool = False
+) -> str:
     """The decode implementation for ``device``: ``"fused"`` (the decode
-    kernel) on CUDA, ``"loop"`` (its plain Python loop) elsewhere.
+    kernel) for inference on CUDA, ``"loop"`` (its plain Python loop)
+    elsewhere, ``"steps"`` (the differentiable step loop) for training on any
+    device: the kernel is inference only.
 
     The kernel keeps its KV cache in device memory, so its only capacity
     limit is shared memory for the weights: on a card where those do not
     fit this raises (there is no fallback)."""
     if dataset != "vocaset":
         raise NotImplementedError(f"dataset={dataset!r} decode is not ported yet")
+    if train:
+        return "steps"
     device = torch.device(device)
     if device.type != "cuda":
         return "loop"
@@ -90,8 +106,38 @@ def select_decode_impl(device: torch.device, dataset: str = "vocaset") -> str:
     return "fused"
 
 
+def decode_chunk_size(n_frames: int) -> int:
+    """Frames per checkpointed chunk: the largest divisor of ``n_frames``
+    that is at most ``MAX_DECODE_CHUNK``."""
+    c = min(MAX_DECODE_CHUNK, n_frames)
+    while c > 1 and n_frames % c:
+        c -= 1
+    return max(c, 1)
+
+
+def decoder_keep_masks(
+    n_frames: int, bsz: int, dtype: torch.dtype, generator: torch.Generator, device,
+    rate: float = DECODER_DROPOUT,
+) -> dict:
+    """The five dropout keep-multipliers (0 or 1/(1-rate)) of the decoder
+    layer, for all frames at once: after the positional encoding (``m_pe``),
+    the self-attention (``m_sa``), the cross term (``m_ca``), inside the FFN
+    (``m_ff1``, 128 wide) and after it (``m_ff2``). Each is (T, B, width)."""
+    d = FEATURE_DIM
+
+    def keep(width):
+        m = torch.rand((n_frames, bsz, width), generator=generator, device=device) < (1.0 - rate)
+        return (m.float() / (1.0 - rate)).to(dtype)
+
+    return {"m_pe": keep(d), "m_sa": keep(d), "m_ca": keep(d), "m_ff1": keep(2 * d), "m_ff2": keep(d)}
+
+
 class FaceFormer(nn.Module):
-    """FaceFormer for inference; parameter names follow the JAX module."""
+    """FaceFormer; parameter names follow the JAX module.
+
+    ``remat_scan=False`` turns the chunk checkpointing of the training
+    decode loop off (every step's residuals are kept; only viable for small
+    B*T^2)."""
 
     def __init__(
         self,
@@ -100,6 +146,7 @@ class FaceFormer(nn.Module):
         dtype: Optional[torch.dtype] = None,
         dataset: str = "vocaset",
         encoder_config: Wav2Vec2Config = Wav2Vec2Config(),
+        remat_scan: Optional[bool] = None,
     ):
         super().__init__()
         if dataset != "vocaset":
@@ -109,6 +156,7 @@ class FaceFormer(nn.Module):
         self.n_onehot = n_onehot
         self.dtype = dtype
         self.dataset = dataset
+        self.remat_scan = remat_scan
         self.audio_encoder = Wav2Vec2Encoder(encoder_config)
         self.audio_feature_map = nn.Linear(encoder_config.hidden_size, d)
         self.obj_vector = nn.Linear(n_onehot, d, bias=False)
@@ -154,24 +202,45 @@ class FaceFormer(nn.Module):
         template: torch.Tensor,  # (B, V, 3)
         lengths: Optional[torch.Tensor] = None,  # (B,) valid sample counts
         *,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
         return_hidden: bool = False,
         use_kernels: bool = True,
+        encoder_hidden: Optional[torch.Tensor] = None,
+        differentiable: bool = False,
     ):
         """Returns (B, T, V, 3) vertices with T = frame_count(S), plus a
         (B, T) frame validity mask when ``lengths`` is given.
 
+        ``train=True`` turns on every regularizer (encoder dropouts,
+        SpecAugment, LayerDrop, attention dropout, the decoder's five
+        keep-masks), all drawn from ``generator`` (required, on the input's
+        device), and decodes with the chunk-checkpointed step loop.
         ``return_hidden=True`` returns the decoder hidden states (B, T, 64)
-        instead of vertices (serving applies the vertex head per time chunk).
-        ``use_kernels=False`` runs the plain versions of every kernel."""
+        instead of vertices (serving applies the vertex head per time chunk;
+        training runs it inside the chunked loss). ``encoder_hidden`` takes
+        externally computed encoder states (B, T, 768) in place of running
+        the encoder. ``use_kernels=False`` runs the plain versions of every
+        kernel. ``differentiable=True`` asks for gradients in eval mode: the
+        decode is the step loop without masks and the conv stack runs its
+        ``conv1d`` path, in place of the two inference-only kernels (which
+        raise on CUDA when a gradient is asked of them)."""
         cdt = self.dtype or torch.float32
         bsz, n_samples = audio.shape
         n_frames = frame_count(n_samples)
         frame_lengths = None if lengths is None else frame_count(lengths.to(audio.device))
+        if train and generator is None:
+            raise ValueError("train=True needs an explicit torch.Generator")
 
-        hidden = self.audio_encoder(
-            normalize_waveform(audio, lengths), output_len=n_frames, lengths=lengths,
-            output_lengths=frame_lengths, dtype=cdt, use_kernels=use_kernels,
-        )  # (B, T, 768)
+        if encoder_hidden is not None:
+            hidden = encoder_hidden
+        else:
+            hidden = self.audio_encoder(
+                normalize_waveform(audio, lengths), output_len=n_frames, lengths=lengths,
+                output_lengths=frame_lengths, dtype=cdt, use_kernels=use_kernels,
+                train=train, apply_spec_augment=train, generator=generator,
+                differentiable=differentiable,
+            )  # (B, T, 768)
 
         def mm(x, layer):  # f32 products, as JAX promotes bf16 x f32 params
             return torch.nn.functional.linear(x.float(), layer.weight, layer.bias)
@@ -180,12 +249,19 @@ class FaceFormer(nn.Module):
         cross = mm(mm(memory, self.cross_v), self.cross_out).to(cdt)
         style = mm(one_hot, self.obj_vector).to(cdt)  # (B, 64)
         pe = self.ppe.to(device=audio.device, dtype=cdt)
-        impl = select_decode_impl(audio.device, self.dataset) if use_kernels else "loop"
-        decode = (
-            decode_kernel.faceformer_decode_loop if impl == "fused"
-            else decode_kernel.decode_loop_reference
-        )
-        hs = decode(cross, style, pe, self.decoder_weights(cdt), period=PERIOD)
+        weights = self.decoder_weights(cdt)
+        impl = "loop"
+        if train or differentiable or use_kernels:
+            impl = select_decode_impl(audio.device, self.dataset, train=train or differentiable)
+        if impl == "steps":
+            masks = decoder_keep_masks(n_frames, bsz, cdt, generator, audio.device) if train else None
+            chunk = decode_chunk_size(n_frames) if train and self.remat_scan is not False else None
+            hs = decode_kernel.decode_steps(
+                cross, style, pe, weights, period=PERIOD, masks=masks, chunk=chunk)
+        elif impl == "fused":
+            hs = decode_kernel.faceformer_decode_loop(cross, style, pe, weights, period=PERIOD)
+        else:
+            hs = decode_kernel.decode_loop_reference(cross, style, pe, weights, period=PERIOD)
 
         frame_mask = None
         if lengths is not None:

@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("flash_attention", "conv_encoder", "decode_loop")
+SOURCES = ("flash_attention", "flash_attention_bwd", "conv_encoder", "decode_loop")
 NVCC_FLAGS = (
     "-O3",
     "-std=c++17",

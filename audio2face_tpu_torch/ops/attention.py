@@ -1,11 +1,24 @@
-"""Multi-head attention: a hand-written CUDA flash kernel + its plain version.
+"""Multi-head attention: hand-written CUDA flash kernels + their plain versions.
 
 Port of ``audio2face_tpu/ops/attention.py``. ``flash_attention`` launches the
 CUDA kernel ``csrc/flash_attention.cu`` for CUDA tensors (the TPU's
 ``flash_attention_pallas``) and runs ``mha_reference`` for CPU tensors. Both
 support, in any combination: causal masking, the FaceFormer period-bucketed
-ALiBi bias ``-slope_h * ((i - j) // period)``, and per-batch KV lengths.
-Inference only: attention dropout arrives with training.
+ALiBi bias ``-slope_h * ((i - j) // period)``, per-batch KV lengths, and
+attention-probability dropout in torch semantics (drop softmax weights,
+scale the survivors by ``1/(1-p)``; the logsumexp never sees the mask).
+
+The dropout mask is no random stream: each position's keep bit is a hash of
+``(seed, batch*head, row, col)`` (``dropout_keep_mask``, bit for bit the JAX
+package's ``_dropout_keep_tile``), so the forward kernel, the backward
+kernels and the plain versions all drop the same positions and no mask is
+ever stored.
+
+When an input requires grad, ``flash_attention`` goes through a
+``torch.autograd.Function`` whose backward is ``flash_attention_bwd``: for
+CUDA tensors the two kernels of ``csrc/flash_attention_bwd.cu`` (the TPU's
+``flash_attention_bwd_pallas``), whatever the shape, and for CPU tensors
+``flash_attention_bwd_reference``.
 """
 
 from __future__ import annotations
@@ -53,6 +66,81 @@ def alibi_period_bias(
     return -slopes[:, None, None] * dist[None].to(torch.float32)
 
 
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for int64 ``a`` in [0, 2^32) and a 32-bit constant,
+    in two 16-bit halves so that no int64 product overflows."""
+    lo = (a & 0xFFFF) * c
+    hi = (((a >> 16) * c) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def dropout_threshold(rate: float) -> int:
+    """The hash value below which a position is dropped, computed once in
+    double: ``min(int(rate * 2^31), 2^31 - 1)``."""
+    return min(int(rate * float(1 << 31)), (1 << 31) - 1)
+
+
+def dropout_keep_mask(seed, bh, row, col, rate: float) -> torch.Tensor:
+    """Dropout keep multiplier, 0 or ``1/(1-rate)`` as f32, of the positions
+    ``(bh, row, col)`` (broadcast integer tensors; ``bh = batch*H + head``;
+    ``row`` and ``col`` are global indices) under the int32 ``seed``.
+
+    The plain version of the kernels' hash: a murmur3-style finalizer over
+    wrapping 32-bit multiplies and logical right shifts. Torch has no uint32
+    arithmetic and ``>>`` on int32 is arithmetic, so this computes in int64
+    and masks to 32 bits after every multiply and add."""
+    bh, row, col = (torch.as_tensor(x).to(torch.int64) for x in (bh, row, col))
+    seed = torch.as_tensor(seed, device=row.device).to(torch.int64).reshape(()) & _M32
+    h = (
+        _mul32(row & _M32, 0x9E3779B9)
+        ^ _mul32(col & _M32, 0x85EBCA6B)
+        ^ ((seed + _mul32(bh & _M32, 0xC2B2AE35)) & _M32)
+    )
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x7FEB352D)
+    h = h ^ (h >> 15)
+    h = _mul32(h, 0x8363F812)
+    h = h ^ (h >> 16)
+    keep = (h & 0x7FFFFFFF) >= dropout_threshold(rate)
+    return keep.to(torch.float32) * float(np.float32(1.0 / (1.0 - rate)))
+
+
+def attention_keep_mask(b, h, t_q, t_k, seed, rate, device) -> torch.Tensor:
+    """(B, H, Tq, Tk) keep multipliers of one attention call."""
+    bh = torch.arange(b * h, device=device).reshape(b, h, 1, 1)
+    row = torch.arange(t_q, device=device).reshape(1, 1, t_q, 1)
+    col = torch.arange(t_k, device=device).reshape(1, 1, 1, t_k)
+    return dropout_keep_mask(seed, bh, row, col, rate)
+
+
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """f32 sums for f32 and bf16 inputs; f64 inputs (gradient checks) stay f64."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _masked_scores(q, k, causal, alibi_period, kv_lengths, sm_scale):
+    """Scaled, biased scores (B, H, Tq, Tk) in the accumulation type, masked
+    positions at ``DEFAULT_MASK_VALUE``, and the boolean validity mask."""
+    b, h, t_q, _ = q.shape
+    t_k = k.shape[2]
+    acc = _acc_dtype(q)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * sm_scale
+    i = torch.arange(t_q, device=q.device)[:, None]
+    j = torch.arange(t_k, device=q.device)[None, :]
+    if alibi_period is not None:
+        s = s + alibi_period_bias(h, t_q, t_k, alibi_period, q.device)[None].to(acc)
+    mask = torch.ones((t_q, t_k), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (j <= i)
+    mask = mask[None, None].expand(b, h, t_q, t_k)
+    if kv_lengths is not None:
+        mask = mask & (j[None, None] < kv_lengths.to(q.device)[:, None, None, None])
+    return torch.where(mask, s, torch.full_like(s, DEFAULT_MASK_VALUE)), mask
+
+
 def mha_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -63,67 +151,245 @@ def mha_reference(
     kv_lengths: Optional[torch.Tensor] = None,
     sm_scale: Optional[float] = None,
     return_lse: bool = False,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
 ):
     """Plain multi-head attention. q, k, v: (B, H, T, D) -> (B, H, Tq, D).
 
     Scores and softmax in f32; the probabilities are cast to v's dtype for
     the value product, as the kernel does. ``return_lse`` also returns the
-    per-row logsumexp (B, H, Tq) f32."""
+    per-row logsumexp (B, H, Tq) f32. With ``dropout_rate`` > 0 and an int32
+    ``dropout_seed`` (int or one-element tensor) the normalized
+    probabilities are multiplied by the hash mask of ``dropout_keep_mask``."""
     b, h, t_q, d = q.shape
     t_k = k.shape[2]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
-    i = torch.arange(t_q, device=q.device)[:, None]
-    j = torch.arange(t_k, device=q.device)[None, :]
-    if alibi_period is not None:
-        s = s + alibi_period_bias(h, t_q, t_k, alibi_period, q.device)[None]
-    mask = torch.ones((t_q, t_k), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = mask & (j <= i)
-    mask = mask[None, None].expand(b, h, t_q, t_k)
-    if kv_lengths is not None:
-        mask = mask & (j[None, None] < kv_lengths.to(q.device)[:, None, None, None])
-    s = torch.where(mask, s, torch.full_like(s, DEFAULT_MASK_VALUE))
+    acc = _acc_dtype(q)
+    s, _ = _masked_scores(q, k, causal, alibi_period, kv_lengths, sm_scale)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float()).to(q.dtype)
+    if dropout_rate > 0.0 and dropout_seed is not None:
+        p = p * attention_keep_mask(b, h, t_q, t_k, dropout_seed, dropout_rate, q.device).to(acc)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).to(acc), v.to(acc)).to(q.dtype)
     if return_lse:
         return out, torch.logsumexp(s, dim=-1)
     return out
 
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+def flash_attention_bwd_reference(
+    q, k, v, out, lse, g, *, causal=False, alibi_period=None, kv_lengths=None,
+    sm_scale=None, dropout_rate: float = 0.0, dropout_seed=None,
+):
+    """Plain version of the backward kernels: (dq, dk, dv) in q's dtype from
+    the saved ``out`` and ``lse`` and the output gradient ``g``, in the
+    closed form the kernels compute (m = dropout keep multiplier):
 
+      p = exp(s - lse), zeroed where masked;   delta = rowsum(g * out)
+      dv = (m p)^T g;   ds = p (m (g v^T) - delta) scale;   dq = ds k;   dk = ds^T q
 
-def _flash_attention_cuda(q, k, v, causal, alibi_period, kv_lengths, sm_scale):
+    ``m p`` and ``ds`` are rounded to the input dtype before their products."""
     b, h, t_q, d = q.shape
     t_k = k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    acc = _acc_dtype(q)
+    s, mask = _masked_scores(q, k, causal, alibi_period, kv_lengths, sm_scale)
+    p = torch.where(mask, torch.exp(s - lse.to(acc)[..., None]), torch.zeros_like(s))
+    g32, q32, k32, v32 = (x.to(acc) for x in (g, q, k, v))
+    dp = torch.einsum("bhqd,bhkd->bhqk", g32, v32)
+    pm = p
+    if dropout_rate > 0.0 and dropout_seed is not None:
+        m = attention_keep_mask(b, h, t_q, t_k, dropout_seed, dropout_rate, q.device).to(acc)
+        pm, dp = p * m, dp * m
+    delta = (g32 * out.to(acc)).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - delta) * sm_scale).to(q.dtype).to(acc)
+    dv = torch.einsum("bhqk,bhqd->bhkd", pm.to(q.dtype).to(acc), g32)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k32)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q32)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+# trailing arguments shared by the forward and backward entry points:
+# batch, heads, t_q, t_k, head_dim, is_bf16, causal, period, sm_scale, seed,
+# drop_thr, keep_scale, stream
+_TAIL_ARGTYPES = [ctypes.c_int] * 8 + [
+    ctypes.c_float, ctypes.c_void_p, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p,
+]
+_FWD_ARGTYPES = [ctypes.c_void_p] * 7 + _TAIL_ARGTYPES
+_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + _TAIL_ARGTYPES
+
+
+def _check_kernel_inputs(what, q, k, v):
+    b, h, _, d = q.shape
+    t_k = k.shape[2]
     if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash_attention kernel takes f32 or bf16, got {q.dtype}")
+        raise TypeError(f"{what} kernel takes f32 or bf16, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share one dtype")
     if k.shape != (b, h, t_k, d) or v.shape != k.shape:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head dims {_HEAD_DIMS}, got {d}")
-    qf, kf, vf = q.contiguous(), k.contiguous(), v.contiguous()
+        raise ValueError(f"{what} kernel takes head dims {_HEAD_DIMS}, got {d}")
+
+
+def _kernel_side_inputs(q, t_k, kv_lengths, dropout_rate, dropout_seed):
+    """Device tensors both kernels' launches take beside q, k, v: clamped
+    int32 KV lengths, ALiBi slopes, the (1,) int32 seed, and the dropout
+    threshold and keep scale (0 and 1 when dropout is off)."""
+    b, h = q.shape[:2]
     if kv_lengths is None:
         kvlen = torch.full((b,), t_k, dtype=torch.int32, device=q.device)
     else:
         kvlen = kv_lengths.to(device=q.device, dtype=torch.int32).clamp(0, t_k).contiguous()
     slopes = torch.as_tensor(alibi_slopes(h), device=q.device)
+    if dropout_rate > 0.0 and dropout_seed is not None:
+        seed = torch.as_tensor(dropout_seed, device=q.device).to(torch.int32).reshape(1)
+        thr, keep_scale = dropout_threshold(dropout_rate), 1.0 / (1.0 - dropout_rate)
+    else:
+        seed = torch.zeros(1, dtype=torch.int32, device=q.device)
+        thr, keep_scale = 0, 1.0
+    return kvlen, slopes, seed, thr, keep_scale
+
+
+def _flash_attention_cuda(
+    q, k, v, causal, alibi_period, kv_lengths, sm_scale, dropout_rate=0.0, dropout_seed=None,
+):
+    _check_kernel_inputs("flash_attention", q, k, v)
+    b, h, t_q, d = q.shape
+    t_k = k.shape[2]
+    qf, kf, vf = q.contiguous(), k.contiguous(), v.contiguous()
+    kvlen, slopes, seed, thr, keep_scale = _kernel_side_inputs(
+        q, t_k, kv_lengths, dropout_rate, dropout_seed)
     out = torch.empty((b, h, t_q, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device)
-    fn = _build.function("flash_attention", "a2f_flash_attention_fwd", _ARGTYPES)
+    fn = _build.function("flash_attention", "a2f_flash_attention_fwd", _FWD_ARGTYPES)
     rc = fn(
         qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), out.data_ptr(), lse.data_ptr(),
         kvlen.data_ptr(), slopes.data_ptr(), b, h, t_q, t_k, d,
         int(q.dtype == torch.bfloat16), int(causal), int(alibi_period or 0),
-        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
+        float(sm_scale), seed.data_ptr(), thr, keep_scale,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "flash_attention")
     flash_attention.launches += 1
     return out, lse
+
+
+def _flash_attention_bwd_cuda(
+    q, k, v, out, lse, g, causal, alibi_period, kv_lengths, sm_scale, dropout_rate, dropout_seed,
+):
+    _check_kernel_inputs("flash_attention_bwd", q, k, v)
+    b, h, t_q, d = q.shape
+    t_k = k.shape[2]
+    if out.shape != q.shape or g.shape != q.shape or lse.shape != (b, h, t_q):
+        raise ValueError(
+            f"shapes out {tuple(out.shape)} g {tuple(g.shape)} lse {tuple(lse.shape)} "
+            f"for q {tuple(q.shape)}"
+        )
+    # autograd hands over strided views (after a transpose); the kernels
+    # take contiguous (B*H, T, D) slabs
+    qf, kf, vf = q.contiguous(), k.contiguous(), v.contiguous()
+    gf = g.to(q.dtype).contiguous()
+    lsef = lse.to(torch.float32).contiguous()
+    delta = (gf.float() * out.float()).sum(dim=-1).contiguous()  # (B, H, Tq)
+    kvlen, slopes, seed, thr, keep_scale = _kernel_side_inputs(
+        q, t_k, kv_lengths, dropout_rate, dropout_seed)
+    dq, dk, dv = torch.empty_like(qf), torch.empty_like(kf), torch.empty_like(vf)
+    fn = _build.function("flash_attention_bwd", "a2f_flash_attention_bwd", _BWD_ARGTYPES)
+    rc = fn(
+        qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), gf.data_ptr(), lsef.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        kvlen.data_ptr(), slopes.data_ptr(), b, h, t_q, t_k, d,
+        int(q.dtype == torch.bfloat16), int(causal), int(alibi_period or 0),
+        float(sm_scale), seed.data_ptr(), thr, keep_scale,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(rc, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    g: torch.Tensor,
+    *,
+    causal: bool = False,
+    alibi_period: Optional[int] = None,
+    kv_lengths: Optional[torch.Tensor] = None,
+    sm_scale: Optional[float] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
+):
+    """Backward of ``flash_attention``: (dq, dk, dv) in q's dtype from the
+    forward's ``out`` and ``lse`` and the output gradient ``g``.
+
+    CUDA tensors launch the two backward kernels (dk/dv, then dq) for every
+    shape; CPU tensors run ``flash_attention_bwd_reference``. With dropout,
+    ``dropout_seed`` must be the forward's."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(
+            q, k, v, out, lse, g, causal=causal, alibi_period=alibi_period,
+            kv_lengths=kv_lengths, sm_scale=sm_scale, dropout_rate=dropout_rate,
+            dropout_seed=dropout_seed,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cuda or cpu, not {q.device}")
+    return _flash_attention_bwd_cuda(
+        q, k, v, out, lse, g, causal, alibi_period, kv_lengths, sm_scale,
+        dropout_rate, dropout_seed,
+    )
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttentionFunction(torch.autograd.Function):
+    """``flash_attention`` under autograd: the forward saves q, k, v, out,
+    lse, the KV lengths and the dropout seed; the backward is
+    ``flash_attention_bwd`` (the kernels on CUDA, always)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lengths, dropout_seed, causal, alibi_period, sm_scale,
+                dropout_rate):
+        out, lse = _flash_attention_forward(
+            q, k, v, causal, alibi_period, kv_lengths, sm_scale, dropout_rate, dropout_seed)
+        ctx.save_for_backward(q, k, v, out, lse, kv_lengths, dropout_seed)
+        ctx.options = (causal, alibi_period, sm_scale, dropout_rate)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, out, lse, kv_lengths, dropout_seed = ctx.saved_tensors
+        causal, alibi_period, sm_scale, dropout_rate = ctx.options
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, g, causal=causal, alibi_period=alibi_period,
+            kv_lengths=kv_lengths, sm_scale=sm_scale, dropout_rate=dropout_rate,
+            dropout_seed=dropout_seed,
+        )
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def _flash_attention_forward(
+    q, k, v, causal, alibi_period, kv_lengths, sm_scale, dropout_rate, dropout_seed,
+):
+    """(out, lse): the kernel for CUDA tensors, the plain version for CPU."""
+    if q.device.type == "cpu":
+        return mha_reference(
+            q, k, v, causal=causal, alibi_period=alibi_period, kv_lengths=kv_lengths,
+            sm_scale=sm_scale, return_lse=True, dropout_rate=dropout_rate,
+            dropout_seed=dropout_seed,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    return _flash_attention_cuda(
+        q, k, v, causal, alibi_period, kv_lengths, sm_scale, dropout_rate, dropout_seed)
 
 
 def flash_attention(
@@ -136,24 +402,35 @@ def flash_attention(
     kv_lengths: Optional[torch.Tensor] = None,
     sm_scale: Optional[float] = None,
     return_lse: bool = False,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
 ):
     """Fused MHA. q, k, v: (B, H, T, D) f32 or bf16 -> (B, H, Tq, D).
 
     CUDA tensors launch the flash kernel; CPU tensors run ``mha_reference``.
     ``return_lse`` also returns the per-row logsumexp (B, H, Tq) f32. Rows
-    of a query whose keys are all masked are finite padding."""
+    of a query whose keys are all masked are finite padding.
+
+    ``dropout_rate`` > 0 with an int32 ``dropout_seed`` (an int or a
+    one-element integer tensor, drawn once per call by the caller) drops
+    attention probabilities by the hash mask. Differentiable in q, k and v:
+    the backward is ``flash_attention_bwd``."""
     if alibi_period is not None and alibi_period <= 0:
         raise ValueError(f"alibi_period must be positive, got {alibi_period}")
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        return mha_reference(
-            q, k, v, causal=causal, alibi_period=alibi_period,
-            kv_lengths=kv_lengths, sm_scale=sm_scale, return_lse=return_lse,
-        )
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    out, lse = _flash_attention_cuda(q, k, v, causal, alibi_period, kv_lengths, sm_scale)
+    if dropout_rate == 0.0 or dropout_seed is None:
+        dropout_rate, dropout_seed = 0.0, None
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if dropout_seed is not None:
+            dropout_seed = torch.as_tensor(dropout_seed, device=q.device).to(torch.int32).reshape(1)
+        out, lse = _FlashAttentionFunction.apply(
+            q, k, v, kv_lengths, dropout_seed, causal, alibi_period, sm_scale, dropout_rate)
+    else:
+        out, lse = _flash_attention_forward(
+            q, k, v, causal, alibi_period, kv_lengths, sm_scale, dropout_rate, dropout_seed)
     return (out, lse) if return_lse else out
 
 

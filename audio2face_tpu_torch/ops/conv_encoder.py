@@ -167,13 +167,22 @@ def fused_conv_encoder(
 ) -> torch.Tensor:
     """Waveform -> (B, T_out, 512) bf16 latents (conv stack + GN + GELU).
 
-    CUDA tensors launch the kernel family; CPU tensors run the plain
-    version."""
+    CUDA tensors launch the kernel family, which is inference only: with
+    gradients enabled and an input that requires one it raises. CPU tensors
+    run the plain version."""
     if x.device.type == "cpu":
         return conv_encoder_reference(x, kernels, gn_scale, gn_bias, lengths)
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv_encoder runs on cuda or cpu, not {x.device}")
     _check(x, kernels, gn_scale, gn_bias)
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, *kernels, gn_scale, gn_bias)
+    ):
+        raise RuntimeError(
+            "fused_conv_encoder has no backward: call it under torch.no_grad(), or ask "
+            "for the differentiable conv path (FaceFormer(..., differentiable=True), "
+            "FeatureEncoder(..., train=True))"
+        )
     return _conv_encoder_cuda(x, kernels, gn_scale, gn_bias, lengths)
 
 

@@ -4,7 +4,9 @@ Port of ``audio2face_tpu/ops/decode_kernel.py`` (vocaset variant).
 ``faceformer_decode_loop`` runs the whole autoregressive loop: for CUDA
 tensors in one launch of ``csrc/decode_loop.cu`` (one block per batch item,
 weights in shared memory, the KV cache in device memory), for CPU tensors
-as ``decode_loop_reference``, a Python loop over t. Each step:
+as ``decode_loop_reference``, a Python loop over t (``decode_steps`` in f32;
+``decode_steps`` is also the differentiable loop that training runs, with
+dropout masks and chunk checkpointing). Each step:
 
   x_t   = emb_t + PPE[t mod period]
   attn  = softmax_{j<=t}(q_t . k_j / sqrt(hd) - slope_h * ((t-j) // period)) v_j
@@ -15,14 +17,18 @@ as ``decode_loop_reference``, a Python loop over t. Each step:
 
 Weights use the JAX kernel's dict keys, kernels in (in, out) order:
 ``{q,k,v,o,f1,f2,fb}_{kernel,bias}`` and ``ln{1,2,3}_{scale,bias}``.
-Inference only; the BIWI variant (``mem_k``/``mem_v``) is not ported yet.
+The kernel is inference only; the BIWI variant (``mem_k``/``mem_v``) is not ported yet.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from audio2face_tpu_torch.ops import _build
 from audio2face_tpu_torch.ops.attention import alibi_slopes
@@ -57,49 +63,110 @@ def smem_fits(device: torch.device) -> bool:
     return SMEM_BYTES <= limit
 
 
-def _layer_norm(x: torch.Tensor, scale, bias) -> torch.Tensor:
-    mu = x.mean(dim=-1, keepdim=True)
-    var = (x - mu).square().mean(dim=-1, keepdim=True)
-    return (x - mu) * torch.rsqrt(var + 1e-5) * scale + bias
+def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """LayerNorm with f32 statistics, returned in x's dtype (one fused call:
+    the loop below is bound by its launch count)."""
+    return F.layer_norm(x.float(), x.shape[-1:], scale, bias, 1e-5).to(x.dtype)
+
+
+def decode_steps(
+    cross: torch.Tensor,  # (B, T, 64) precomputed cross term
+    style: torch.Tensor,  # (B, 64)
+    pe: torch.Tensor,  # (period, 64)
+    weights: dict,
+    *,
+    period: int = 60,
+    masks: Optional[dict] = None,
+    chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """The KV-cached decode step of FaceFormer, one Python iteration per
+    frame, differentiable (no in-place cache writes), in the compute dtype
+    of its inputs (products in ``cross.dtype``; LayerNorm, scores and softmax
+    in f32), with optional dropout ``masks``: keep-multipliers (T, B, width)
+    under the keys ``m_pe``, ``m_sa``, ``m_ca``, ``m_ff1`` (128 wide) and
+    ``m_ff2``. Returns (B, T, 64).
+
+    ``chunk`` frames at a time run under ``torch.utils.checkpoint``: only
+    each chunk's carry (next embedding and the K/V prefix) is kept, and the
+    backward recomputes one chunk's steps at a time, so residual memory is
+    O(T^2 / chunk) instead of O(T^2). ``chunk=None`` keeps every step's
+    residuals."""
+    bsz, n_frames, d = cross.shape
+    nh, hd = N_HEADS, HD
+    w = weights
+    qkv_k = torch.cat([w["q_kernel"], w["k_kernel"], w["v_kernel"]], dim=1)
+    qkv_b = torch.cat([w["q_bias"], w["k_bias"], w["v_bias"]])
+    slopes = torch.as_tensor(alibi_slopes(nh), device=cross.device)
+    pos = torch.arange(n_frames, device=cross.device)
+    sm_scale = 1.0 / math.sqrt(hd)
+    mask_keys = sorted(masks) if masks else []
+    fb_bias_style = w["fb_bias"] + style  # (B, 64): the feedback's constant part
+
+    def run(t0, t1, emb, k_cache, v_cache, cross_c, *mask_c):
+        m = dict(zip(mask_keys, mask_c))
+        # ALiBi bias of this run of frames, -slope_h * ((t - j) // period): (H, t1 - t0, t1)
+        dist = torch.div(pos[t0:t1, None] - pos[None, :t1], period, rounding_mode="floor")
+        bias = -slopes[:, None, None] * dist[None].float()
+        hs = []
+        for t in range(t0, t1):
+            i = t - t0
+            x = emb + pe[t % period]
+            if m:
+                x = x * m["m_pe"][i]
+            qkv = torch.addmm(qkv_b, x, qkv_k)  # (B, 192); columns are head*hd + lane
+            q = qkv[:, :d].reshape(bsz, nh, hd)
+            k_cache = torch.cat([k_cache, qkv[:, None, d : 2 * d]], dim=1)  # (B, t+1, 64)
+            v_cache = torch.cat([v_cache, qkv[:, None, 2 * d :]], dim=1)
+            kmat = k_cache.reshape(bsz, t + 1, nh, hd)
+            vmat = v_cache.reshape(bsz, t + 1, nh, hd)
+            s = torch.einsum("bhd,bthd->bht", q.float(), kmat.float()) * sm_scale
+            s = s + bias[:, i, : t + 1]
+            p = torch.softmax(s, dim=-1)
+            attn = torch.einsum("bht,bthd->bhd", p.to(vmat.dtype), vmat).reshape(bsz, d)
+            sa = torch.addmm(w["o_bias"], attn, w["o_kernel"])
+            if m:
+                sa = sa * m["m_sa"][i]
+            h = _layer_norm(x + sa, w["ln1_scale"], w["ln1_bias"])
+            ca = cross_c[:, i]
+            if m:
+                ca = ca * m["m_ca"][i]
+            h = _layer_norm(h + ca, w["ln2_scale"], w["ln2_bias"])
+            ff = torch.relu(torch.addmm(w["f1_bias"], h, w["f1_kernel"]))
+            if m:
+                ff = ff * m["m_ff1"][i]
+            ff = torch.addmm(w["f2_bias"], ff, w["f2_kernel"])
+            if m:
+                ff = ff * m["m_ff2"][i]
+            h = _layer_norm(h + ff, w["ln3_scale"], w["ln3_bias"])
+            hs.append(h)
+            emb = torch.addmm(fb_bias_style, h, w["fb_kernel"])
+        return emb, k_cache, v_cache, torch.stack(hs, dim=1)
+
+    emb = style
+    k_cache = cross.new_zeros((bsz, 0, d))
+    v_cache = cross.new_zeros((bsz, 0, d))
+    step = n_frames if chunk is None else chunk
+    out = []
+    for t0 in range(0, n_frames, step):
+        t1 = min(t0 + step, n_frames)
+        args = (emb, k_cache, v_cache, cross[:, t0:t1], *(masks[key][t0:t1] for key in mask_keys))
+        if chunk is None or not torch.is_grad_enabled():
+            emb, k_cache, v_cache, hs = run(t0, t1, *args)
+        else:
+            emb, k_cache, v_cache, hs = checkpoint(run, t0, t1, *args, use_reentrant=False)
+        out.append(hs)
+    return torch.cat(out, dim=1)
 
 
 def decode_loop_reference(
     cross: torch.Tensor, style: torch.Tensor, pe: torch.Tensor, weights: dict,
     *, period: int = 60,
 ) -> torch.Tensor:
-    """Plain version: the KV-cached decode step of FaceFormer's inference
-    loop, in f32, one Python iteration per frame. Returns (B, T, 64) in
+    """Plain version of the kernel: ``decode_steps`` in f32 (the kernel
+    computes in f32 whatever its inputs' type). Returns (B, T, 64) in
     ``cross.dtype``."""
-    b, t_steps, d = cross.shape
     w = {k: v.float() for k, v in weights.items()}
-    qkv_k = torch.cat([w["q_kernel"], w["k_kernel"], w["v_kernel"]], dim=1)
-    qkv_b = torch.cat([w["q_bias"], w["k_bias"], w["v_bias"]])
-    slopes = torch.as_tensor(alibi_slopes(N_HEADS), device=cross.device)
-    cross32, pe32 = cross.float(), pe.float()
-    style32 = style.float()
-    kv = torch.zeros((b, t_steps, 2 * d), device=cross.device)
-    pos = torch.arange(t_steps, device=cross.device)
-    emb = style32
-    hs = []
-    for t in range(t_steps):
-        x = emb + pe32[t % period]
-        qkv = x @ qkv_k + qkv_b
-        q = qkv[:, :d].reshape(b, N_HEADS, HD)
-        kv[:, t] = qkv[:, d:]
-        kmat = kv[:, : t + 1, :d].reshape(b, t + 1, N_HEADS, HD)
-        vmat = kv[:, : t + 1, d:].reshape(b, t + 1, N_HEADS, HD)
-        s = torch.einsum("bhd,bthd->bht", q, kmat) * (1.0 / HD**0.5)
-        dist = torch.div(t - pos[: t + 1], period, rounding_mode="floor").float()
-        s = s - slopes[None, :, None] * dist[None, None, :]
-        p = torch.softmax(s, dim=-1)
-        attn = torch.einsum("bht,bthd->bhd", p, vmat).reshape(b, d)
-        h = _layer_norm(x + attn @ w["o_kernel"] + w["o_bias"], w["ln1_scale"], w["ln1_bias"])
-        h = _layer_norm(h + cross32[:, t], w["ln2_scale"], w["ln2_bias"])
-        ff = torch.relu(h @ w["f1_kernel"] + w["f1_bias"]) @ w["f2_kernel"] + w["f2_bias"]
-        h = _layer_norm(h + ff, w["ln3_scale"], w["ln3_bias"])
-        hs.append(h)
-        emb = h @ w["fb_kernel"] + w["fb_bias"] + style32
-    return torch.stack(hs, dim=1).to(cross.dtype)
+    return decode_steps(cross.float(), style.float(), pe.float(), w, period=period).to(cross.dtype)
 
 
 def _pack_weights(weights: dict, device) -> torch.Tensor:
@@ -149,8 +216,9 @@ def faceformer_decode_loop(
     period: int = 60,
 ) -> torch.Tensor:
     """Run the decode loop; returns hidden states (B, T, 64) in
-    ``cross.dtype``. CUDA tensors launch the kernel; CPU tensors run the
-    plain loop."""
+    ``cross.dtype``. CUDA tensors launch the kernel, which is inference
+    only: with gradients enabled and an input that requires one it raises.
+    CPU tensors run the plain loop."""
     b, t_steps, d = cross.shape
     if d != D or style.shape != (b, D) or pe.shape != (period, D):
         raise ValueError(
@@ -161,6 +229,14 @@ def faceformer_decode_loop(
         return decode_loop_reference(cross, style, pe, weights, period=period)
     if cross.device.type != "cuda":
         raise ValueError(f"faceformer_decode_loop runs on cuda or cpu, not {cross.device}")
+    if torch.is_grad_enabled() and any(
+        x.requires_grad for x in (cross, style, *weights.values())
+    ):
+        raise RuntimeError(
+            "faceformer_decode_loop has no backward: call it under torch.no_grad(), or "
+            "ask for the differentiable step loop (FaceFormer(..., differentiable=True), "
+            "decode_steps)"
+        )
     return _decode_loop_cuda(cross, style, pe, weights, period)
 
 

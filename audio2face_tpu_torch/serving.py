@@ -28,6 +28,7 @@ import torch
 from audio2face_tpu_torch.compat.jax_params import faceformer_state_dict_from_jax
 from audio2face_tpu_torch.models.faceformer import AUDIO_SR, FaceFormer
 from audio2face_tpu_torch.ops.dsp import resample
+from audio2face_tpu_torch.utils.device import resolve_device
 from audio2face_tpu_torch.utils.shapes import round_up as _round_up
 
 
@@ -49,16 +50,6 @@ def _pad_batch(b: int, max_batch: int) -> int:
         if g >= b:
             return g
     raise ValueError(f"group of {b} clips exceeds max_batch={max_batch}")
-
-
-def _resolve_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "FaceFormerPredictor runs on the GPU by default, but CUDA is not "
-            "available; pass device='cpu' to run on the CPU"
-        )
-    return device
 
 
 class FaceFormerPredictor:
@@ -91,7 +82,7 @@ class FaceFormerPredictor:
             raise ValueError("pass variables= or state_dict=, not both")
         if dataset != "vocaset":
             raise NotImplementedError(f"dataset={dataset!r} serving is not ported yet")
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device, "FaceFormerPredictor")
         self.n_onehot = n_onehot
         self.n_verts = n_verts
         self.max_batch = max_batch

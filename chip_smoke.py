@@ -11,13 +11,21 @@ which raises (exit code != 0) on failure:
    the card, at the shapes the flagship request gives it (60 s x batch 8),
    with a stated tolerance; times kernel, plain version and (attention)
    one ``scaled_dot_product_attention`` call with CUDA events;
-4. main path: the full-width FaceFormerPredictor (wav2vec2-base, 15069-wide
-   vertex head, bf16, random weights from a seed) answers three requests
-   (8 x 60 s, 5 clips of 3-45 s, one 44.1 kHz clip); every kernel must have
-   launched during them; one 2 x 10 s batch is held against the same
-   weights run through the plain versions;
-5. prints the ``{"kernels": [...]}`` line, then, last,
+4. serving path: the full-width FaceFormerPredictor (wav2vec2-base,
+   15069-wide vertex head, bf16, random weights from a seed) answers three
+   requests (8 x 60 s, 5 clips of 3-45 s, one 44.1 kHz clip); the forward
+   kernels must have launched during them; one 2 x 10 s batch is held
+   against the same weights run through the plain versions;
+5. training path: the full-width Audio2FaceExperiment (same model, bf16
+   compute, batch 8 x 10 s with mixed lengths) takes three optimizer steps;
+   attention forward (with dropout) and backward kernels must have launched,
+   the inference-only kernels must not; the loss falls; then the gradients
+   of an f32 model through the kernels are held against the plain versions;
+6. prints the ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
+
+Gradients are off process-wide (the inference phases build no autograd
+graph); the training phases turn them on in their own scope.
 """
 
 from __future__ import annotations
@@ -62,10 +70,13 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def row_scaled_err(out, ref) -> float:
-    """Largest |out - ref| over the largest |ref| of its row (last axis)."""
-    diff = (out.float() - ref.float()).abs()
-    return (diff / ref.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)).max().item()
+def row_scaled_err(out, ref, floor: float = 0.0) -> float:
+    """Largest |out - ref| over the largest |ref| of its row (last axis); a
+    row's scale is at least ``floor`` times the largest |ref| of all."""
+    ref = ref.float()
+    diff = (out.float() - ref).abs()
+    scale = ref.abs().amax(dim=-1, keepdim=True).clamp_min(max(floor * ref.abs().max().item(), 1e-30))
+    return (diff / scale).max().item()
 
 
 # K1 in bf16 against its plain version: each output element may differ by
@@ -74,6 +85,23 @@ def row_scaled_err(out, ref) -> float:
 # plain version after) and round each output to bf16 (up to one step,
 # 2^-8 of the row's largest value, apart).
 K1_BF16_ROW_TOL = 0.02
+# K4 in bf16 against its plain version, per gradient (dq, dk, dv): each
+# element may differ by this share of the largest |value| of its row. Both
+# sides round m.p and dS to bf16 before their products and each gradient to
+# bf16 at the end; the kernel's exp is __expf. Readings at the training
+# shape are 0.007-0.008 (one output step, 2^-8 of the row's largest value,
+# plus the roundings before the products), so the bar is ~2.5x above them.
+# A row whose gradient vanishes analytically (a causal first row's dq) is
+# rounding noise: its scale is floored at 1e-3 of the tensor's largest.
+K4_BF16_ROW_TOL, K4_ROW_FLOOR = 0.02, 1e-3
+# K4 in f32: the bar of the JAX package's tests for its backward kernels
+K4_F32_RTOL, K4_F32_ATOL = 2e-3, 2e-4
+# gradients of the f32 model through the kernels against the plain versions,
+# per parameter leaf: largest |difference| over the leaf's largest |value|
+# (floored at 1e-4 of the largest of any leaf, for leaves that vanish
+# analytically). f32 arithmetic in another summation order through 12
+# layers and 120 decode steps
+GRAD_LEAF_TOL = 1e-3
 # K3 in bf16: f32 math on both sides that differs by summation order (the
 # f32 bar, 2e-4), then one rounding to bf16 each: at most one bf16 step,
 # 2^-7 of |ref|, apart
@@ -93,7 +121,9 @@ def main() -> int:
     from audio2face_tpu_torch.ops import attention as attn_ops
     from audio2face_tpu_torch.ops import conv_encoder as ce
     from audio2face_tpu_torch.ops import decode_kernel as dk
+    from audio2face_tpu_torch.config import ExpConfig
     from audio2face_tpu_torch.serving import FaceFormerPredictor
+    from audio2face_tpu_torch.training.trainer import Audio2FaceExperiment
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -104,7 +134,7 @@ def main() -> int:
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.set_grad_enabled(False)  # inference only: no autograd graphs
+    torch.set_grad_enabled(False)  # process-wide; the training phases enable it in scope
 
     # ---- 2. build -------------------------------------------------------
     tic = time.perf_counter()
@@ -149,7 +179,8 @@ def main() -> int:
         lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask), 10,
     )
     flops = 4.0 * h * d * t * kvl.sum().item()
-    nbytes = 4 * b * h * t * d * 2 + b * h * t * 4 + b * 4
+    # q read and out written whole; k and v only up to each item's KV length
+    nbytes = 2 * b * h * t * d * 2 + 2 * h * kvl.sum().item() * d * 2 + b * h * t * 4 + b * 4
     bms, bby = bound(nbytes, flops / PEAK_BF16_FLOPS)
     rows.append({
         "name": "flash_attention", "route": "cuda",
@@ -247,6 +278,148 @@ def main() -> int:
     del cross, out, ref, diff
     torch.cuda.empty_cache()
 
+
+    # ---- 3e. K1 with dropout, at the training shape ------------------------
+    b, h, t, d = 8, 12, 600, 64
+    bf = torch.bfloat16
+    q, k, v, go = (randn(b, h, t, d, dtype=bf) for _ in range(4))
+    kvl = torch.tensor([600, 600, 450, 300, 600, 150, 600, 30], dtype=torch.int32, device=dev)
+    seed = torch.tensor([20240607], dtype=torch.int32, device=dev)
+    drop = dict(dropout_rate=0.1, dropout_seed=seed)
+    out, lse = attn_ops.flash_attention(q, k, v, kv_lengths=kvl, return_lse=True, **drop)
+    ref = attn_ops.mha_reference(q, k, v, kv_lengths=kvl, **drop)
+    torch.cuda.synchronize()
+    err_d = (out.float() - ref.float()).abs().max().item()
+    rel_d = row_scaled_err(out, ref)
+    require(rel_d <= K1_BF16_ROW_TOL and bool(torch.isfinite(out.float()).all()),
+            f"K1 dropout err {rel_d} of the row's largest |out| > {K1_BF16_ROW_TOL}")
+    # rate 0 is the no-dropout launch bit for bit
+    same = torch.equal(attn_ops.flash_attention(q, k, v, kv_lengths=kvl, dropout_rate=0.0, dropout_seed=seed),
+                       attn_ops.flash_attention(q, k, v, kv_lengths=kvl))
+    require(same, "K1 with dropout_rate 0 differs from the launch without dropout")
+    # the kernel's mask itself: with q = 0 every probability is 1/600, and
+    # v[j] = onehot(j mod 64) makes out[row, c] count the kept keys j = c
+    # (mod 64), exactly; the plain hash must keep the very same positions
+    probe_v = torch.eye(64, device=dev, dtype=bf).repeat(10, 1)[:t].expand(b, h, t, d).contiguous()
+    counted = attn_ops.flash_attention(torch.zeros_like(q), k, probe_v, **drop).float()
+    kept_kernel = torch.round(counted * t / float(torch.tensor(1.0 / 0.9).to(bf))).to(torch.int64)
+    keep = attn_ops.attention_keep_mask(b, h, t, t, seed, 0.1, dev) > 0
+    kept_plain = torch.nn.functional.pad(keep.to(torch.int32), (0, 640 - t)).reshape(
+        b, h, t, 10, 64).sum(dim=3)
+    dropped_share = 1.0 - keep.float().mean().item()
+    require(torch.equal(kept_kernel, kept_plain), "K1's dropout mask differs from the plain hash")
+    require(0.09 < dropped_share < 0.11, f"dropped share {dropped_share} at rate 0.1")
+    print(json.dumps({"check": "flash_attention dropout 0.1 (8,12,600,64)", "max_abs_err": err_d,
+                      "max_err_over_row_max": rel_d, "tol": K1_BF16_ROW_TOL,
+                      "kept_counts_equal": True, "dropped_share": dropped_share,
+                      "rate0_bit_identical": same}), flush=True)
+    del counted, keep, kept_plain, kept_kernel, probe_v
+    k1 = rows[0]
+    k1["train_shape"] = [b, h, t, d]
+    k1["dropout_max_abs_err"], k1["dropout_max_err_over_row_max"] = err_d, rel_d
+    k1["dropout_ms"] = cuda_ms(torch, lambda: attn_ops.flash_attention(q, k, v, kv_lengths=kvl, **drop), 20)
+    k1["train_shape_ms"] = cuda_ms(torch, lambda: attn_ops.flash_attention(q, k, v, kv_lengths=kvl), 20)
+    k1["dropout_plain_ms"] = cuda_ms(torch, lambda: attn_ops.mha_reference(q, k, v, kv_lengths=kvl, **drop), 3)
+
+    # ---- 3f. K4 flash attention backward, same shape, dropout + kv_lengths --
+    def k4_errs(got, want):
+        return {n: (row_scaled_err(a, w, K4_ROW_FLOOR), (a.float() - w.float()).abs().max().item())
+                for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+
+    bwd_kw = dict(kv_lengths=kvl, **drop)
+    got = attn_ops.flash_attention_bwd(q, k, v, out, lse, go, **bwd_kw)
+    want = attn_ops.flash_attention_bwd_reference(q, k, v, out, lse, go, **bwd_kw)
+    torch.cuda.synchronize()
+    errs = k4_errs(got, want)
+    print(json.dumps({"check": "flash_attention_bwd dropout kv_lengths (8,12,600,64)",
+                      "row_err_and_abs_err": errs, "tol": K4_BF16_ROW_TOL}), flush=True)
+    require(all(e[0] <= K4_BF16_ROW_TOL for e in errs.values())
+            and all(bool(torch.isfinite(x.float()).all()) for x in got),
+            f"K4 err {errs} of the row's largest |gradient| > {K4_BF16_ROW_TOL}")
+    # keys past an item's KV length get no gradient
+    require(all(not x[i, :, n:].any() for x in got[1:] for i, n in enumerate(kvl.tolist())),
+            "K4 gave a gradient to keys past the KV length")
+    ms = cuda_ms(torch, lambda: attn_ops.flash_attention_bwd(q, k, v, out, lse, go, **bwd_kw), 20)
+    ms_nodrop = cuda_ms(torch, lambda: attn_ops.flash_attention_bwd(q, k, v, out, lse, go, kv_lengths=kvl), 20)
+    plain_ms = cuda_ms(torch, lambda: attn_ops.flash_attention_bwd_reference(q, k, v, out, lse, go, **bwd_kw), 3)
+    sdpa_mask = (torch.arange(t, device=dev)[None, :] < kvl[:, None])[:, None, None, :]
+    with torch.enable_grad():
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        lib_out = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask)
+        lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(lib_out, leaves, go, retain_graph=True), 20)
+    del leaves, lib_out
+    pairs = float(h * t * kvl.sum().item())  # unmasked (query, key) pairs
+    # q, out, dO read and dq, dk, dv written whole (dk and dv past the KV
+    # length are zeros that must be written); k and v read only up to each
+    # item's KV length; lse and delta
+    nbytes = 6 * b * h * t * d * 2 + 2 * h * kvl.sum().item() * d * 2 + 2 * b * h * t * 4 + b * 4
+    bms, bby = bound(nbytes, 10.0 * d * pairs / PEAK_BF16_FLOPS)
+    rows.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "audio2face_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "audio2face_tpu/ops/attention.py:662",
+        "wrapper": attn_ops.flash_attention_bwd,
+        "max_abs_err": max(e[1] for e in errs.values()),
+        "max_err_over_row_max": max(e[0] for e in errs.values()), "tol_over_row_max": K4_BF16_ROW_TOL,
+        "ms": ms, "no_dropout_ms": ms_nodrop, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+        "library_ms": lib_ms, "train_shape": [b, h, t, d],
+    })
+    # causal + period-60 ALiBi with dropout at the same shape
+    kw = dict(causal=True, alibi_period=60, **drop)
+    out_c, lse_c = attn_ops.flash_attention(q, k, v, return_lse=True, **kw)
+    errs = k4_errs(attn_ops.flash_attention_bwd(q, k, v, out_c, lse_c, go, **kw),
+                   attn_ops.flash_attention_bwd_reference(q, k, v, out_c, lse_c, go, **kw))
+    print(json.dumps({"check": "flash_attention_bwd causal period=60 dropout (8,12,600,64)",
+                      "row_err_and_abs_err": errs, "tol": K4_BF16_ROW_TOL}), flush=True)
+    require(all(e[0] <= K4_BF16_ROW_TOL for e in errs.values()), f"K4 causal/period err {errs}")
+    del q, k, v, go, out, lse, ref, got, want, out_c, lse_c
+    # both attention kernels at the serving length, for the record
+    q, k, v, go = (randn(8, 12, 3600, 64, dtype=bf) for _ in range(4))
+    out, lse = attn_ops.flash_attention(q, k, v, return_lse=True, **drop)
+    k1["long_shape_dropout_ms"] = cuda_ms(torch, lambda: attn_ops.flash_attention(q, k, v, **drop), 5)
+    rows[-1]["long_shape_ms"] = cuda_ms(
+        torch, lambda: attn_ops.flash_attention_bwd(q, k, v, out, lse, go, **drop), 3)
+    del q, k, v, go, out, lse
+    torch.cuda.empty_cache()
+    # K4's variants off the main path at small shapes: f32 (CUDA-core path,
+    # rtol 2e-3 / atol 2e-4), head dims 16/32/128, t_q != t_k, a zero-length item
+    for dtype, (b, h, tq, tk, d), kw, rate in [
+        (torch.float32, (2, 3, 130, 130, 64), dict(causal=True, alibi_period=60), 0.1),
+        (torch.float32, (2, 4, 90, 150, 16), dict(alibi_period=60), 0.0),
+        (torch.float32, (2, 2, 100, 70, 128), dict(kv_lengths=torch.tensor([70, 0])), 0.1),
+        (torch.float32, (2, 2, 100, 70, 32), dict(kv_lengths=torch.tensor([33, 70]), causal=True), 0.5),
+        (bf, (2, 4, 300, 200, 128), dict(kv_lengths=torch.tensor([200, 57])), 0.1),
+        (bf, (3, 2, 77, 77, 32), dict(causal=True), 0.1),
+        (bf, (2, 2, 77, 99, 16), dict(alibi_period=60, kv_lengths=torch.tensor([0, 99])), 0.0),
+    ]:
+        q, go = randn(b, h, tq, d, dtype=dtype), randn(b, h, tq, d, dtype=dtype)
+        k, v = randn(b, h, tk, d, dtype=dtype), randn(b, h, tk, d, dtype=dtype)
+        kw = dict(kw, dropout_rate=rate, dropout_seed=77)
+        out, lse = attn_ops.flash_attention(q, k, v, return_lse=True, **kw)
+        ref = attn_ops.mha_reference(q, k, v, **kw)
+        got = attn_ops.flash_attention_bwd(q, k, v, out, lse, go, **kw)
+        want = attn_ops.flash_attention_bwd_reference(q, k, v, out, lse, go, **kw)
+        # rows of a zero-length item are padding in the forward: not compared
+        live = torch.ones(b, dtype=torch.bool) if "kv_lengths" not in kw else kw["kv_lengths"] > 0
+        if dtype == torch.float32:
+            fwd_err = (out[live] - ref[live]).abs().max().item()
+            fwd_tol = 1e-5 + 1e-4 * ref[live].abs().max().item()
+            err = max(((a - w).abs() - K4_F32_RTOL * w.abs()).max().item() for a, w in zip(got, want))
+            tol = K4_F32_ATOL
+        else:
+            fwd_err, fwd_tol = row_scaled_err(out[live], ref[live]), K1_BF16_ROW_TOL
+            err = max(row_scaled_err(a, w, K4_ROW_FLOOR) for a, w in zip(got, want))
+            tol = K4_BF16_ROW_TOL
+        finite = all(bool(torch.isfinite(x.float()).all()) for x in got)
+        zero_ok = all(not x[~live].any() for x in got[1:])  # zero-length item: dk = dv = 0
+        print(json.dumps({"check": f"K1 dropout + K4 {str(dtype)[6:]} {(b, h, tq, tk, d)} rate {rate}",
+                          "fwd_err": fwd_err, "fwd_tol": fwd_tol, "bwd_err": err, "bwd_tol": tol}), flush=True)
+        require(fwd_err <= fwd_tol and err <= tol and finite and zero_ok,
+                f"K1/K4 {dtype} {(b, h, tq, tk, d)} {kw}: fwd {fwd_err} > {fwd_tol} or bwd {err} > {tol} "
+                f"or finite {finite} or zero-length {zero_ok}")
+    del q, k, v, go, out, lse, ref, got, want
+    torch.cuda.empty_cache()
+
     # ---- 3d. the variants off the main path, at small shapes ---------------
     # f32 attention (a bf16=False model) is held to tests/test_attention.py's
     # rtol 1e-4 / atol 1e-5; bf16 to K1_BF16_ROW_TOL
@@ -302,7 +475,7 @@ def main() -> int:
                       "f32_predictor_max_vertex_l2": l2}), flush=True)
     torch.cuda.empty_cache()
 
-    # ---- 4. main path: the full-width predictor ----------------------------
+    # ---- 4. serving path: the full-width predictor --------------------------
     rng = np.random.default_rng(0)
 
     def clip(seconds, sr=16000):
@@ -312,6 +485,7 @@ def main() -> int:
     pred([clip(1.0)], np.eye(12, dtype=np.float32)[[0]], template)  # library warm-up
     torch.cuda.synchronize()
 
+    serving_rows = [r for r in rows if r["name"] != "flash_attention_bwd"]
     for r in rows:
         r["wrapper"].launches = 0
     # flagship: 8 clips x 60 s
@@ -342,9 +516,10 @@ def main() -> int:
     require(res[0].shape == (frame_count(n16), n_verts // 3, 3), f"44.1 kHz shape {res[0].shape}")
     require(bool(np.isfinite(res[0]).all()), "44.1 kHz output not finite")
     torch.cuda.synchronize()
-    for r in rows:
-        r["launches"] = r.pop("wrapper").launches
-        require(r["launches"] > 0, f"{r['name']} never launched on the main path")
+    for r in serving_rows:
+        r["launches"] = r["wrapper"].launches
+        require(r["launches"] > 0, f"{r['name']} never launched on the serving path")
+    require(attn_ops.flash_attention_bwd.launches == 0, "the backward kernels ran while serving")
 
     # the same weights through the plain versions on the card
     plain = FaceFormerPredictor(
@@ -365,7 +540,122 @@ def main() -> int:
                       "max_offset": disp, "tol": tol}), flush=True)
     require(l2 <= tol, f"predictor vs plain: max per-vertex L2 {l2} > {tol}")
 
-    # ---- 5. results -----------------------------------------------------
+
+    # ---- 5. training path: the full-width experiment -------------------------
+    del plain, got, want
+    torch.cuda.empty_cache()
+    n_clip, n_frames = 160000, 600  # 10 s
+    cfg = ExpConfig(
+        batch_size=8, modelname="faceformer", one_hot_size=12, feature_extractor=None,
+        sample_rate=16000, vertex_count=n_verts, split_frame=False, n_feature=32, out_dim=52,
+        win_length=440, percision="16-mixed", lr=1e-3, seed=0,
+    )  # lr above the configs' 1e-4 so that three steps move the loss visibly
+    tic = time.perf_counter()
+    exp = Audio2FaceExperiment(cfg, log_dir="build/chip_smoke_logs")
+    exp.model.load_state_dict(pred.model.state_dict())  # random weights, motion maps randomized
+    rng = np.random.default_rng(2)
+    tmpl = (rng.normal(size=(8, n_verts // 3, 3)) * 0.1).astype(np.float32)
+    # a target the model can learn: a fixed offset per vertex, plus a little motion
+    motion = torch.randn((8, n_frames, n_verts), generator=g).numpy() * 0.002
+    motion += (rng.normal(size=(1, 1, n_verts)) * 0.01).astype(np.float32)
+    batch = {
+        "audio": (rng.normal(size=(8, n_clip)) * 0.1).astype(np.float32),
+        "one_hot": np.eye(12, dtype=np.float32)[rng.integers(0, 12, 8)],
+        "verts": motion + tmpl.reshape(8, 1, -1),
+        "template_vert": tmpl,
+        "audio_lengths": np.asarray([160000, 160000, 120000, 80000, 160000, 40000, 160000, 8000], np.int32),
+    }
+    del motion
+    print(f"experiment and batch built: {time.perf_counter() - tic:.1f} s", flush=True)
+    before = {k_: float(v_) for k_, v_ in exp.eval_step(batch).items()}
+    start_params = {k_: v_.detach().clone() for k_, v_ in exp.model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for r in rows:
+        r["wrapper"].launches = 0
+    step_s, train_losses = [], []
+    with torch.enable_grad():
+        for i in range(3):
+            tic = time.perf_counter()
+            metrics = exp.train_step(batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - tic)
+            train_losses.append(float(metrics["loss"]))
+            require(all(math.isfinite(float(v_)) for v_ in metrics.values()), f"step {i}: {metrics}")
+            if i == 0:  # the gradients of the first step, before the next one clears them
+                bad = [k_ for k_, p_ in exp.model.named_parameters()
+                       if p_.grad is not None and not bool(torch.isfinite(p_.grad).all())]
+                require(not bad, f"non-finite gradients in {bad[:5]}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for r in rows:
+        r["train_launches"] = r["wrapper"].launches
+    by_name = {r["name"]: r for r in rows}
+    n_fwd, n_bwd = by_name["flash_attention"]["train_launches"], by_name["flash_attention_bwd"]["train_launches"]
+    by_name["flash_attention_bwd"]["launches"] = n_bwd
+    # 12 attention calls a step less LayerDrop's skips, each with its backward
+    require(0 < n_fwd <= 36 and n_bwd == n_fwd, f"training launched K1 {n_fwd} and K4 {n_bwd} times")
+    require(by_name["fused_conv_encoder"]["train_launches"] == 0
+            and by_name["faceformer_decode_loop"]["train_launches"] == 0,
+            "an inference-only kernel was launched in training")
+    moved = {part: max(float((p_.detach() - start_params[k_]).abs().max())
+                       for k_, p_ in exp.model.named_parameters() if k_.startswith(prefix))
+             for part, prefix in (("encoder", "audio_encoder."), ("decoder", "dec_q."),
+                                  ("head", "vertice_map_r."))}
+    require(all(m > 0 for m in moved.values()), f"parameters that did not change: {moved}")
+    after = {k_: float(v_) for k_, v_ in exp.eval_step(batch).items()}
+    require(math.isfinite(after["loss"]) and after["loss"] < before["loss"],
+            f"loss on the repeated batch did not fall: {before['loss']} -> {after['loss']}")
+    require(ce.fused_conv_encoder.launches > 0 and dk.faceformer_decode_loop.launches > 0,
+            "eval_step did not run the inference kernels")
+    print(json.dumps({"training": {
+        "batch": 8, "seconds_each": 10, "frames": n_frames, "steps": 3, "step_wall_s": step_s,
+        "peak_device_memory_gb": peak_gb, "train_losses": train_losses,
+        "eval_loss_before": before["loss"], "eval_loss_after": after["loss"],
+        "k1_launches": n_fwd, "k4_launches": n_bwd, "max_param_change": moved, "card": smi,
+    }}), flush=True)
+    del exp, start_params, batch
+    torch.cuda.empty_cache()
+
+    # the same full-width model in f32, batch 2 of 2 s: gradients through the
+    # kernels against the plain versions, same weights, same random streams
+    cfg32 = cfg.model_copy(update={"percision": "32", "batch_size": 2})
+    rng = np.random.default_rng(3)
+    small = {
+        "audio": (rng.normal(size=(2, 32000)) * 0.1).astype(np.float32),
+        "one_hot": np.eye(12, dtype=np.float32)[[3, 7]],
+        "verts": (rng.normal(size=(2, 120, n_verts)) * 0.01).astype(np.float32) + tmpl[:2].reshape(2, 1, -1),
+        "template_vert": tmpl[:2],
+        "audio_lengths": np.asarray([32000, 21000], np.int32),
+    }
+    grads = []
+    for use_kernels in (True, False):
+        e32 = Audio2FaceExperiment(cfg32, log_dir="build/chip_smoke_logs", use_kernels=use_kernels)
+        e32.model.load_state_dict(pred.model.state_dict())
+        for r in rows:
+            r["wrapper"].launches = 0
+        with torch.enable_grad():
+            e32.accumulate_gradients(small)
+        require((attn_ops.flash_attention_bwd.launches > 0) == use_kernels,
+                f"use_kernels={use_kernels}: K4 launched {attn_ops.flash_attention_bwd.launches} times")
+        grads.append({k_: p_.grad.detach().clone() for k_, p_ in e32.model.named_parameters()
+                      if p_.grad is not None})
+        del e32
+    require(set(grads[0]) == set(grads[1]), "the two runs skipped different layers")
+    largest = max(float(g_.abs().max()) for g_ in grads[1].values())
+    worst_leaf, worst = "", 0.0
+    for k_, ref in grads[1].items():
+        rel = float((grads[0][k_] - ref).abs().max()) / max(float(ref.abs().max()), 1e-4 * largest)
+        if rel > worst:
+            worst_leaf, worst = k_, rel
+    print(json.dumps({"check": "f32 gradients through the kernels vs plain, 2 x 2 s",
+                      "leaves": len(grads[1]), "max_rel_err_of_a_leaf": worst, "leaf": worst_leaf,
+                      "tol": GRAD_LEAF_TOL}), flush=True)
+    require(worst <= GRAD_LEAF_TOL, f"gradient of {worst_leaf} differs by {worst} of its largest value")
+    del grads
+
+    # ---- 6. results -----------------------------------------------------
+    for r in rows:
+        del r["wrapper"]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

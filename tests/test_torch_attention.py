@@ -10,6 +10,10 @@ import torch
 from audio2face_tpu.ops.attention import flash_attention_pallas
 from audio2face_tpu_torch.ops.attention import flash_attention
 
+# the suite runs several worker processes at once: one thread each, so that
+# they do not fight over the cores (the tensors here are small)
+torch.set_num_threads(1)
+
 # tests/test_attention.py's tolerance for the flash kernel vs the reference
 RTOL, ATOL = 1e-4, 1e-5
 

@@ -19,6 +19,10 @@ from audio2face_tpu.ops.conv_encoder import fused_conv_encoder as jax_fused
 from audio2face_tpu_torch.models.wav2vec2 import FeatureEncoder, Wav2Vec2Config
 from audio2face_tpu_torch.ops.conv_encoder import fused_conv_encoder, stack_output_length
 
+# the suite runs several worker processes at once: one thread each, so that
+# they do not fight over the cores (the tensors here are small)
+torch.set_num_threads(1)
+
 L = 2500  # samples -> 7 output frames
 
 

@@ -11,6 +11,10 @@ from audio2face_tpu.ops.decode_kernel import faceformer_decode_loop as jax_decod
 from audio2face_tpu_torch.models.faceformer import periodic_positional_encoding
 from audio2face_tpu_torch.ops.decode_kernel import faceformer_decode_loop
 
+# the suite runs several worker processes at once: one thread each, so that
+# they do not fight over the cores (the tensors here are small)
+torch.set_num_threads(1)
+
 
 def _rand_weights(rng):
     d, f = 64, 128

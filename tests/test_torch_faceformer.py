@@ -17,6 +17,10 @@ from audio2face_tpu_torch.compat.jax_params import faceformer_state_dict_from_ja
 from audio2face_tpu_torch.models import faceformer as ff
 from audio2face_tpu_torch.ops import dsp
 
+# the suite runs several worker processes at once: one thread each, so that
+# they do not fight over the cores (the tensors here are small)
+torch.set_num_threads(1)
+
 N_VERTS = 300
 
 

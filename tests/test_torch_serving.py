@@ -5,9 +5,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from audio2face_tpu.serving import FaceFormerPredictor as JaxPredictor
 from audio2face_tpu_torch.serving import FaceFormerPredictor, _batch_grid, _pad_batch
+
+# the suite runs several worker processes at once: one thread each, so that
+# they do not fight over the cores (the tensors here are small)
+torch.set_num_threads(1)
 
 N_VERTS = 300
 KW = dict(n_verts=N_VERTS, bf16=False, max_batch=4, bucket_seconds=0.5)

@@ -12,6 +12,10 @@ from audio2face_tpu.models.wav2vec2 import Wav2Vec2Encoder as JaxEncoder
 from audio2face_tpu_torch.compat.jax_params import wav2vec2_state_dict_from_jax
 from audio2face_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Encoder
 
+# the suite runs several worker processes at once: one thread each, so that
+# they do not fight over the cores (the tensors here are small)
+torch.set_num_threads(1)
+
 N_LAYERS = 2
 S = 16000  # 1 s: 49 latents at 50 fps -> 60 frames
 
