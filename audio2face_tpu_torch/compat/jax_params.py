@@ -72,14 +72,17 @@ _DENSE_NAMES = (
     "dec_q", "dec_k", "dec_v", "dec_out", "cross_v", "cross_out",
     "linear1", "linear2",
 )
+# live only in BIWI mode (the vocaset diagonal makes them inert, so vocaset
+# trees omit them)
+_BIWI_DENSE_NAMES = ("cross_q", "cross_k")
 
 
 def faceformer_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
-    """The port's FaceFormer state dict from the JAX FaceFormer's params."""
-    if "cross_q_kernel" in params:
-        raise NotImplementedError("BIWI FaceFormer weights are not ported yet")
+    """The port's FaceFormer state dict from the JAX FaceFormer's params; a
+    BIWI tree carries ``cross_q``/``cross_k`` too."""
     out = wav2vec2_state_dict_from_jax(params["audio_encoder"], "audio_encoder.")
-    for name in _DENSE_NAMES:
+    names = _DENSE_NAMES + (_BIWI_DENSE_NAMES if "cross_q_kernel" in params else ())
+    for name in names:
         p = {"kernel": params[f"{name}_kernel"]}
         if f"{name}_bias" in params:
             p["bias"] = params[f"{name}_bias"]
@@ -147,7 +150,8 @@ def faceformer_jax_tree_from_state_dict(sd: Mapping) -> dict:
     from a dict of gradients under the state dict's names: the inverse of
     ``faceformer_state_dict_from_jax``."""
     tree = {"audio_encoder": wav2vec2_jax_tree_from_state_dict(sd, "audio_encoder.")}
-    for name in _DENSE_NAMES:
+    names = _DENSE_NAMES + (_BIWI_DENSE_NAMES if "cross_q.weight" in sd else ())
+    for name in names:
         for leaf, value in _module_tree(sd, name, "dense").items():
             tree[f"{name}_{leaf}"] = value
     for i in (1, 2, 3):

@@ -1,11 +1,16 @@
 """FaceFormer: wav2vec2 encoder + autoregressive mesh decoder.
 
-Port of ``audio2face_tpu/models/faceformer.py`` (vocaset mode). The decoder
-is the single sequential KV-cached pass that equals the reference's
-per-frame re-decoding loop:
+Port of ``audio2face_tpu/models/faceformer.py``. The decoder is the single
+sequential KV-cached pass that equals the reference's per-frame re-decoding
+loop:
 
-- the diagonal-only cross attention reduces exactly to
+- vocaset: the diagonal-only cross attention reduces exactly to
   ``out_proj(v_proj(memory[t]))``, hoisted out of the loop as one product;
+- ``dataset="biwi"``: frames run at 25 fps against the untouched 50 fps
+  latents, and mesh frame t cross-attends the latents {2t, 2t+1} with a true
+  2-way softmax; ``cross_q``/``cross_k`` are live parameters that exist only
+  in this mode, and the key/value projections of all latents are computed
+  once before the loop;
 - the per-step feedback ``vertice_map(vertice_map_r(h_t)) + style`` runs
   through the composed 64x64 matrix ``W_r W_m``; vertices come after the
   loop from one (B*T, 64) @ (64, 3V) product;
@@ -21,8 +26,7 @@ differentiable step loop ``decode_kernel.decode_steps``. With
 ``train=True`` the loop applies the five dropout keep-masks of the reference
 decoder layer (p = 0.1), drawn once for all frames before the loop, and
 checkpoints the loop at chunk granularity over frames, so that the per-step
-residuals live only inside one chunk's recomputed backward. BIWI mode is not
-ported yet.
+residuals live only inside one chunk's recomputed backward.
 """
 
 from __future__ import annotations
@@ -89,18 +93,20 @@ def select_decode_impl(
     device: the kernel is inference only.
 
     The kernel keeps its KV cache in device memory, so its only capacity
-    limit is shared memory for the weights: on a card where those do not
-    fit this raises (there is no fallback)."""
-    if dataset != "vocaset":
-        raise NotImplementedError(f"dataset={dataset!r} decode is not ported yet")
+    limit is shared memory for the weights (more of them in its BIWI
+    variant): on a card where those do not fit this raises (there is no
+    fallback)."""
+    if dataset not in ("vocaset", "biwi"):
+        raise ValueError(f"unknown dataset {dataset!r}; available: vocaset, biwi")
     if train:
         return "steps"
     device = torch.device(device)
     if device.type != "cuda":
         return "loop"
-    if not decode_kernel.smem_fits(device):
+    biwi = dataset == "biwi"
+    if not decode_kernel.smem_fits(device, biwi):
         raise RuntimeError(
-            f"the decode kernel needs {decode_kernel.SMEM_BYTES} bytes of shared "
+            f"the decode kernel needs {decode_kernel.smem_bytes(biwi)} bytes of shared "
             f"memory per block, more than {torch.cuda.get_device_name(device)} offers"
         )
     return "fused"
@@ -137,7 +143,8 @@ class FaceFormer(nn.Module):
 
     ``remat_scan=False`` turns the chunk checkpointing of the training
     decode loop off (every step's residuals are kept; only viable for small
-    B*T^2)."""
+    B*T^2). ``period`` is the PPE / ALiBi bucket period (the reference
+    hardcodes 60; the upstream FaceFormer uses 25 for BIWI)."""
 
     def __init__(
         self,
@@ -147,15 +154,18 @@ class FaceFormer(nn.Module):
         dataset: str = "vocaset",
         encoder_config: Wav2Vec2Config = Wav2Vec2Config(),
         remat_scan: Optional[bool] = None,
+        period: int = PERIOD,
     ):
         super().__init__()
-        if dataset != "vocaset":
-            raise NotImplementedError(f"dataset={dataset!r} is not ported yet")
+        if dataset not in ("vocaset", "biwi"):
+            raise ValueError(f"unknown dataset {dataset!r}; available: vocaset, biwi")
         d = FEATURE_DIM
         self.n_verts = n_verts
         self.n_onehot = n_onehot
         self.dtype = dtype
         self.dataset = dataset
+        self.period = period
+        self.fps = 25 if dataset == "biwi" else FPS
         self.remat_scan = remat_scan
         self.audio_encoder = Wav2Vec2Encoder(encoder_config)
         self.audio_feature_map = nn.Linear(encoder_config.hidden_size, d)
@@ -168,13 +178,18 @@ class FaceFormer(nn.Module):
         self.dec_out = nn.Linear(d, d)
         self.cross_v = nn.Linear(d, d)
         self.cross_out = nn.Linear(d, d)
+        if dataset == "biwi":
+            # the vocaset diagonal makes these mathematically inert, so
+            # vocaset checkpoints omit them
+            self.cross_q = nn.Linear(d, d)
+            self.cross_k = nn.Linear(d, d)
         self.linear1 = nn.Linear(d, 2 * d)
         self.linear2 = nn.Linear(2 * d, d)
         self.norm1 = nn.LayerNorm(d)
         self.norm2 = nn.LayerNorm(d)
         self.norm3 = nn.LayerNorm(d)
         self.register_buffer(
-            "ppe", torch.from_numpy(periodic_positional_encoding(PERIOD)), persistent=False
+            "ppe", torch.from_numpy(periodic_positional_encoding(period)), persistent=False
         )
 
     @torch.no_grad()
@@ -209,8 +224,8 @@ class FaceFormer(nn.Module):
         encoder_hidden: Optional[torch.Tensor] = None,
         differentiable: bool = False,
     ):
-        """Returns (B, T, V, 3) vertices with T = frame_count(S), plus a
-        (B, T) frame validity mask when ``lengths`` is given.
+        """Returns (B, T, V, 3) vertices with T = frame_count(S, fps) (60 fps;
+        BIWI 25), plus a (B, T) frame validity mask when ``lengths`` is given.
 
         ``train=True`` turns on every regularizer (encoder dropouts,
         SpecAugment, LayerDrop, attention dropout, the decoder's five
@@ -226,9 +241,11 @@ class FaceFormer(nn.Module):
         ``conv1d`` path, in place of the two inference-only kernels (which
         raise on CUDA when a gradient is asked of them)."""
         cdt = self.dtype or torch.float32
+        biwi = self.dataset == "biwi"
         bsz, n_samples = audio.shape
-        n_frames = frame_count(n_samples)
-        frame_lengths = None if lengths is None else frame_count(lengths.to(audio.device))
+        n_frames = frame_count(n_samples, self.fps)
+        frame_lengths = (
+            None if lengths is None else frame_count(lengths.to(audio.device), self.fps))
         if train and generator is None:
             raise ValueError("train=True needs an explicit torch.Generator")
 
@@ -237,16 +254,32 @@ class FaceFormer(nn.Module):
         else:
             hidden = self.audio_encoder(
                 normalize_waveform(audio, lengths), output_len=n_frames, lengths=lengths,
-                output_lengths=frame_lengths, dtype=cdt, use_kernels=use_kernels,
+                output_lengths=None if biwi else frame_lengths, dataset=self.dataset,
+                dtype=cdt, use_kernels=use_kernels,
                 train=train, apply_spec_augment=train, generator=generator,
                 differentiable=differentiable,
-            )  # (B, T, 768)
+            )  # (B, T, 768); biwi: (B, <= 2T, 768), the 50 fps latents untouched
+        if biwi and hidden.shape[1] != 2 * n_frames:
+            # the 2-way alignment needs exactly 2 latents per frame: a short
+            # encode is zero-padded at the end, a long one trimmed
+            pad = max(2 * n_frames - hidden.shape[1], 0)
+            hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))[:, : 2 * n_frames]
 
         def mm(x, layer):  # f32 products, as JAX promotes bf16 x f32 params
             return torch.nn.functional.linear(x.float(), layer.weight, layer.bias)
 
-        memory = mm(hidden, self.audio_feature_map)  # (B, T, 64)
-        cross = mm(mm(memory, self.cross_v), self.cross_out).to(cdt)
+        memory = mm(hidden, self.audio_feature_map)  # (B, T, 64); biwi: (B, 2T, 64)
+        mem = {}
+        if biwi:
+            # cross keys and values of every latent, (B, H, 2T, hd); each
+            # step attends rows {2t, 2t+1}
+            def heads(x):
+                return x.reshape(bsz, -1, N_HEADS, FEATURE_DIM // N_HEADS).transpose(1, 2).to(cdt)
+
+            cross = None
+            mem = dict(mem_k=heads(mm(memory, self.cross_k)), mem_v=heads(mm(memory, self.cross_v)))
+        else:
+            cross = mm(mm(memory, self.cross_v), self.cross_out).to(cdt)
         style = mm(one_hot, self.obj_vector).to(cdt)  # (B, 64)
         pe = self.ppe.to(device=audio.device, dtype=cdt)
         weights = self.decoder_weights(cdt)
@@ -257,11 +290,13 @@ class FaceFormer(nn.Module):
             masks = decoder_keep_masks(n_frames, bsz, cdt, generator, audio.device) if train else None
             chunk = decode_chunk_size(n_frames) if train and self.remat_scan is not False else None
             hs = decode_kernel.decode_steps(
-                cross, style, pe, weights, period=PERIOD, masks=masks, chunk=chunk)
+                cross, style, pe, weights, period=self.period, masks=masks, chunk=chunk, **mem)
         elif impl == "fused":
-            hs = decode_kernel.faceformer_decode_loop(cross, style, pe, weights, period=PERIOD)
+            hs = decode_kernel.faceformer_decode_loop(
+                cross, style, pe, weights, period=self.period, **mem)
         else:
-            hs = decode_kernel.decode_loop_reference(cross, style, pe, weights, period=PERIOD)
+            hs = decode_kernel.decode_loop_reference(
+                cross, style, pe, weights, period=self.period, **mem)
 
         frame_mask = None
         if lengths is not None:
@@ -278,8 +313,11 @@ class FaceFormer(nn.Module):
         h @ fb_kernel + fb_bias``, computed in f32."""
         wr, wm = self.vertice_map_r.weight.T, self.vertice_map.weight.T  # (64, V), (V, 64)
         w = {"fb_kernel": wr @ wm, "fb_bias": self.vertice_map_r.bias @ wm + self.vertice_map.bias}
-        for key, layer in (("q", self.dec_q), ("k", self.dec_k), ("v", self.dec_v),
-                           ("o", self.dec_out), ("f1", self.linear1), ("f2", self.linear2)):
+        layers = [("q", self.dec_q), ("k", self.dec_k), ("v", self.dec_v),
+                  ("o", self.dec_out), ("f1", self.linear1), ("f2", self.linear2)]
+        if self.dataset == "biwi":
+            layers += [("cq", self.cross_q), ("co", self.cross_out)]
+        for key, layer in layers:
             w[f"{key}_kernel"] = layer.weight.T
             w[f"{key}_bias"] = layer.bias
         w = {k: v.to(dtype) for k, v in w.items()}

@@ -300,7 +300,9 @@ class Wav2Vec2Encoder(nn.Module):
     """Full encoder: waveform -> (B, T, 768) hidden states.
 
     ``output_len`` turns on the vocaset fps adapter (linear interp of the
-    50 fps conv latents to the frame count). ``lengths`` gives per-item
+    50 fps conv latents to the frame count); with ``dataset="biwi"`` the
+    latents stay at 50 fps and are only trimmed to an even count of at most
+    ``2 * output_len``. ``lengths`` gives per-item
     valid *sample* counts for padded batches; ``output_lengths`` the valid
     output frames per item. ``train=True`` needs a ``generator`` on the
     input's device; ``apply_spec_augment`` adds the span masks.
@@ -340,6 +342,7 @@ class Wav2Vec2Encoder(nn.Module):
         lengths: Optional[torch.Tensor] = None,
         output_lengths: Optional[torch.Tensor] = None,
         *,
+        dataset: str = "vocaset",
         dtype: torch.dtype = torch.float32,
         use_kernels: bool = True,
         train: bool = False,
@@ -370,7 +373,17 @@ class Wav2Vec2Encoder(nn.Module):
             for k, s in zip(cfg.conv_kernel, cfg.conv_stride):
                 feat_lengths = torch.div(feat_lengths - k, s, rounding_mode="floor") + 1
 
-        if output_len is not None:
+        if dataset == "biwi":
+            # the reference's BIWI trim branch: even-length trim, then a cap
+            # at 2x the frame count (25 fps video against 50 fps latents, no
+            # interpolation)
+            if h.shape[1] % 2 != 0:
+                h = h[:, :-1]
+            if output_len is not None and h.shape[1] > output_len * 2:
+                h = h[:, : output_len * 2]
+            if feat_lengths is not None:
+                feat_lengths = feat_lengths.clamp(max=h.shape[1])
+        elif output_len is not None:
             if lengths is None:
                 h = linear_interpolation_fps(h, output_len)
             else:

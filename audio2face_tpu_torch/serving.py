@@ -14,7 +14,8 @@ Port of ``audio2face_tpu/serving.py`` (``FaceFormerPredictor``):
 
 Runs on the card unless ``device="cpu"`` is asked for. Weights come from
 carried JAX variables, a port state dict, or a seeded random init.
-Multi-device meshes and checkpoint loading are not ported yet.
+``dataset="biwi"`` serves the BIWI mode (25 fps, period 25, 2-way cross
+softmax). Multi-device meshes and checkpoint loading are not ported yet.
 """
 
 from __future__ import annotations
@@ -80,9 +81,11 @@ class FaceFormerPredictor:
         every kernel (a reference run on the card)."""
         if variables is not None and state_dict is not None:
             raise ValueError("pass variables= or state_dict=, not both")
-        if dataset != "vocaset":
-            raise NotImplementedError(f"dataset={dataset!r} serving is not ported yet")
         self.device = resolve_device(device, "FaceFormerPredictor")
+        self.dataset = dataset
+        # animation clock of the returned (T, V, 3) tracks: VOCASET animates
+        # at 60 fps, BIWI at 25
+        self.fps = 25 if dataset == "biwi" else 60
         self.n_onehot = n_onehot
         self.n_verts = n_verts
         self.max_batch = max_batch
@@ -92,10 +95,24 @@ class FaceFormerPredictor:
         self.model = FaceFormer(
             n_verts=n_verts, n_onehot=n_onehot,
             dtype=torch.bfloat16 if bf16 else None,
+            # BIWI animates at 25 fps; the upstream FaceFormer uses the frame
+            # rate as the PPE/ALiBi period (matches the trainer's model)
+            **({"dataset": "biwi", "period": 25} if dataset == "biwi" else {}),
         )
         if variables is not None:
             state_dict = faceformer_state_dict_from_jax(variables["params"])
         if state_dict is not None:
+            # BIWI weights served as vocaset would run frames at the wrong
+            # clock and replace the trained 2-way softmax with the diagonal
+            # cross attention, so the mismatch is an error either way
+            has_cross = "cross_q.weight" in state_dict
+            if has_cross != (dataset == "biwi"):
+                want = "biwi" if has_cross else "vocaset"
+                raise ValueError(
+                    f"the weights are a dataset={want!r} FaceFormer (cross_q/cross_k "
+                    f"{'present' if has_cross else 'absent'}) but the predictor was "
+                    f"built with dataset={dataset!r}: pass dataset={want!r}"
+                )
             self.model.load_state_dict(state_dict)
         else:
             self.model.init_parameters(torch.Generator().manual_seed(seed))
@@ -142,7 +159,7 @@ class FaceFormerPredictor:
 
         audios: list of 1-D float waveforms (any lengths); one_hot: (N, 12);
         template: (N, V, 3) or (V, 3) shared. Returns per-clip (T_i, V, 3)
-        vertex animations at 60 fps."""
+        vertex animations at ``self.fps`` (60; BIWI 25)."""
         n = len(audios)
         if one_hot.shape[0] != n:
             raise ValueError(f"one_hot batch {one_hot.shape[0]} != {n} clips")
@@ -169,7 +186,7 @@ class FaceFormerPredictor:
             b_pad = _pad_batch(b, self.max_batch)
             audio_pad = np.zeros((b_pad, samples), np.float32)
             # dummy rows (batch-grid padding) get a short valid length: 800
-            # samples decode 3 frames each, discarded below
+            # samples decode 3 frames each (BIWI: 1), discarded below
             lengths = np.full((b_pad,), min(800, samples), np.int64)
             oh = np.zeros((b_pad, one_hot.shape[1]), np.float32)
             tmpl = np.zeros((b_pad,) + template.shape[1:], np.float32)

@@ -1,8 +1,9 @@
 """Experiment runtime: training loop, checkpointing, early stopping.
 
 Port of ``audio2face_tpu/training/trainer.py`` for ``modelname ==
-"faceformer"`` on ``dataset == "vocaset"``, with the same observable
-semantics:
+"faceformer"`` on ``dataset == "vocaset"`` or ``"biwi"`` (the BIWI model:
+25 fps frames, period 25, trained through the differentiable step loop),
+with the same observable semantics:
 
 - x100 vertex/template unit scaling before the model, /100 on predictions;
 - ``torch.optim.Adam(lr, weight_decay=lr/10)``: coupled decay, added to the
@@ -93,8 +94,16 @@ class Audio2FaceExperiment:
             )
         if config.dataset not in ("vocaset", "biwi"):
             raise ValueError(f"unknown dataset {config.dataset!r}; available: vocaset, biwi")
+        dataset_kwargs: dict = {}
         if config.dataset != "vocaset":
-            raise NotImplementedError(f"dataset={config.dataset!r} is not ported yet")
+            if config.modelname != "faceformer":
+                raise ValueError(
+                    f"dataset={config.dataset!r} is only supported by the "
+                    "faceformer model family"
+                )
+            # BIWI animates at 25 fps; the upstream FaceFormer uses the frame
+            # rate as the PPE/ALiBi period on both datasets
+            dataset_kwargs = {"dataset": config.dataset, "period": 25}
         self.accumulate_grad_batches = int(accumulate_grad_batches)
         self.config = config
         self.device = resolve_device(device, "Audio2FaceExperiment")
@@ -108,7 +117,8 @@ class Audio2FaceExperiment:
         )
         self.model = model_cls(
             n_verts=config.vertex_count, n_onehot=config.one_hot_size,
-            dtype=torch.bfloat16 if config.bf16_compute else None, **(model_kwargs or {}),
+            dtype=torch.bfloat16 if config.bf16_compute else None,
+            **dataset_kwargs, **(model_kwargs or {}),
         )
         self.model.init_parameters(torch.Generator().manual_seed(config.seed))
         self.model.to(self.device)

@@ -8,20 +8,33 @@ which raises (exit code != 0) on failure:
    TF32 off for the f32 products of the plain versions;
 2. build: compiles the port's CUDA sources (``build/torch_kernels/``);
 3. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at the shapes the flagship request gives it (60 s x batch 8),
-   with a stated tolerance; times kernel, plain version and (attention)
-   one ``scaled_dot_product_attention`` call with CUDA events;
+   the card, at the shapes its main path gives it (the flagship request,
+   60 s x batch 8; the BIWI request, 30 s x batch 8; a transfer batch of 64
+   frames of the 5,023-vertex head at 800 x 800), with a stated tolerance;
+   times kernel, plain version and (attention) one
+   ``scaled_dot_product_attention`` call with CUDA events;
 4. serving path: the full-width FaceFormerPredictor (wav2vec2-base,
    15069-wide vertex head, bf16, random weights from a seed) answers three
    requests (8 x 60 s, 5 clips of 3-45 s, one 44.1 kHz clip); the forward
    kernels must have launched during them; one 2 x 10 s batch is held
    against the same weights run through the plain versions;
-5. training path: the full-width Audio2FaceExperiment (same model, bf16
-   compute, batch 8 x 10 s with mixed lengths) takes three optimizer steps;
-   attention forward (with dropout) and backward kernels must have launched,
-   the inference-only kernels must not; the loss falls; then the gradients
-   of an f32 model through the kernels are held against the plain versions;
-6. prints the ``{"kernels": [...]}`` line, then, last,
+5. clip to rendered frames: the same predictor's vertices for a 3.5 s clip
+   on the synthetic head go through ``Renderer.render`` (pipelined, cropped
+   copies into pinned buffers); the rasterizer must have launched, the
+   frames must equal full-frame renders, an enlarged frame must take the
+   full-frame re-render;
+6. BIWI serving: FaceFormerPredictor(dataset="biwi"), 70110-wide vertex
+   head, period 25, answers 8 x 30 s and a mixed-length request at 25 fps
+   through the decode kernel's BIWI variant (the vocaset variant must not
+   launch); one 2 x 10 s batch against the plain versions; one BIWI training
+   step (batch 8 x 10 s) launches no decode kernel;
+7. training path: the full-width Audio2FaceExperiment (the vocaset model,
+   bf16 compute, batch 8 x 10 s with mixed lengths) takes three optimizer
+   steps; attention forward (with dropout) and backward kernels must have
+   launched, the inference-only kernels must not; the loss falls; then the
+   gradients of an f32 model through the kernels are held against the plain
+   versions;
+8. prints the ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 Gradients are off process-wide (the inference phases build no autograd
@@ -106,6 +119,33 @@ GRAD_LEAF_TOL = 1e-3
 # f32 bar, 2e-4), then one rounding to bf16 each: at most one bf16 step,
 # 2^-7 of |ref|, apart
 K3_F32_TOL, K3_BF16_STEP = 2e-4, 2.0**-7
+# K5 against its plain version: both evaluate the planes in one order with
+# no fused multiply-add, and a maximum does not depend on its order, so the
+# int32 keys are equal on every pixel
+K5_DIFFERING_PIXELS = 0
+# K5's image against the exact banded oracle: the JAX package's bar for its
+# rasterizers against each other (depth keys are quantized to 22 bits, and
+# tied depths resolve to the brightest shade): share of pixels off by more
+# than 3 grey levels
+ORACLE_OFF_SHARE = 0.01
+# f32 operations K5 spends on one pixel x triangle test: four plane
+# increments, two subtractions for the third barycentric, and the 16
+# operations of a strip's first row spread over its 16 rows
+K5_OPS_PER_TEST = 7.0
+
+
+def counter(row: dict) -> str:
+    return row.get("counter", "launches")
+
+
+def reset_counts(rows: list) -> None:
+    """Set every kernel's launch count to 0."""
+    for r in rows:
+        setattr(r["wrapper"], counter(r), 0)
+
+
+def read_count(row: dict) -> int:
+    return getattr(row["wrapper"], counter(row))
 
 
 def main() -> int:
@@ -116,14 +156,19 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; the port's smoke test needs a GPU",
               file=sys.stderr)
         return 1
-    from audio2face_tpu_torch.models.faceformer import frame_count, periodic_positional_encoding
+    from audio2face_tpu_torch.data.synthetic import generate_synthetic_face_obj
+    from audio2face_tpu_torch.models.faceformer import (
+        frame_count, normalize_waveform, periodic_positional_encoding)
     from audio2face_tpu_torch.ops import _build
     from audio2face_tpu_torch.ops import attention as attn_ops
     from audio2face_tpu_torch.ops import conv_encoder as ce
     from audio2face_tpu_torch.ops import decode_kernel as dk
+    from audio2face_tpu_torch.ops import rasterizer as rz
     from audio2face_tpu_torch.config import ExpConfig
     from audio2face_tpu_torch.serving import FaceFormerPredictor
     from audio2face_tpu_torch.training.trainer import Audio2FaceExperiment
+    from audio2face_tpu_torch.utils import renderer as rd
+    from audio2face_tpu_torch.utils.facemesh import FaceMesh
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -475,6 +520,161 @@ def main() -> int:
                       "f32_predictor_max_vertex_l2": l2}), flush=True)
     torch.cuda.empty_cache()
 
+    # ---- 3g. K3's BIWI variant: 8 x 750 frames (30 s at 25 fps) -------------
+    # the full-width BIWI predictor of phase 6: 23,370 vertices, period 25
+    n_verts_biwi = 70110
+    tic = time.perf_counter()
+    biwi = FaceFormerPredictor(n_verts=n_verts_biwi, bf16=True, max_batch=8, bucket_seconds=5.0,
+                               seed=1, dataset="biwi")
+    with torch.no_grad():  # trained-like motion maps and cross biases (the init zeroes them)
+        for lin in (biwi.model.vertice_map, biwi.model.vertice_map_r):
+            lin.weight.copy_(torch.randn(lin.weight.shape, generator=g) * 0.02)
+            lin.bias.copy_(torch.randn(lin.bias.shape, generator=g) * 0.02)
+        for lin in (biwi.model.cross_q, biwi.model.cross_k, biwi.model.cross_v):
+            lin.bias.copy_(torch.randn(lin.bias.shape, generator=g) * 0.3)
+    print(f"BIWI predictor built: {time.perf_counter() - tic:.1f} s", flush=True)
+    pe25 = torch.as_tensor(periodic_positional_encoding(25), device=dev)
+    w32 = biwi.model.decoder_weights(torch.float32)
+    for b, t in [(6, 37), (2, 150)]:  # f32, small: the bar of the vocaset variant
+        mem_k, mem_v = randn(b, 4, 2 * t, 16, scale=0.5), randn(b, 4, 2 * t, 16, scale=0.5)
+        style = randn(b, 64, scale=0.5)
+        err = (dk.faceformer_decode_loop(None, style, pe25, w32, period=25, mem_k=mem_k, mem_v=mem_v)
+               - dk.decode_loop_reference(None, style, pe25, w32, period=25, mem_k=mem_k, mem_v=mem_v)
+               ).abs().max().item()
+        require(err <= K3_F32_TOL, f"K3 BIWI f32 ({b}, {t}) err {err} > {K3_F32_TOL}")
+    # the serving shape, mem_k / mem_v as the bf16 predictor computes them
+    # from 8 x 30 s of audio with mixed lengths: the encoder's 50 fps latents,
+    # trimmed or zero-padded to 2 latents per frame, projected per head
+    b, n, t = 8, 480000, 750
+    x = randn(b, n, scale=0.1)
+    lens = torch.tensor([480000, 480000, 360000, 240000, 480000, 120000, 480000, 24000], device=dev)
+    m = biwi.model
+    hidden = m.audio_encoder(normalize_waveform(x, lens), output_len=t, lengths=lens,
+                             dataset="biwi", dtype=bf)
+    hidden = torch.nn.functional.pad(hidden, (0, 0, 0, max(2 * t - hidden.shape[1], 0)))[:, : 2 * t]
+    memory = torch.nn.functional.linear(hidden.float(), m.audio_feature_map.weight, m.audio_feature_map.bias)
+    mem_k, mem_v = (
+        torch.nn.functional.linear(memory, lin.weight, lin.bias).reshape(b, 2 * t, 4, 16)
+        .transpose(1, 2).to(bf) for lin in (m.cross_k, m.cross_v))
+    del x, hidden, memory
+    weights = m.decoder_weights(bf)
+    style = randn(b, 64, scale=0.5, dtype=bf)
+    pe25_16 = pe25.to(bf)
+    kw = dict(period=25, mem_k=mem_k, mem_v=mem_v)
+    out = dk.faceformer_decode_loop(None, style, pe25_16, weights, **kw)
+    ref = dk.decode_loop_reference(None, style, pe25_16, weights, **kw)
+    torch.cuda.synchronize()
+    require(out.dtype == bf and tuple(out.shape) == (b, t, 64), f"K3 BIWI output {out.dtype} {tuple(out.shape)}")
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    over = (diff - K3_BF16_STEP * ref.float().abs()).max().item()
+    print(json.dumps({"check": "faceformer_decode_loop BIWI bf16 (8, 750)", "max_abs_err": err,
+                      "max_err_less_one_bf16_step": over, "tol": K3_F32_TOL}), flush=True)
+    require(over <= K3_F32_TOL and bool(torch.isfinite(out.float()).all()),
+            f"K3 BIWI err beyond one bf16 step {over} > {K3_F32_TOL}")
+    ms = cuda_ms(torch, lambda: dk.faceformer_decode_loop(None, style, pe25_16, weights, **kw), 5)
+    plain_ms = cuda_ms(torch, lambda: dk.decode_loop_reference(None, style, pe25_16, weights, **kw), 1)
+    # per step: the vocaset step's products, W_cq and W_co, and per head two
+    # 16-wide scores and the 2-way value sum
+    dense_flops = 2.0 * (64 * 192 + 64 * 64 + 64 * 128 + 128 * 64 + 64 * 64 + 2 * 64 * 64 + 4 * 64)
+    flops = b * (t * dense_flops + 256.0 * t * (t + 1) / 2)
+    nbytes = (2 * (2 * b * 2 * t * 64 + b * t * 64 + b * 64 + pe25_16.numel())
+              + sum(w.numel() * w.element_size() for w in weights.values()))
+    bms, bby = bound(nbytes, flops / PEAK_F32_FLOPS)
+    rows.append({
+        "name": "faceformer_decode_loop_biwi", "route": "cuda",
+        "source": "audio2face_tpu_torch/csrc/decode_loop.cu",
+        "replaces": "audio2face_tpu/ops/decode_kernel.py:259",
+        "wrapper": dk.faceformer_decode_loop, "counter": "biwi_launches", "max_abs_err": err,
+        "max_err_less_one_bf16_step": over, "tol": K3_F32_TOL, "shape": [b, t, 64],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, "library_ms": None,
+    })
+    del mem_k, mem_v, out, ref, diff
+    torch.cuda.empty_cache()
+
+    # ---- 3h. K5 tile rasterizer: one transfer batch, 64 frames at 800 x 800 --
+    height, width = rd.FRUSTUM["height"], rd.FRUSTUM["width"]
+    mesh = FaceMesh.load(generate_synthetic_face_obj("build/chip_smoke_assets/head.obj"))
+    renderer = rd.Renderer(mesh)
+    head = np.asarray(mesh.verts, np.float32)  # 5,023 vertices, 9,940 triangles
+    faces_p, valid_p, lights = renderer._faces_padded, renderer._face_valid, renderer.lights
+    frames = head[None] * (1.0 + 0.01 * np.sin(np.arange(64) / 5.0))[:, None, None].astype(np.float32)
+    frames[5] = np.nan  # an all-NaN frame: background
+    frames[9] = head * 3.0  # triangles leave the screen
+    vd = torch.as_tensor(frames, device=dev)
+    coefs, bbox = rz.plane_coefficients(
+        *rd.project_and_shade(vd, faces_p, lights), faces_p, valid_p, height=height, width=width)
+    keys = rz.rasterize_keys(coefs, bbox, height=height, width=width)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()  # the plain version is a host loop over frames and chunks: timed in its one run
+    ref = rz.rasterize_keys_reference(coefs, bbox, height=height, width=width)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    differing = int((keys != ref).sum())
+    err = int((keys.long() - ref.long()).abs().max())
+    covered = (keys != 0).float().mean(dim=(1, 2))
+    print(json.dumps({"check": "rasterize_keys (64, 800, 800), 10240 triangles", "differing_pixels": differing,
+                      "of": keys.numel(), "max_abs_key_err": err, "tol_differing_pixels": K5_DIFFERING_PIXELS,
+                      "covered_share_frame0": covered[0].item()}), flush=True)
+    require(differing <= K5_DIFFERING_PIXELS, f"K5: {differing} pixels differ from the plain version")
+    require(covered[0].item() > 0.05 and covered[5].item() == 0.0 and covered[9].item() > covered[0].item(),
+            f"K5 coverage: frame 0 {covered[0].item()}, NaN frame {covered[5].item()}, enlarged {covered[9].item()}")
+    # against the exact banded oracle, one frame
+    img = rd.keys_to_image(keys[0]).cpu().numpy().astype(np.int32)
+    oracle = renderer._render_frame(frames[0])[:, :, 0].astype(np.int32)
+    off_share = float((np.abs(img - oracle) > 3).mean())
+    print(json.dumps({"check": "rasterize_keys image vs banded oracle", "share_off_by_more_than_3": off_share,
+                      "tol": ORACLE_OFF_SHARE}), flush=True)
+    require(off_share < ORACLE_OFF_SHARE, f"K5 vs banded oracle: {off_share} of the pixels off by > 3")
+    # a tiny mesh with a zero-area triangle, and its NaN frame
+    tiny = np.array([[-0.05, -0.05, 0.5], [0.05, -0.05, 0.5], [0.0, 0.05, 0.5],
+                     [-0.08, 0.08, 0.4], [0.0, 0.08, 0.4], [0.08, 0.08, 0.4]], np.float32)
+    tiny_faces = torch.zeros((rz.TRI_CHUNK, 3), dtype=torch.int32, device=dev)
+    tiny_faces[0] = torch.tensor([0, 1, 2])
+    tiny_faces[1] = torch.tensor([3, 4, 5])  # collinear: zero area
+    tiny_valid = torch.arange(rz.TRI_CHUNK, device=dev) < 2
+    tv = torch.as_tensor(np.stack([tiny, np.full_like(tiny, np.nan)]), device=dev)
+    tc, tb = rz.plane_coefficients(*rd.project_and_shade(tv, tiny_faces, lights), tiny_faces, tiny_valid,
+                                   height=height, width=width)
+    tk = rz.rasterize_keys(tc, tb, height=height, width=width)
+    require(torch.equal(tk, rz.rasterize_keys_reference(tc, tb, height=height, width=width)),
+            "K5 differs from its plain version on the tiny mesh")
+    solo = rd.render_frames_tiled(tv[:1], tiny_faces, torch.arange(rz.TRI_CHUNK, device=dev) < 1, lights)
+    require(bool((tk[0] != 0).any()) and not bool(tk[1].any())
+            and torch.equal(rd.keys_to_image(tk[0]), solo[0]),
+            "K5: the zero-area triangle drew, or the NaN frame is not background")
+    ms = cuda_ms(torch, lambda: rz.rasterize_keys(coefs, bbox, height=height, width=width), 10)
+    # the in-package alternative on the same 16 ordinary frames, projection included
+    v16 = vd[16:32].contiguous()
+    tiled_16_ms = cuda_ms(torch, lambda: rd.render_frames_tiled(v16, faces_p, valid_p, lights), 5)
+    scatter_16_ms = cuda_ms(torch, lambda: rd.render_frames_u8(
+        v16, faces_p, valid_p, lights, patch_h=16, patch_w=24), 2)
+    # the tests this run's boxes ask for: every pixel of a tile against every
+    # triangle of every chunk whose box overlaps the tile
+    n_strips, n_xblocks = height // rz.STRIP_H, -(-width // rz.XBLOCK)
+    pairs = 0
+    for frame_boxes in bbox.cpu().tolist():
+        for xmin, xmax, ymin, ymax in frame_boxes:
+            s0, s1 = rz.tile_range(ymin, ymax, rz.STRIP_H, n_strips)
+            x0, x1 = rz.tile_range(xmin, xmax, rz.XBLOCK, n_xblocks)
+            pairs += max(s1 - s0 + 1, 0) * max(x1 - x0 + 1, 0)
+    tests = float(pairs) * rz.TRI_CHUNK * rz.STRIP_H * rz.XBLOCK
+    nbytes = coefs.numel() * 4 + bbox.numel() * 4 + keys.numel() * 4
+    bms, bby = bound(nbytes, K5_OPS_PER_TEST * tests / PEAK_F32_FLOPS)
+    rows.append({
+        "name": "rasterize_keys", "route": "cuda",
+        "source": "audio2face_tpu_torch/csrc/rasterizer.cu",
+        "replaces": "audio2face_tpu/ops/rasterizer.py:202",
+        "wrapper": rz.rasterize_keys, "max_abs_err": err, "differing_pixels": differing,
+        "tol_differing_pixels": K5_DIFFERING_PIXELS, "oracle_share_off_by_more_than_3": off_share,
+        "shape": [64, height, width], "triangles": int(coefs.shape[1]), "tile_chunk_pairs": pairs,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, "library_ms": None,
+        "tiled_16_frames_ms": tiled_16_ms, "scatter_16_frames_ms": scatter_16_ms,
+    })
+    del coefs, bbox, keys, ref, vd
+    torch.cuda.empty_cache()
+
     # ---- 4. serving path: the full-width predictor --------------------------
     rng = np.random.default_rng(0)
 
@@ -485,9 +685,9 @@ def main() -> int:
     pred([clip(1.0)], np.eye(12, dtype=np.float32)[[0]], template)  # library warm-up
     torch.cuda.synchronize()
 
-    serving_rows = [r for r in rows if r["name"] != "flash_attention_bwd"]
-    for r in rows:
-        r["wrapper"].launches = 0
+    by_name = {r["name"]: r for r in rows}
+    serving_rows = [by_name[n] for n in ("flash_attention", "fused_conv_encoder", "faceformer_decode_loop")]
+    reset_counts(rows)
     # flagship: 8 clips x 60 s
     audios = [clip(60.0) for _ in range(8)]
     one_hot = np.eye(12, dtype=np.float32)[rng.integers(0, 12, 8)]
@@ -517,9 +717,11 @@ def main() -> int:
     require(bool(np.isfinite(res[0]).all()), "44.1 kHz output not finite")
     torch.cuda.synchronize()
     for r in serving_rows:
-        r["launches"] = r["wrapper"].launches
+        r["launches"] = read_count(r)
         require(r["launches"] > 0, f"{r['name']} never launched on the serving path")
     require(attn_ops.flash_attention_bwd.launches == 0, "the backward kernels ran while serving")
+    require(dk.faceformer_decode_loop.biwi_launches == 0 and rz.rasterize_keys.launches == 0,
+            "the BIWI decode kernel or the rasterizer ran while serving vocaset")
 
     # the same weights through the plain versions on the card
     plain = FaceFormerPredictor(
@@ -541,9 +743,158 @@ def main() -> int:
     require(l2 <= tol, f"predictor vs plain: max per-vertex L2 {l2} > {tol}")
 
 
-    # ---- 5. training path: the full-width experiment -------------------------
     del plain, got, want
     torch.cuda.empty_cache()
+
+    # ---- 5. path 1: a clip's predicted vertices to rendered frames -----------
+    one0 = np.eye(12, dtype=np.float32)[[0]]
+    speech = clip(3.5)  # 210 frames: three whole transfer batches and a padded fourth
+    pred([speech], one0, head)  # warm the bucket's library kernels and the pinned allocator
+    renderer.render(pred([speech], one0, head)[0][:64])
+    torch.cuda.synchronize()
+    reset_counts(rows)
+    tic = time.perf_counter()
+    verts = pred([speech], one0, head)[0]
+    t_pred = time.perf_counter() - tic
+    images = renderer.render(verts)
+    wall = time.perf_counter() - tic
+    n_img = len(images)
+    for r in serving_rows:
+        require(read_count(r) > 0, f"{r['name']} never launched on the clip-to-frames path")
+    k5 = by_name["rasterize_keys"]
+    k5["launches"] = read_count(k5)
+    # every frame fits its crop window: one launch per transfer batch, none for a re-render
+    require(n_img == verts.shape[0] == 210 and k5["launches"] == -(-n_img // renderer.TRANSFER_BATCH),
+            f"{n_img} frames of {verts.shape[0]}, K5 launched {k5['launches']} times")
+    require(all(im.shape == (height, width, 3) and im.dtype == np.uint8 for im in images), "frame shape or type")
+    face_share = min(float((im[:, :, 0] != rd.BG_COLOR).mean()) for im in images)
+    require(face_share > 0.05, f"the face covers {face_share} of a frame")
+    require(not np.array_equal(images[0], images[100]), "the animation does not move")
+    picks = [0, 100, n_img - 1]
+    for i, full in zip(picks, renderer._render_frames_tiled(verts[picks])):
+        require(np.array_equal(images[i], full), f"frame {i} differs from its full-frame render")
+    # a deliberately enlarged frame exceeds the crop window: only it is rendered again, full-frame
+    big = verts[:70].copy()
+    big[3] = big[3] * 1.6
+    before = rz.rasterize_keys.launches
+    big_images = renderer.render(big)
+    require(rz.rasterize_keys.launches - before == 3, "the unfit frame did not take one full-frame re-render")
+    for i, full in zip((2, 3, 4), renderer._render_frames_tiled(big[2:5])):
+        require(np.array_equal(big_images[i], full), f"enlarged clip: frame {i} differs from its full-frame render")
+    require(float((big_images[3][:, :, 0] != rd.BG_COLOR).mean()) > 1.5 * face_share, "the enlarged frame is not larger")
+    # the split of one transfer batch: device work, copy into a pinned buffer, host paste
+    batch = torch.as_tensor(verts[:64], device=dev)
+    device_ms = cuda_ms(torch, lambda: rd.render_frames_tiled_packed(batch, faces_p, valid_p, lights), 5)
+    packed = rd.render_frames_tiled_packed(batch, faces_p, valid_p, lights)
+    pinned = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
+    copy_ms = cuda_ms(torch, lambda: pinned.copy_(packed, non_blocking=True), 5)
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    crops, offs, fit = rd.unpack_rendered(pinned.numpy())
+    pasted = [rd.paste_crop(crops[i], offs[i], height, width) for i in range(64)]
+    paste_ms = 1e3 * (time.perf_counter() - tic)
+    require(bool(fit.all()) and np.array_equal(pasted[0], images[0]), "the packed batch does not unpack to the frames")
+    print(json.dumps({"clip_to_frames": {
+        "frames": n_img, "predict_s": t_pred, "render_s": wall - t_pred, "wall_s": wall,
+        "rendered_frames_per_s": n_img / (wall - t_pred), "frames_per_s_of_wall": n_img / wall,
+        "per_batch_of_64_ms": {"device": device_ms, "copy": copy_ms, "host_paste": paste_ms},
+        "k5_launches": k5["launches"], "min_face_share": face_share, "card": smi,
+    }}), flush=True)
+    del images, big_images, pasted, packed, pinned, batch
+
+    # ---- 6. path 2: BIWI serving, and one BIWI training step ------------------
+    template_biwi = rng.normal(size=(n_verts_biwi // 3, 3)).astype(np.float32)
+    biwi([clip(1.0)], one0, template_biwi)  # library warm-up
+    torch.cuda.synchronize()
+    reset_counts(rows)
+    audios = [clip(30.0) for _ in range(8)]
+    one_hot = np.eye(12, dtype=np.float32)[rng.integers(0, 12, 8)]
+    tic = time.perf_counter()
+    res = biwi(audios, one_hot, template_biwi)
+    wall = time.perf_counter() - tic
+    for a, y in zip(audios, res):
+        require(y.shape == (frame_count(len(a), 25), n_verts_biwi // 3, 3) and y.shape[0] == 750,
+                f"BIWI shape {y.shape}")
+        require(bool(np.isfinite(y).all()), "BIWI output not finite")
+    print(json.dumps({"biwi_request": {
+        "clips": 8, "seconds_each": 30, "wall_s": wall, "mesh_frames_per_s": 8 * 750 / wall,
+        "realtime_factor": 8 * 30.0 / wall, "card": smi,
+    }}), flush=True)
+    del res
+    secs = [3.0, 12.5, 27.3, 8.8, 0.5]
+    audios = [clip(s_) for s_ in secs]
+    res = biwi(audios, np.eye(12, dtype=np.float32)[[1, 3, 5, 7, 9]], template_biwi)
+    for a, y in zip(audios, res):
+        require(y.shape == (frame_count(len(a), 25), n_verts_biwi // 3, 3), f"BIWI mixed shape {y.shape}")
+        require(bool(np.isfinite(y).all()), "BIWI mixed output not finite")
+    del res
+    kb = by_name["faceformer_decode_loop_biwi"]
+    kb["launches"] = read_count(kb)
+    require(kb["launches"] == 2 and dk.faceformer_decode_loop.launches == 0,
+            f"BIWI serving launched its decode variant {kb['launches']} times and the vocaset one "
+            f"{dk.faceformer_decode_loop.launches} times")
+    require(attn_ops.flash_attention.launches > 0 and ce.fused_conv_encoder.launches > 0,
+            "BIWI serving did not run the encoder's kernels")
+    # the same weights through the plain versions on the card
+    plain = FaceFormerPredictor(
+        n_verts=n_verts_biwi, bf16=True, max_batch=8, bucket_seconds=5.0, dataset="biwi",
+        state_dict=biwi.model.state_dict(), use_kernels=False,
+    )
+    audios = [clip(10.0), clip(7.5)]
+    one_hot = np.eye(12, dtype=np.float32)[[4, 8]]
+    got = biwi(audios, one_hot, template_biwi)
+    want = plain(audios, one_hot, template_biwi)
+    l2 = max(float(np.linalg.norm(a - b, axis=-1).max()) for a, b in zip(got, want))
+    disp = max(float(np.abs(b - template_biwi).max()) for b in want)
+    tol = 0.05 * disp  # the bf16 predictor's bar of phase 4
+    print(json.dumps({"check": "BIWI predictor kernels vs plain, 2 clips", "max_vertex_l2": l2,
+                      "max_offset": disp, "tol": tol}), flush=True)
+    require(l2 <= tol, f"BIWI predictor vs plain: max per-vertex L2 {l2} > {tol}")
+    del plain, got, want
+    torch.cuda.empty_cache()
+    # one BIWI training step: batch 8 x 10 s, 250 frames at 25 fps
+    cfg_biwi = ExpConfig(
+        batch_size=8, modelname="faceformer", one_hot_size=12, feature_extractor=None,
+        sample_rate=16000, vertex_count=n_verts_biwi, split_frame=False, n_feature=32, out_dim=52,
+        win_length=440, percision="16-mixed", lr=1e-3, seed=0, dataset="biwi",
+    )
+    exp = Audio2FaceExperiment(cfg_biwi, log_dir="build/chip_smoke_logs")
+    exp.model.load_state_dict(biwi.model.state_dict())
+    rng_b = np.random.default_rng(4)
+    tmpl = (rng_b.normal(size=(8, n_verts_biwi // 3, 3)) * 0.1).astype(np.float32)
+    batch = {
+        "audio": (rng_b.normal(size=(8, 160000)) * 0.1).astype(np.float32),
+        "one_hot": np.eye(12, dtype=np.float32)[rng_b.integers(0, 12, 8)],
+        "verts": (torch.randn((8, 250, n_verts_biwi), generator=g).numpy() * 0.002 + tmpl.reshape(8, 1, -1)),
+        "template_vert": tmpl,
+        "audio_lengths": np.asarray([160000, 160000, 120000, 80000, 160000, 40000, 160000, 8000], np.int32),
+    }
+    reset_counts(rows)
+    tic = time.perf_counter()
+    with torch.enable_grad():
+        metrics = exp.train_step(batch)
+        torch.cuda.synchronize()
+    step_wall = time.perf_counter() - tic
+    require(all(math.isfinite(float(v_)) for v_ in metrics.values()), f"BIWI training step: {metrics}")
+    for name in ("cross_q", "cross_k"):
+        grad = getattr(exp.model, name).weight.grad
+        require(grad is not None and bool(torch.isfinite(grad).all()) and float(grad.abs().sum()) > 0,
+                f"no finite, non-zero gradient on {name}")
+    require(dk.faceformer_decode_loop.launches == 0 and dk.faceformer_decode_loop.biwi_launches == 0
+            and ce.fused_conv_encoder.launches == 0,
+            "an inference-only kernel was launched in the BIWI training step")
+    require(attn_ops.flash_attention.launches > 0
+            and attn_ops.flash_attention_bwd.launches == attn_ops.flash_attention.launches,
+            "the BIWI training step did not run the attention kernels forward and backward")
+    print(json.dumps({"biwi_training_step": {
+        "batch": 8, "seconds_each": 10, "frames": 250, "step_wall_s": step_wall,
+        "loss": float(metrics["loss"]), "k1_launches": attn_ops.flash_attention.launches,
+        "k4_launches": attn_ops.flash_attention_bwd.launches, "card": smi,
+    }}), flush=True)
+    del exp, batch, tmpl, biwi
+    torch.cuda.empty_cache()
+
+    # ---- 7. training path: the full-width experiment -------------------------
     n_clip, n_frames = 160000, 600  # 10 s
     cfg = ExpConfig(
         batch_size=8, modelname="faceformer", one_hot_size=12, feature_extractor=None,
@@ -571,8 +922,7 @@ def main() -> int:
     start_params = {k_: v_.detach().clone() for k_, v_ in exp.model.named_parameters()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for r in rows:
-        r["wrapper"].launches = 0
+    reset_counts(rows)
     step_s, train_losses = [], []
     with torch.enable_grad():
         for i in range(3):
@@ -588,14 +938,13 @@ def main() -> int:
                 require(not bad, f"non-finite gradients in {bad[:5]}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for r in rows:
-        r["train_launches"] = r["wrapper"].launches
-    by_name = {r["name"]: r for r in rows}
+        r["train_launches"] = read_count(r)
     n_fwd, n_bwd = by_name["flash_attention"]["train_launches"], by_name["flash_attention_bwd"]["train_launches"]
     by_name["flash_attention_bwd"]["launches"] = n_bwd
     # 12 attention calls a step less LayerDrop's skips, each with its backward
     require(0 < n_fwd <= 36 and n_bwd == n_fwd, f"training launched K1 {n_fwd} and K4 {n_bwd} times")
-    require(by_name["fused_conv_encoder"]["train_launches"] == 0
-            and by_name["faceformer_decode_loop"]["train_launches"] == 0,
+    require(all(by_name[n]["train_launches"] == 0 for n in (
+        "fused_conv_encoder", "faceformer_decode_loop", "faceformer_decode_loop_biwi", "rasterize_keys")),
             "an inference-only kernel was launched in training")
     moved = {part: max(float((p_.detach() - start_params[k_]).abs().max())
                        for k_, p_ in exp.model.named_parameters() if k_.startswith(prefix))
@@ -631,8 +980,7 @@ def main() -> int:
     for use_kernels in (True, False):
         e32 = Audio2FaceExperiment(cfg32, log_dir="build/chip_smoke_logs", use_kernels=use_kernels)
         e32.model.load_state_dict(pred.model.state_dict())
-        for r in rows:
-            r["wrapper"].launches = 0
+        reset_counts(rows)
         with torch.enable_grad():
             e32.accumulate_gradients(small)
         require((attn_ops.flash_attention_bwd.launches > 0) == use_kernels,
@@ -653,9 +1001,10 @@ def main() -> int:
     require(worst <= GRAD_LEAF_TOL, f"gradient of {worst_leaf} differs by {worst} of its largest value")
     del grads
 
-    # ---- 6. results -----------------------------------------------------
+    # ---- 8. results -----------------------------------------------------
     for r in rows:
         del r["wrapper"]
+        r.pop("counter", None)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

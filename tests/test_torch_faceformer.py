@@ -91,13 +91,22 @@ def test_wav2vec2_normalization_and_int16():
 
 def test_select_decode_impl(monkeypatch):
     assert ff.select_decode_impl(torch.device("cpu")) == "loop"
-    with pytest.raises(NotImplementedError):
-        ff.select_decode_impl(torch.device("cpu"), dataset="biwi")
-    # CUDA picks the kernel, and raises (no fallback) where its weights do
-    # not fit one block's shared memory
-    monkeypatch.setattr(ff.decode_kernel, "smem_fits", lambda device: True)
+    assert ff.select_decode_impl(torch.device("cpu"), dataset="biwi") == "loop"
+    with pytest.raises(ValueError, match="unknown dataset"):
+        ff.select_decode_impl(torch.device("cpu"), dataset="mead")
+    # CUDA picks the kernel (BIWI: its 2-way cross-softmax variant, which
+    # needs more shared memory), and raises (no fallback) where its weights
+    # do not fit one block's shared memory
+    monkeypatch.setattr(ff.decode_kernel, "smem_fits", lambda device, biwi=False: True)
     assert ff.select_decode_impl(torch.device("cuda")) == "fused"
-    monkeypatch.setattr(ff.decode_kernel, "smem_fits", lambda device: False)
+    assert ff.select_decode_impl(torch.device("cuda"), dataset="biwi") == "fused"
+    assert ff.select_decode_impl(torch.device("cuda"), dataset="biwi", train=True) == "steps"
+    monkeypatch.setattr(ff.decode_kernel, "smem_fits", lambda device, biwi=False: not biwi)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda device: "a small card")
+    assert ff.select_decode_impl(torch.device("cuda")) == "fused"
+    with pytest.raises(RuntimeError, match=str(ff.decode_kernel.SMEM_BYTES_BIWI)):
+        ff.select_decode_impl(torch.device("cuda"), dataset="biwi")
+    monkeypatch.setattr(ff.decode_kernel, "smem_fits", lambda device, biwi=False: False)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda device: "a small card")
     with pytest.raises(RuntimeError, match="shared"):
         ff.select_decode_impl(torch.device("cuda"))

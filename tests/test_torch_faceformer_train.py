@@ -169,7 +169,7 @@ def test_decode_chunk_size(n, chunk):
 
 
 def test_training_never_selects_the_fused_decode_kernel(monkeypatch):
-    monkeypatch.setattr(ff.decode_kernel, "smem_fits", lambda device: True)
+    monkeypatch.setattr(ff.decode_kernel, "smem_fits", lambda device, biwi=False: True)
     assert ff.select_decode_impl(torch.device("cuda")) == "fused"
     assert ff.select_decode_impl(torch.device("cuda"), train=True) == "steps"
     assert ff.select_decode_impl(torch.device("cpu"), train=True) == "steps"

@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither JAX, flax nor the JAX package
-(nor, at module level, pydantic, optax, orbax, tensorboardX or yaml, which
-the GPU machine lacks), its entry points refuse to fall back to the CPU, and
+(nor, at module level, pydantic, optax, orbax, tensorboardX, yaml or cv2,
+which the GPU machine lacks), its entry points refuse to fall back to the CPU, and
 CPU tensors go through the plain versions, forward and backward, without
 launching (or building) any kernel."""
 
@@ -22,7 +22,7 @@ _BLOCKED_IMPORTS = r'''
 import importlib, pkgutil, sys
 
 BLOCKED = ("jax", "jaxlib", "flax", "audio2face_tpu", "pydantic", "optax", "orbax",
-           "tensorboardX", "yaml")
+           "tensorboardX", "yaml", "cv2")
 
 def blocked(name):
     # exact package or its submodules: "audio2face_tpu_torch" is NOT blocked
@@ -54,7 +54,7 @@ def test_port_imports_no_jax():
         text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 20  # every module of the port so far
+    assert int(proc.stdout.strip()) >= 30  # every module of the port so far
 
 
 def test_default_device_raises_without_gpu():
@@ -66,6 +66,17 @@ def test_default_device_raises_without_gpu():
         FaceFormerPredictor(n_verts=30)
 
 
+def test_renderer_default_device_raises_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from audio2face_tpu_torch.utils.facemesh import FaceMesh
+    from audio2face_tpu_torch.utils.renderer import Renderer
+
+    mesh = FaceMesh(np.zeros((3, 3), np.float32), np.asarray([[0, 1, 2]]))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Renderer(mesh)
+
+
 def test_cpu_tensors_take_plain_versions():
     from audio2face_tpu_torch.models.faceformer import FaceFormer
     from audio2face_tpu_torch.models.wav2vec2 import Wav2Vec2Config
@@ -73,10 +84,15 @@ def test_cpu_tensors_take_plain_versions():
     from audio2face_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
     from audio2face_tpu_torch.ops.conv_encoder import fused_conv_encoder
     from audio2face_tpu_torch.ops.decode_kernel import faceformer_decode_loop
+    from audio2face_tpu_torch.ops.rasterizer import rasterize_keys
+    from audio2face_tpu_torch.utils.facemesh import FaceMesh
+    from audio2face_tpu_torch.utils.renderer import Renderer
 
-    wrappers = (flash_attention, flash_attention_bwd, fused_conv_encoder, faceformer_decode_loop)
+    wrappers = (flash_attention, flash_attention_bwd, fused_conv_encoder, faceformer_decode_loop,
+                rasterize_keys)
     for w in wrappers:
         w.launches = 0
+    faceformer_decode_loop.biwi_launches = 0
     # bf16 takes the fused conv-encoder wrapper; every wrapper sees CPU tensors
     model = FaceFormer(30, 12, dtype=torch.bfloat16, encoder_config=Wav2Vec2Config(num_layers=1))
     model.init_parameters(torch.Generator().manual_seed(0))
@@ -92,5 +108,19 @@ def test_cpu_tensors_take_plain_versions():
                   train=True, return_hidden=True, generator=torch.Generator().manual_seed(0))
     hs.float().sum().backward()
     assert model.audio_encoder.feature_projection.projection.weight.grad is not None
-    assert [w.launches for w in wrappers] == [0, 0, 0, 0]
+    # the BIWI model: the decode wrapper's 2-way cross-softmax variant
+    biwi = FaceFormer(30, 12, dataset="biwi", period=25, dtype=torch.bfloat16,
+                      encoder_config=Wav2Vec2Config(num_layers=1))
+    biwi.init_parameters(torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        out, mask = biwi(audio, torch.eye(12)[:2], torch.zeros(2, 10, 3), torch.tensor([4000, 2500]))
+    assert out.shape == (2, 6, 10, 3) and torch.isfinite(out).all()
+    assert mask.sum(dim=1).tolist() == [6.0, 3.0]
+    # the tile rasterizer through the renderer's tiled path
+    tri = FaceMesh(np.asarray([[-0.05, -0.05, 0.5], [0.05, -0.05, 0.5], [0.0, 0.05, 0.5]], np.float32),
+                   np.asarray([[0, 1, 2]]))
+    frames = Renderer(tri, device="cpu")._render_frames_tiled(np.asarray(tri.verts)[None])
+    assert frames[0].shape == (800, 800, 3) and (frames[0] != 255).any()
+    assert [w.launches for w in wrappers] == [0, 0, 0, 0, 0]
+    assert faceformer_decode_loop.biwi_launches == 0
     assert not _build._libs

@@ -153,11 +153,15 @@ def test_default_device_raises_without_gpu():
 
 
 def test_meshes_and_other_datasets_are_refused():
-    for kw in ({"mesh_shape": (2, 2)}, {"fsdp": True}, {"dataset": "biwi"}):
+    for kw in ({"mesh_shape": (2, 2)}, {"fsdp": True}):
         with pytest.raises(NotImplementedError):
             _experiment(**kw)
     with pytest.raises(ValueError, match="unknown dataset"):
         _experiment(dataset="mead")
+    # BIWI is a dataset of the faceformer family: 25 fps, period 25
+    biwi = _experiment(dataset="biwi")
+    assert (biwi.model.dataset, biwi.model.period, biwi.model.fps) == ("biwi", 25, 25)
+    assert hasattr(biwi.model, "cross_q") and not hasattr(_experiment().model, "cross_q")
     with pytest.raises(ValueError, match="accumulate_grad_batches"):
         _experiment(accumulate_grad_batches=0)
 

@@ -29,7 +29,24 @@ clips x 10 s with mixed lengths and synthetic vertices, then
 2. traces one more step with ``torch.profiler``, sums device time by kernel
    group, and counts the device kernels launched;
 
-and prints the table, then ``{"train_breakdown": {...}}``. Run from the
+and prints the table, then ``{"train_breakdown": {...}}``.
+
+``python3 tools/torch_flagship_breakdown.py render`` splits one 180-frame
+render of the synthetic 5,023-vertex head at 800 x 800 through
+``Renderer.render`` (the pipelined tile-rasterizer path):
+
+1. one transfer batch of 64 frames taken apart with CUDA events: the copy
+   of the vertices to the device, projection and shading, the prepass
+   (plane coefficients, chunk boxes, crop window), K5, crop and pack (the
+   whole packed render less the parts before it), the copy of the packed
+   buffer into pinned host memory; and on the host clock the unpack and
+   paste into full frames;
+2. the whole render on the host clock (after a warm render), frames per
+   second;
+3. one more render under ``torch.profiler``: device time by kernel group and
+   the device's idle share;
+
+and prints the table, then ``{"render_breakdown": {...}}``. Run from the
 repository root.
 """
 
@@ -50,6 +67,7 @@ GROUPS = (  # (group, substrings of CUDA kernel names)
     ("K4 flash_attention_bwd", ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")),
     ("K2 conv encoder", ("conv0_moments", "gn_fold", "conv0_gelu", "strided_conv_gemm")),
     ("K3 decode loop", ("decode_loop_kernel",)),
+    ("K5 rasterizer", ("raster_kernel",)),
     ("library conv", ("convolve", "cudnn", "winograd", "fft")),
     ("library matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")),
     ("copies", ("memcpy", "Memcpy", "memset", "Memset")),
@@ -269,10 +287,111 @@ def train_main() -> int:
     }
     print(json.dumps({"train_breakdown": result}))
     return 0
+def render_main() -> int:
+    import torch
 
+    if not torch.cuda.is_available():
+        print("torch_flagship_breakdown: CUDA is not available", file=sys.stderr)
+        return 1
+    from audio2face_tpu_torch.data.synthetic import generate_synthetic_face_obj
+    from audio2face_tpu_torch.ops import rasterizer as rz
+    from audio2face_tpu_torch.utils import renderer as rd
+    from audio2face_tpu_torch.utils.facemesh import FaceMesh
+
+    card = card_line()
+    torch.set_grad_enabled(False)
+    dev = torch.device("cuda")
+    mesh = FaceMesh.load(generate_synthetic_face_obj("build/render_breakdown_assets/head.obj"))
+    renderer = rd.Renderer(mesh)
+    head = np.asarray(mesh.verts, np.float32)
+    # 3 s at 60 fps: the lower half opens and closes like a jaw, the head sways
+    n_frames, height, width = 180, rd.FRUSTUM["height"], rd.FRUSTUM["width"]
+    t = np.arange(n_frames, dtype=np.float32) / 60.0
+    anim = np.repeat(head[None], n_frames, axis=0)
+    anim[:, head[:, 1] < 0.0, 1] -= (0.004 * (0.5 - 0.5 * np.cos(2 * np.pi * 2.3 * t)))[:, None]
+    anim[:, :, 0] += (0.003 * np.sin(2 * np.pi * 0.5 * t))[:, None]
+    renderer.render(anim)  # builds the kernel, warms the allocators
+
+    def events_ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            out = fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps, out
+
+    faces, valid, lights = renderer._faces_padded, renderer._face_valid, renderer.lights
+    chunk = torch.as_tensor(anim[:64])
+    stages: dict[str, float] = {}
+    stages["vertices_to_device_ms"], vd = events_ms(lambda: chunk.to(dev))
+    stages["project_and_shade_ms"], proj = events_ms(lambda: rd.project_and_shade(vd, faces, lights))
+
+    def prepass():
+        coefs, bbox = rz.plane_coefficients(*proj, faces, valid, height=height, width=width)
+        rd._crop_window(proj[0], proj[1], proj[4], height=height, width=width,
+                        crop_h=rd.CROP_H, crop_w=rd.CROP_W)
+        return coefs, bbox
+
+    stages["prepass_ms"], (coefs, bbox) = events_ms(prepass)
+    stages["k5_rasterize_keys_ms"], _ = events_ms(
+        lambda: rz.rasterize_keys(coefs, bbox, height=height, width=width))
+    whole_ms, packed = events_ms(lambda: rd.render_frames_tiled_packed(vd, faces, valid, lights))
+    stages["crop_and_pack_ms"] = whole_ms - (
+        stages["project_and_shade_ms"] + stages["prepass_ms"] + stages["k5_rasterize_keys_ms"])
+    pinned = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
+    stages["copy_to_pinned_host_ms"], _ = events_ms(lambda: pinned.copy_(packed, non_blocking=True))
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    crops, offs, fit = rd.unpack_rendered(pinned.numpy())
+    frames = [rd.paste_crop(crops[i], offs[i], height, width) for i in range(64)]
+    stages["host_unpack_and_paste_ms"] = 1e3 * (time.perf_counter() - tic)
+    if not fit.all() or frames[0].shape != (height, width, 3):
+        raise AssertionError("the packed batch does not unpack to fitting frames")
+
+    rz.rasterize_keys.launches = 0
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    images = renderer.render(anim)
+    wall = time.perf_counter() - tic
+    launches = rz.rasterize_keys.launches
+    if len(images) != n_frames or (images[0][:, :, 0] != rd.BG_COLOR).mean() < 0.05:
+        raise AssertionError("the render did not draw the head")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        renderer.render(anim)
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - tic
+    by_group, busy_us = device_ms_by_group(prof)
+    copy_us = 1e3 * by_group.get("copies", 0.0)
+    print(profile_table(prof))
+
+    result = {
+        "card": card,
+        "render": f"{n_frames} frames, {mesh.n_verts} vertices, {mesh.n_faces} triangles, {height} x {width}",
+        "wall_s": wall,
+        "frames_per_s": n_frames / wall,
+        "k5_launches": launches,
+        "one_batch_of_64_frames": stages,
+        "packed_batch_bytes": packed.numel(),
+        "traced_wall_s": traced_wall,
+        "device_busy_ms": busy_us / 1e3 if busy_us else None,
+        "device_idle_share": (1.0 - busy_us / 1e6 / traced_wall) if busy_us else None,
+        "device_kernel_ms": (busy_us - copy_us) / 1e3 if busy_us else None,
+        "device_ms_by_group": by_group,
+    }
+    print(json.dumps({"render_breakdown": result}))
+    return 0
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] not in ([], ["train"]):
-        sys.exit("usage: torch_flagship_breakdown.py [train]")
-    sys.exit(train_main() if sys.argv[1:] else main())
+    modes = {(): main, ("train",): train_main, ("render",): render_main}
+    if tuple(sys.argv[1:]) not in modes:
+        sys.exit("usage: torch_flagship_breakdown.py [train|render]")
+    sys.exit(modes[tuple(sys.argv[1:])]())
