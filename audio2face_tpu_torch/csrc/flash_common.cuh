@@ -1,7 +1,7 @@
 // Device helpers shared by the flash-attention forward (flash_attention.cu)
-// and backward (flash_attention_bwd.cu): per-type traits, the ALiBi floor
-// division and the dropout hash. One copy, so that the backward regenerates
-// the forward's bias and keep mask bit for bit.
+// and backward (flash_attention_bwd.cu): the ALiBi floor division and the
+// dropout hash. One copy, so that the backward regenerates the forward's
+// bias and keep mask bit for bit.
 
 #pragma once
 
@@ -11,31 +11,18 @@
 
 namespace {
 
-template <typename T>
-struct Traits;
-
-template <>
-struct Traits<__nv_bfloat16> {
-  static constexpr int PAD = 8;  // keeps WMMA rows 32-byte aligned
-  __device__ static float exp(float x) { return __expf(x); }
-};
-
-template <>
-struct Traits<float> {
-  static constexpr int PAD = 1;  // odd pitch: conflict-free scalar columns
-  __device__ static float exp(float x) { return expf(x); }
-};
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 __host__ __device__ constexpr int align128(int bytes) { return (bytes + 127) / 128 * 128; }
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// 2^x on the SFU (what __expf(x) computes after multiplying by log2 e);
+// the bf16 kernels fold log2 e into the score scale instead
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ int floor_div(int a, int b) {
   int q = a / b;  // C truncates toward zero; floor for negative remainders

@@ -1,0 +1,246 @@
+// Hopper warpgroup matrix multiply (wgmma), asynchronous copies and the
+// shared-memory operand layout of the bf16 flash-attention kernels
+// (flash_attention.cu, flash_attention_bwd.cu). sm_90a only.
+//
+// Operand layout in shared memory: a tile of R rows x D bf16 columns is
+// stored as 8 x 8 "core matrices" (8 rows of 16 contiguous bytes, 128
+// bytes each), with no swizzle: core matrix (row block rb, column block cb)
+// at byte (rb * D / 8 + cb) * 128. One core matrix is one contiguous 128-byte
+// run, so wgmma reads it without bank conflicts, and a 16-byte cp.async per
+// thread in address order writes it without conflicts. The same tile serves
+// as a K-major operand (its columns are the reduction dimension: q k^T) and
+// as an MN-major one (its rows are: p v), with another descriptor.
+//
+// Accumulator fragment of m64nN (f32), thread t of the warpgroup, lane
+// l = t % 32, warp w = t / 32: d[4j + 2h + e] is element
+// (16w + l/4 + 8h, 8j + 2(l % 4) + e). The bf16 A fragment of m64k16 for
+// k block kk is the same layout packed in pairs: a[0] = d[8kk + 0, 1],
+// a[1] = d[8kk + 2, 3], a[2] = d[8kk + 4, 5], a[3] = d[8kk + 6, 7], so a
+// rounded accumulator is the next product's A operand with no data movement.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma matrix descriptor, no swizzle: start address, leading-dimension
+// byte offset (LBO), stride-dimension byte offset (SBO), each >> 4
+__device__ __forceinline__ uint64_t make_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32);
+}
+
+// K-major operand: rows are M (or N), columns the reduction dimension.
+// Core matrices adjacent along K are 128 B apart (LBO), adjacent 8-row
+// blocks 16 D bytes apart (SBO). k block kk (16 columns) starts 256 kk bytes in.
+template <int D>
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int row0, int kk) {
+  return make_desc(tile + row0 * D * 2 + kk * 256, 128, 16 * D);
+}
+
+// MN-major operand: rows are the reduction dimension, columns N. Without
+// swizzle LBO is again the stride along K (8-row blocks, 16 D bytes apart)
+// and SBO the stride along N (128 B); k block kk (16 rows) starts 32 D kk
+// bytes in. (Both assignments were tried on the card; the other one reads
+// wrong rows.)
+template <int D>
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
+  return make_desc(tile + kk * 32 * D, 16 * D, 128);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator reads and writes across the
+// asynchronous products. Operands are pinned this way before each
+// wgmma.fence too: an instruction that defines a wgmma input inside the
+// issue window (between wgmma.fence and the wait) makes ptxas serialize
+// every wgmma of the kernel.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// 16-byte asynchronous copy global -> shared; `valid` false zero-fills
+__device__ __forceinline__ void cp_async16(uint32_t saddr, const void* g, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr), "l"(g),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 4-byte asynchronous copy global -> shared; `valid` false zero-fills
+__device__ __forceinline__ void cp_async4(uint32_t saddr, const void* g, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(saddr), "l"(g),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// makes this thread's completed shared-memory writes visible to wgmma,
+// which reads through the async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// rows [row0, row0 + ROWS) of a (T, D) bf16 slab into a core-matrix tile
+// by 16-byte asynchronous copies, threads in shared-address order; rows at
+// or past `valid` are zero-filled
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void load_tile_async(uint32_t tile, const __nv_bfloat16* src, int row0,
+                                                int valid, int tid) {
+  constexpr int CB = D / 8;
+#pragma unroll
+  for (int idx = tid; idx < ROWS * CB; idx += NT) {
+    const int cm = idx >> 3, r = (cm / CB) * 8 + (idx & 7), cb = cm % CB;
+    const int g = row0 + r;
+    const bool ok = g < valid;
+    cp_async16(tile + idx * 16, src + (size_t)(ok ? g : 0) * D + cb * 8, ok);
+  }
+}
+
+// two f32 values rounded to bf16 and packed, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// an m64nN f32 accumulator rounded to bf16 as the A fragments of the next
+// product's N / 16 k blocks (the layouts above: no data movement)
+template <int N>
+__device__ __forceinline__ void pack_frags(const float (&d)[N / 2], uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int i = 0; i < N / 2; i += 2) a[i / 8][(i % 8) / 2] = pack_bf16(d[i], d[i + 1]);
+}
+
+// fence_regs for A fragments: pins their definition before a wgmma.fence,
+// and keeps them (and their registers) alive until the wait that retires
+// the wgmma reading them
+template <int KB>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[KB][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KB; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[kk][r])::"memory");
+}
+
+// d[32] (+)= A B^T, both K-major in shared memory (trans-b 0), m64n64k16
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[8] (+)= A B, A from registers (a[4]: the m64k16 bf16 fragment), B
+// MN-major in shared memory (trans-b 1), m64n16k16
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d[16] (+)= A B, A from registers (a[4]: the m64k16 bf16 fragment), B
+// MN-major in shared memory (trans-b 1), m64n32k16
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d[32] (+)= A B, A from registers (a[4]: the m64k16 bf16 fragment), B
+// MN-major in shared memory (trans-b 1), m64n64k16
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d[64] (+)= A B, A from registers (a[4]: the m64k16 bf16 fragment), B
+// MN-major in shared memory (trans-b 1), m64n128k16
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d (+)= A B with N = D: the product into a head-dim-wide accumulator
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b,
+                                         int scale_d) {
+  if constexpr (N == 16) wgmma_rs_n16(d, a, desc_b, scale_d);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, desc_b, scale_d);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, desc_b, scale_d);
+  else wgmma_rs_n128(d, a, desc_b, scale_d);
+}
+
+}  // namespace

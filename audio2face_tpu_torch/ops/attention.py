@@ -17,8 +17,12 @@ ever stored.
 When an input requires grad, ``flash_attention`` goes through a
 ``torch.autograd.Function`` whose backward is ``flash_attention_bwd``: for
 CUDA tensors the two kernels of ``csrc/flash_attention_bwd.cu`` (the TPU's
-``flash_attention_bwd_pallas``), whatever the shape, and for CPU tensors
-``flash_attention_bwd_reference``.
+``flash_attention_bwd_pallas``; the first also computes ``delta =
+rowsum(dO * O)``, whose plain version is ``attention_delta_reference``),
+whatever the shape, and for CPU tensors ``flash_attention_bwd_reference``.
+
+bf16 launches multiply with Hopper's ``wgmma`` (register accumulators,
+tiles filled by ``cp.async``); f32 launches take CUDA-core FMAs.
 """
 
 from __future__ import annotations
@@ -53,6 +57,19 @@ def alibi_slopes(n_heads: int) -> np.ndarray:
             + pow2_slopes(2 * closest)[0::2][: n_heads - closest]
         )
     return np.asarray(slopes, dtype=np.float32)
+
+
+_device_slopes: dict[tuple[int, torch.device], torch.Tensor] = {}
+
+
+def device_alibi_slopes(n_heads: int, device: torch.device) -> torch.Tensor:
+    """``alibi_slopes(n_heads)`` as an f32 tensor on ``device``, made once per
+    (heads, device) and then reused, so that a kernel launch copies nothing
+    from the host (a pageable host-to-device copy waits for the device)."""
+    key = (n_heads, torch.device(device))
+    if key not in _device_slopes:
+        _device_slopes[key] = torch.as_tensor(alibi_slopes(n_heads)).to(device)
+    return _device_slopes[key]
 
 
 def alibi_period_bias(
@@ -176,6 +193,14 @@ def mha_reference(
     return out
 
 
+def attention_delta_reference(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(g * out)`` (B, H, Tq) in the accumulation type: the
+    per-row term of the backward (``ds = p (dp - delta) scale``); plain
+    version of what the dq kernel computes for its rows."""
+    acc = _acc_dtype(out)
+    return (g.to(acc) * out.to(acc)).sum(dim=-1)
+
+
 def flash_attention_bwd_reference(
     q, k, v, out, lse, g, *, causal=False, alibi_period=None, kv_lengths=None,
     sm_scale=None, dropout_rate: float = 0.0, dropout_seed=None,
@@ -201,7 +226,7 @@ def flash_attention_bwd_reference(
     if dropout_rate > 0.0 and dropout_seed is not None:
         m = attention_keep_mask(b, h, t_q, t_k, dropout_seed, dropout_rate, q.device).to(acc)
         pm, dp = p * m, dp * m
-    delta = (g32 * out.to(acc)).sum(dim=-1, keepdim=True)
+    delta = attention_delta_reference(out, g)[..., None]
     ds = (p * (dp - delta) * sm_scale).to(q.dtype).to(acc)
     dv = torch.einsum("bhqk,bhqd->bhkd", pm.to(q.dtype).to(acc), g32)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k32)
@@ -215,8 +240,12 @@ def flash_attention_bwd_reference(
 _TAIL_ARGTYPES = [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_void_p, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p,
 ]
+# q, k, v, o, lse, kv_len, slopes
 _FWD_ARGTYPES = [ctypes.c_void_p] * 7 + _TAIL_ARGTYPES
-_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + _TAIL_ARGTYPES
+# q, k, v, out, dout, lse, delta, dq, dk, dv, kv_len, slopes
+_BWD_ARGTYPES = [ctypes.c_void_p] * 12 + _TAIL_ARGTYPES
+# head_dim, int info[4]
+_OCCUPANCY_ARGTYPES = [ctypes.c_int, ctypes.c_void_p]
 
 
 def _check_kernel_inputs(what, q, k, v):
@@ -232,16 +261,24 @@ def _check_kernel_inputs(what, q, k, v):
         raise ValueError(f"{what} kernel takes head dims {_HEAD_DIMS}, got {d}")
 
 
+def _kernel_layout(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous with a 16-byte aligned base, as the kernels' 16-byte
+    asynchronous copies need (a contiguous view may start anywhere)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _kernel_side_inputs(q, t_k, kv_lengths, dropout_rate, dropout_seed):
     """Device tensors both kernels' launches take beside q, k, v: clamped
-    int32 KV lengths, ALiBi slopes, the (1,) int32 seed, and the dropout
-    threshold and keep scale (0 and 1 when dropout is off)."""
+    int32 KV lengths, ALiBi slopes (cached on the device), the (1,) int32
+    seed, and the dropout threshold and keep scale (0 and 1 when dropout is
+    off)."""
     b, h = q.shape[:2]
     if kv_lengths is None:
         kvlen = torch.full((b,), t_k, dtype=torch.int32, device=q.device)
     else:
         kvlen = kv_lengths.to(device=q.device, dtype=torch.int32).clamp(0, t_k).contiguous()
-    slopes = torch.as_tensor(alibi_slopes(h), device=q.device)
+    slopes = device_alibi_slopes(h, q.device)
     if dropout_rate > 0.0 and dropout_seed is not None:
         seed = torch.as_tensor(dropout_seed, device=q.device).to(torch.int32).reshape(1)
         thr, keep_scale = dropout_threshold(dropout_rate), 1.0 / (1.0 - dropout_rate)
@@ -257,7 +294,7 @@ def _flash_attention_cuda(
     _check_kernel_inputs("flash_attention", q, k, v)
     b, h, t_q, d = q.shape
     t_k = k.shape[2]
-    qf, kf, vf = q.contiguous(), k.contiguous(), v.contiguous()
+    qf, kf, vf = _kernel_layout(q), _kernel_layout(k), _kernel_layout(v)
     kvlen, slopes, seed, thr, keep_scale = _kernel_side_inputs(
         q, t_k, kv_lengths, dropout_rate, dropout_seed)
     out = torch.empty((b, h, t_q, d), dtype=q.dtype, device=q.device)
@@ -278,6 +315,7 @@ def _flash_attention_cuda(
 def _flash_attention_bwd_cuda(
     q, k, v, out, lse, g, causal, alibi_period, kv_lengths, sm_scale, dropout_rate, dropout_seed,
 ):
+    """(dq, dk, dv, delta) from the two backward kernels."""
     _check_kernel_inputs("flash_attention_bwd", q, k, v)
     b, h, t_q, d = q.shape
     t_k = k.shape[2]
@@ -288,17 +326,17 @@ def _flash_attention_bwd_cuda(
         )
     # autograd hands over strided views (after a transpose); the kernels
     # take contiguous (B*H, T, D) slabs
-    qf, kf, vf = q.contiguous(), k.contiguous(), v.contiguous()
-    gf = g.to(q.dtype).contiguous()
+    qf, kf, vf = _kernel_layout(q), _kernel_layout(k), _kernel_layout(v)
+    of, gf = _kernel_layout(out.to(q.dtype)), _kernel_layout(g.to(q.dtype))
     lsef = lse.to(torch.float32).contiguous()
-    delta = (gf.float() * out.float()).sum(dim=-1).contiguous()  # (B, H, Tq)
+    delta = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device)  # written by the dq kernel
     kvlen, slopes, seed, thr, keep_scale = _kernel_side_inputs(
         q, t_k, kv_lengths, dropout_rate, dropout_seed)
     dq, dk, dv = torch.empty_like(qf), torch.empty_like(kf), torch.empty_like(vf)
     fn = _build.function("flash_attention_bwd", "a2f_flash_attention_bwd", _BWD_ARGTYPES)
     rc = fn(
-        qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), gf.data_ptr(), lsef.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), of.data_ptr(), gf.data_ptr(),
+        lsef.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         kvlen.data_ptr(), slopes.data_ptr(), b, h, t_q, t_k, d,
         int(q.dtype == torch.bfloat16), int(causal), int(alibi_period or 0),
         float(sm_scale), seed.data_ptr(), thr, keep_scale,
@@ -306,7 +344,24 @@ def _flash_attention_bwd_cuda(
     )
     _build.check(rc, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    return dq, dk, dv, delta
+
+
+def wgmma_occupancy(head_dim: int) -> dict[str, dict[str, int]]:
+    """Shared memory per block (bytes) and resident blocks per SM of the bf16
+    attention kernels at ``head_dim``, as the CUDA runtime reports them."""
+    info = (ctypes.c_int * 4)()
+    out = {}
+    for lib, symbol, names in (
+        ("flash_attention", "a2f_flash_attention_fwd_occupancy", ("flash_fwd_wgmma_kernel",)),
+        ("flash_attention_bwd", "a2f_flash_attention_bwd_occupancy",
+         ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel")),
+    ):
+        fn = _build.function(lib, symbol, _OCCUPANCY_ARGTYPES)
+        _build.check(fn(head_dim, info), symbol)
+        for i, name in enumerate(names):
+            out[name] = {"smem_bytes": info[2 * i], "blocks_per_sm": info[2 * i + 1]}
+    return out
 
 
 def flash_attention_bwd(
@@ -327,9 +382,9 @@ def flash_attention_bwd(
     """Backward of ``flash_attention``: (dq, dk, dv) in q's dtype from the
     forward's ``out`` and ``lse`` and the output gradient ``g``.
 
-    CUDA tensors launch the two backward kernels (dk/dv, then dq) for every
-    shape; CPU tensors run ``flash_attention_bwd_reference``. With dropout,
-    ``dropout_seed`` must be the forward's."""
+    CUDA tensors launch the two backward kernels (dq with delta, then dk/dv)
+    for every shape; CPU tensors run ``flash_attention_bwd_reference``. With
+    dropout, ``dropout_seed`` must be the forward's."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -343,7 +398,7 @@ def flash_attention_bwd(
     return _flash_attention_bwd_cuda(
         q, k, v, out, lse, g, causal, alibi_period, kv_lengths, sm_scale,
         dropout_rate, dropout_seed,
-    )
+    )[:3]
 
 
 flash_attention_bwd.launches = 0

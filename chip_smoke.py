@@ -6,13 +6,17 @@ which raises (exit code != 0) on failure:
 
 1. device: requires CUDA; prints the card's name and power limit; turns
    TF32 off for the f32 products of the plain versions;
-2. build: compiles the port's CUDA sources (``build/torch_kernels/``);
+2. build: compiles the port's CUDA sources (``build/torch_kernels/``) and
+   prints the bf16 attention kernels' registers and spills (``-Xptxas -v``),
+   shared memory per block and resident blocks per SM (CUDA runtime);
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the shapes its main path gives it (the flagship request,
    60 s x batch 8; the BIWI request, 30 s x batch 8; a transfer batch of 64
    frames of the 5,023-vertex head at 800 x 800), with a stated tolerance;
    times kernel, plain version and (attention) one
-   ``scaled_dot_product_attention`` call with CUDA events;
+   ``scaled_dot_product_attention`` call with CUDA events; K1 and K4 also
+   over head dims 16, 32, 64 and 128 in bf16 and f32 with their options at
+   small shapes, and K4's delta against its plain version;
 4. serving path: the full-width FaceFormerPredictor (wav2vec2-base,
    15069-wide vertex head, bf16, random weights from a seed) answers three
    requests (8 x 60 s, 5 clips of 3-45 s, one 44.1 kHz clip); the forward
@@ -148,6 +152,121 @@ def read_count(row: dict) -> int:
     return getattr(row["wrapper"], counter(row))
 
 
+def kernel_name(mangled: str) -> str:
+    """``name<D>`` of a mangled kernel: ``_Z<len><name>...`` or, in an
+    anonymous namespace, ``_ZN<len><namespace><len><name>...``; D is the
+    first template argument (the head dim)."""
+    import re
+
+    nested = mangled.startswith("_ZN")
+    rest, parts = mangled[3 if nested else 2:], []
+    while len(parts) < (2 if nested else 1) and (n := re.match(r"\d+", rest)):
+        parts.append(rest[n.end(): n.end() + int(n.group(0))])
+        rest = rest[n.end() + int(n.group(0)):]
+    d = re.match(r"ILi(\d+)E", rest)
+    return f"{parts[-1]}<{d.group(1)}>" if d else parts[-1]
+
+
+def ptxas_report(log_text: str) -> dict:
+    """Registers, stack and spill bytes of each kernel in an ``nvcc -Xptxas -v``
+    log, keyed by ``kernel_name``, and whether ptxas serialized its ``wgmma``
+    (its C75xx notes: the products then do not overlap)."""
+    import re
+
+    report, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(_Z\w+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+            report.setdefault(name, {})
+            continue
+        m = re.search(r"wgmma.mma_async instructions are serialized.*function '(_Z\w+)'", line)
+        if m:
+            report.setdefault(kernel_name(m.group(1)), {})["wgmma_serialized"] = True
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            report[name].update(stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                                spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report[name]["registers"] = int(m.group(1))
+    return report
+
+
+def kernel_bwd_with_delta(attn_ops, q, k, v, out, lse, g, causal=False, alibi_period=None,
+                          kv_lengths=None, dropout_rate=0.0, dropout_seed=None):
+    """K4's (dq, dk, dv, delta): delta = rowsum(g * out) as its dq kernel wrote it."""
+    return attn_ops._flash_attention_bwd_cuda(
+        q, k, v, out, lse, g, causal, alibi_period, kv_lengths, 1.0 / math.sqrt(q.shape[-1]),
+        dropout_rate, dropout_seed)
+
+
+def attention_variant_checks(torch, attn_ops, randn) -> dict:
+    """K1 and K4 against their plain versions at small shapes, off the main
+    path's d = 64 bf16: head dims 16, 32, 64 and 128 in bf16 and in f32, each
+    plain, with kv_lengths and dropout, and causal with period-60 ALiBi and
+    dropout, with and without kv_lengths; then t_q != t_k, ALiBi without
+    causality, zero-length items and rate 0.5. Checks out, lse, dq/dk/dv
+    and the backward's delta; raises on the first miss. Returns the worst
+    err/tol of each check over the cases, per dtype."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = []
+    for dtype in (bf, f32):
+        for d in (16, 32, 64, 128):
+            cases += [
+                (dtype, (2, 2, 90, 150, d), {}, 0.0),
+                (dtype, (2, 2, 90, 150, d), dict(kv_lengths=[150, 57]), 0.1),
+                (dtype, (2, 2, 130, 130, d), dict(causal=True, alibi_period=60), 0.1),
+                (dtype, (2, 2, 130, 130, d), dict(causal=True, alibi_period=60, kv_lengths=[130, 33]), 0.1),
+            ]
+    cases += [
+        (f32, (2, 3, 130, 130, 64), dict(causal=True, alibi_period=60), 0.0),
+        (f32, (2, 4, 90, 150, 16), dict(alibi_period=60), 0.0),  # negative i - j
+        (f32, (2, 2, 100, 70, 128), dict(kv_lengths=[70, 0]), 0.1),
+        (f32, (2, 2, 100, 70, 32), dict(kv_lengths=[33, 70], causal=True), 0.5),
+        (bf, (2, 4, 300, 200, 128), dict(kv_lengths=[200, 57]), 0.0),
+        (bf, (2, 4, 300, 200, 128), dict(kv_lengths=[200, 57]), 0.1),
+        (bf, (3, 2, 77, 77, 32), dict(causal=True), 0.0),
+        (bf, (3, 2, 77, 77, 32), dict(causal=True), 0.1),
+        (bf, (2, 2, 77, 99, 16), dict(alibi_period=60, kv_lengths=[0, 99]), 0.0),
+    ]
+    worst = {}
+    for dtype, (b, h, tq, tk, d), kw, rate in cases:
+        q, go = randn(b, h, tq, d, dtype=dtype), randn(b, h, tq, d, dtype=dtype)
+        k, v = randn(b, h, tk, d, dtype=dtype), randn(b, h, tk, d, dtype=dtype)
+        kw = dict(kw, dropout_rate=rate, dropout_seed=77)
+        if "kv_lengths" in kw:
+            kw["kv_lengths"] = torch.tensor(kw["kv_lengths"])
+        out, lse = attn_ops.flash_attention(q, k, v, return_lse=True, **kw)
+        ref, ref_lse = attn_ops.mha_reference(q, k, v, return_lse=True, **kw)
+        *got, delta = kernel_bwd_with_delta(attn_ops, q, k, v, out, lse, go, **kw)
+        want = attn_ops.flash_attention_bwd_reference(q, k, v, out, lse, go, **kw)
+        want_delta = attn_ops.attention_delta_reference(out, go)
+        # rows of a zero-length item are padding in the forward: not compared
+        live = torch.ones(b, dtype=torch.bool) if "kv_lengths" not in kw else kw["kv_lengths"] > 0
+        if dtype == f32:
+            # tests/test_attention.py's rtol 1e-4 / atol 1e-5; the JAX package's
+            # bar for its backward kernels, rtol 2e-3 / atol 2e-4
+            fwd = ((out[live] - ref[live]).abs().max().item(), 1e-5 + 1e-4 * ref[live].abs().max().item())
+            bwd = (max(((a - w).abs() - K4_F32_RTOL * w.abs()).max().item() for a, w in zip(got, want)),
+                   K4_F32_ATOL)
+        else:
+            fwd = (row_scaled_err(out[live], ref[live]), K1_BF16_ROW_TOL)
+            bwd = (max(row_scaled_err(a, w, K4_ROW_FLOOR) for a, w in zip(got, want)), K4_BF16_ROW_TOL)
+        lse_chk = ((lse[live] - ref_lse[live]).abs().max().item(), 1e-5 + 1e-4 * ref_lse[live].abs().max().item())
+        # f32 sums of the same products in another order
+        delta_chk = ((delta - want_delta).abs().max().item(), 1e-5 + 1e-4 * want_delta.abs().max().item())
+        finite = all(bool(torch.isfinite(x.float()).all()) for x in got)
+        zero_ok = all(not x[~live].any() for x in got[1:])  # zero-length item: dk = dv = 0
+        checks = {"out": fwd, "lse": lse_chk, "grads": bwd, "delta": delta_chk}
+        for name, (err, tol) in checks.items():
+            key = f"{str(dtype)[6:]} {name}"
+            worst[key] = max(worst.get(key, 0.0), err / tol)
+        require(all(err <= tol for err, tol in checks.values()) and finite and zero_ok,
+                f"K1/K4 {dtype} {(b, h, tq, tk, d)} {kw}: {checks}, finite {finite}, zero-length {zero_ok}")
+    return {"cases": len(cases), "worst_err_over_tol": worst}
+
+
 def main() -> int:
     import torch
 
@@ -185,6 +304,20 @@ def main() -> int:
     tic = time.perf_counter()
     _build.build_all()
     print(f"build: {time.perf_counter() - tic:.1f} s", flush=True)
+    # the bf16 attention kernels' registers and spills (-Xptxas -v), shared
+    # memory per block and resident blocks per SM (the CUDA runtime)
+    resources = {}
+    for lib in ("flash_attention", "flash_attention_bwd"):
+        for name, rep_ in ptxas_report((_build.BUILD_DIR / f"{lib}.log").read_text()).items():
+            if "wgmma" in name:
+                resources[name] = rep_
+    for d_ in (16, 32, 64, 128):
+        for name, occ in attn_ops.wgmma_occupancy(d_).items():
+            resources[f"{name}<{d_}>"].update(occ)
+    print(json.dumps({"attention_kernel_resources": resources}), flush=True)
+    require(all(r_["spill_store_bytes"] == 0 and r_["spill_load_bytes"] == 0
+                for n_, r_ in resources.items() if n_.endswith("<64>")),
+            "a bf16 attention kernel spills at head dim 64")
 
     g = torch.Generator().manual_seed(0)
 
@@ -233,6 +366,7 @@ def main() -> int:
         "replaces": "audio2face_tpu/ops/attention.py:342",
         "wrapper": attn_ops.flash_attention, "max_abs_err": err,
         "max_err_over_row_max": rel, "tol_over_row_max": K1_BF16_ROW_TOL, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, "library_ms": lib_ms,
+        "resources_d64": {"flash_fwd_wgmma_kernel": resources["flash_fwd_wgmma_kernel<64>"]},
     })
     # causal + period-60 ALiBi (the decoder's mask) at the same shape
     out = attn_ops.flash_attention(q, k, v, causal=True, alibi_period=60)
@@ -365,6 +499,9 @@ def main() -> int:
     k1["dropout_ms"] = cuda_ms(torch, lambda: attn_ops.flash_attention(q, k, v, kv_lengths=kvl, **drop), 20)
     k1["train_shape_ms"] = cuda_ms(torch, lambda: attn_ops.flash_attention(q, k, v, kv_lengths=kvl), 20)
     k1["dropout_plain_ms"] = cuda_ms(torch, lambda: attn_ops.mha_reference(q, k, v, kv_lengths=kvl, **drop), 3)
+    sdpa_mask = (torch.arange(t, device=dev)[None, :] < kvl[:, None])[:, None, None, :]
+    k1["train_shape_library_ms"] = cuda_ms(
+        torch, lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask), 20)
 
     # ---- 3f. K4 flash attention backward, same shape, dropout + kv_lengths --
     def k4_errs(got, want):
@@ -384,10 +521,18 @@ def main() -> int:
     # keys past an item's KV length get no gradient
     require(all(not x[i, :, n:].any() for x in got[1:] for i, n in enumerate(kvl.tolist())),
             "K4 gave a gradient to keys past the KV length")
+    # delta = rowsum(dO * O), computed by the dq kernel, against its plain
+    # version: f32 sums of the same products in another order
+    delta = kernel_bwd_with_delta(attn_ops, q, k, v, out, lse, go, **bwd_kw)[3]
+    want_delta = attn_ops.attention_delta_reference(out, go)
+    delta_err = (delta - want_delta).abs().max().item()
+    delta_tol = 1e-5 + 1e-4 * want_delta.abs().max().item()
+    print(json.dumps({"check": "flash_attention_bwd delta (8,12,600,64)", "max_abs_err": delta_err,
+                      "tol": delta_tol}), flush=True)
+    require(delta_err <= delta_tol, f"K4 delta err {delta_err} > {delta_tol}")
     ms = cuda_ms(torch, lambda: attn_ops.flash_attention_bwd(q, k, v, out, lse, go, **bwd_kw), 20)
     ms_nodrop = cuda_ms(torch, lambda: attn_ops.flash_attention_bwd(q, k, v, out, lse, go, kv_lengths=kvl), 20)
     plain_ms = cuda_ms(torch, lambda: attn_ops.flash_attention_bwd_reference(q, k, v, out, lse, go, **bwd_kw), 3)
-    sdpa_mask = (torch.arange(t, device=dev)[None, :] < kvl[:, None])[:, None, None, :]
     with torch.enable_grad():
         leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
         lib_out = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask)
@@ -407,7 +552,9 @@ def main() -> int:
         "max_abs_err": max(e[1] for e in errs.values()),
         "max_err_over_row_max": max(e[0] for e in errs.values()), "tol_over_row_max": K4_BF16_ROW_TOL,
         "ms": ms, "no_dropout_ms": ms_nodrop, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
-        "library_ms": lib_ms, "train_shape": [b, h, t, d],
+        "library_ms": lib_ms, "train_shape": [b, h, t, d], "delta_max_abs_err": delta_err,
+        "resources_d64": {n_: resources[f"{n_}<64>"] for n_ in ("flash_bwd_dq_wgmma_kernel",
+                                                                "flash_bwd_dkdv_wgmma_kernel")},
     })
     # causal + period-60 ALiBi with dropout at the same shape
     kw = dict(causal=True, alibi_period=60, **drop)
@@ -426,69 +573,13 @@ def main() -> int:
         torch, lambda: attn_ops.flash_attention_bwd(q, k, v, out, lse, go, **drop), 3)
     del q, k, v, go, out, lse
     torch.cuda.empty_cache()
-    # K4's variants off the main path at small shapes: f32 (CUDA-core path,
-    # rtol 2e-3 / atol 2e-4), head dims 16/32/128, t_q != t_k, a zero-length item
-    for dtype, (b, h, tq, tk, d), kw, rate in [
-        (torch.float32, (2, 3, 130, 130, 64), dict(causal=True, alibi_period=60), 0.1),
-        (torch.float32, (2, 4, 90, 150, 16), dict(alibi_period=60), 0.0),
-        (torch.float32, (2, 2, 100, 70, 128), dict(kv_lengths=torch.tensor([70, 0])), 0.1),
-        (torch.float32, (2, 2, 100, 70, 32), dict(kv_lengths=torch.tensor([33, 70]), causal=True), 0.5),
-        (bf, (2, 4, 300, 200, 128), dict(kv_lengths=torch.tensor([200, 57])), 0.1),
-        (bf, (3, 2, 77, 77, 32), dict(causal=True), 0.1),
-        (bf, (2, 2, 77, 99, 16), dict(alibi_period=60, kv_lengths=torch.tensor([0, 99])), 0.0),
-    ]:
-        q, go = randn(b, h, tq, d, dtype=dtype), randn(b, h, tq, d, dtype=dtype)
-        k, v = randn(b, h, tk, d, dtype=dtype), randn(b, h, tk, d, dtype=dtype)
-        kw = dict(kw, dropout_rate=rate, dropout_seed=77)
-        out, lse = attn_ops.flash_attention(q, k, v, return_lse=True, **kw)
-        ref = attn_ops.mha_reference(q, k, v, **kw)
-        got = attn_ops.flash_attention_bwd(q, k, v, out, lse, go, **kw)
-        want = attn_ops.flash_attention_bwd_reference(q, k, v, out, lse, go, **kw)
-        # rows of a zero-length item are padding in the forward: not compared
-        live = torch.ones(b, dtype=torch.bool) if "kv_lengths" not in kw else kw["kv_lengths"] > 0
-        if dtype == torch.float32:
-            fwd_err = (out[live] - ref[live]).abs().max().item()
-            fwd_tol = 1e-5 + 1e-4 * ref[live].abs().max().item()
-            err = max(((a - w).abs() - K4_F32_RTOL * w.abs()).max().item() for a, w in zip(got, want))
-            tol = K4_F32_ATOL
-        else:
-            fwd_err, fwd_tol = row_scaled_err(out[live], ref[live]), K1_BF16_ROW_TOL
-            err = max(row_scaled_err(a, w, K4_ROW_FLOOR) for a, w in zip(got, want))
-            tol = K4_BF16_ROW_TOL
-        finite = all(bool(torch.isfinite(x.float()).all()) for x in got)
-        zero_ok = all(not x[~live].any() for x in got[1:])  # zero-length item: dk = dv = 0
-        print(json.dumps({"check": f"K1 dropout + K4 {str(dtype)[6:]} {(b, h, tq, tk, d)} rate {rate}",
-                          "fwd_err": fwd_err, "fwd_tol": fwd_tol, "bwd_err": err, "bwd_tol": tol}), flush=True)
-        require(fwd_err <= fwd_tol and err <= tol and finite and zero_ok,
-                f"K1/K4 {dtype} {(b, h, tq, tk, d)} {kw}: fwd {fwd_err} > {fwd_tol} or bwd {err} > {tol} "
-                f"or finite {finite} or zero-length {zero_ok}")
-    del q, k, v, go, out, lse, ref, got, want
+    # K1 and K4 off the main path: every head dim, bf16 and f32, the options
+    variants = attention_variant_checks(torch, attn_ops, randn)
+    print(json.dumps({"check": "K1 + K4 variants (head dims 16/32/64/128, bf16 and f32)", **variants}),
+          flush=True)
     torch.cuda.empty_cache()
 
     # ---- 3d. the variants off the main path, at small shapes ---------------
-    # f32 attention (a bf16=False model) is held to tests/test_attention.py's
-    # rtol 1e-4 / atol 1e-5; bf16 to K1_BF16_ROW_TOL
-    for dtype, (b, h, tq, tk, d), kw in [
-        (torch.float32, (2, 3, 130, 130, 64), dict(causal=True, alibi_period=60)),
-        (torch.float32, (2, 4, 90, 150, 16), dict(alibi_period=60)),  # negative i - j
-        (torch.bfloat16, (2, 4, 300, 200, 128), dict(kv_lengths=torch.tensor([200, 57]))),
-        (torch.bfloat16, (3, 2, 77, 77, 32), dict(causal=True)),
-    ]:
-        q = randn(b, h, tq, d, dtype=dtype)
-        k, v = randn(b, h, tk, d, dtype=dtype), randn(b, h, tk, d, dtype=dtype)
-        out, lse = attn_ops.flash_attention(q, k, v, return_lse=True, **kw)
-        ref, ref_lse = attn_ops.mha_reference(q, k, v, return_lse=True, **kw)
-        lse_err = (lse - ref_lse).abs().max().item()
-        if dtype == torch.float32:
-            err = (out - ref).abs().max().item()
-            tol = 1e-5 + 1e-4 * ref.abs().max().item()
-        else:
-            err, tol = row_scaled_err(out, ref), K1_BF16_ROW_TOL
-        lse_tol = 1e-5 + 1e-4 * ref_lse.abs().max().item()
-        print(json.dumps({"check": f"flash_attention {str(dtype)[6:]} {(b, h, tq, tk, d)}",
-                          "err": err, "tol": tol, "lse_err": lse_err}), flush=True)
-        require(err <= tol and lse_err <= lse_tol,
-                f"K1 {dtype} {(b, h, tq, tk, d)} {kw}: err {err} > {tol} or lse {lse_err} > {lse_tol}")
     x = randn(2, 2503)  # not a multiple of 5, and a zero-length row
     lens = torch.tensor([2503, 0], dtype=torch.int32, device=dev)
     out = ce.fused_conv_encoder(x, kernels, gscale, gbias, lens)
@@ -516,7 +607,7 @@ def main() -> int:
     want = FaceFormerPredictor(**f32_kw, use_kernels=False)(audios, one_hot, template)
     l2 = max(float(np.linalg.norm(a - b, axis=-1).max()) for a, b in zip(got, want))
     require(l2 < 1e-4, f"f32 predictor vs plain: max per-vertex L2 {l2}")
-    print(json.dumps({"check": "variants: K1 f32/d16/d32/d128, K2 short, K3 small, f32 predictor",
+    print(json.dumps({"check": "variants: K2 short, K3 small, f32 predictor",
                       "f32_predictor_max_vertex_l2": l2}), flush=True)
     torch.cuda.empty_cache()
 

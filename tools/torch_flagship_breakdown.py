@@ -27,7 +27,10 @@ clips x 10 s with mixed lengths and synthetic vertices, then
    backward and the optimizer update, every span ending in
    ``torch.cuda.synchronize()``;
 2. traces one more step with ``torch.profiler``, sums device time by kernel
-   group, and counts the device kernels launched;
+   group, counts the device kernels launched, and counts the stream
+   synchronisations and host-to-device copies the host made inside K1's and
+   K4's wrappers (each call runs in a ``record_function`` range for this
+   trace);
 
 and prints the table, then ``{"train_breakdown": {...}}``.
 
@@ -63,8 +66,9 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 GROUPS = (  # (group, substrings of CUDA kernel names)
-    ("K1 flash_attention", ("flash_fwd_kernel",)),
-    ("K4 flash_attention_bwd", ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")),
+    ("K1 flash_attention", ("flash_fwd_wgmma_kernel", "flash_fwd_f32_kernel")),
+    ("K4 flash_attention_bwd", ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                                "flash_bwd_dkdv_f32_kernel", "flash_bwd_dq_f32_kernel")),
     ("K2 conv encoder", ("conv0_moments", "gn_fold", "conv0_gelu", "strided_conv_gemm")),
     ("K3 decode loop", ("decode_loop_kernel",)),
     ("K5 rasterizer", ("raster_kernel",)),
@@ -255,6 +259,16 @@ def train_main() -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
+    def in_range(name, fn):
+        def wrapper(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return wrapper
+
+    wrapped = {"_flash_attention_cuda": "a2f::K1", "_flash_attention_bwd_cuda": "a2f::K4"}
+    originals = {attr: getattr(attn_ops, attr) for attr in wrapped}
+    for attr, name in wrapped.items():
+        setattr(attn_ops, attr, in_range(name, originals[attr]))
     attn_ops.flash_attention.launches = attn_ops.flash_attention_bwd.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -262,7 +276,19 @@ def train_main() -> int:
         exp.train_step(batch)
         torch.cuda.synchronize()
         traced_wall = time.perf_counter() - tic
+    for attr, fn in originals.items():
+        setattr(attn_ops, attr, fn)
     by_group, busy_us = device_ms_by_group(prof)
+    # host runtime calls made inside the attention wrappers' ranges
+    events = list(prof.events())
+    ranges = [(ev.time_range.start, ev.time_range.end) for ev in events
+              if ev.name in wrapped.values() and ev.device_type == torch.autograd.DeviceType.CPU]
+
+    def inside(ev):
+        return any(a <= ev.time_range.start and ev.time_range.end <= b for a, b in ranges)
+
+    syncs = [ev for ev in events if ev.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize")]
+    copies = [ev for ev in events if ev.name.startswith("cudaMemcpy")]
     n_kernels = sum(
         ev.count for ev in prof.key_averages()
         if getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0.0)) > 0
@@ -283,6 +309,10 @@ def train_main() -> int:
         "device_kernels_launched": n_kernels,
         "k1_launches": attn_ops.flash_attention.launches,
         "k4_launches": attn_ops.flash_attention_bwd.launches,
+        "k1_k4_wrapper_calls": len(ranges),
+        "k1_k4_stream_syncs": sum(map(inside, syncs)),
+        "k1_k4_memcpy_calls": sum(map(inside, copies)),
+        "step_stream_syncs": len(syncs),
         "device_ms_by_group": by_group,
     }
     print(json.dumps({"train_breakdown": result}))
