@@ -18,21 +18,31 @@
 //      per-channel scale and bias;
 //   2. conv0_gelu: layer 0 (10 taps on CUDA cores) with the folded norm and
 //      GELU in its epilogue;
-//   3. strided_conv_gemm, once per layer 1-6: the layer is a GEMM whose A
-//      row t is the contiguous slice h[2t : 2t + k] (k*512 values; the
-//      TPU's pairing trick in general form), B is the (k*512, 512) kernel;
-//      WMMA bf16 tiles with f32 accumulation, cp.async double buffering,
-//      GELU in the epilogue.
+//   3. conv_gemm_wgmma, once per layer 1-6: the layer is a GEMM whose A
+//      row t is the slice h[2t : 2t + k] (k*512 values; the TPU's pairing
+//      trick in general form) and B the kernel. A 128 x 256 output tile
+//      per block, two warpgroups of 64 rows each issue Hopper wgmma
+//      (m64n256k16, f32 accumulators in registers) on 64-deep tiles. The
+//      tiles come by TMA into a four-stage ring, two tiles ahead, one
+//      thread issuing each tile and an mbarrier reporting it: A as rows
+//      2t + j of h (one box with a row stride of 2 for tap j), B from the
+//      kernel transposed to K-major by the wrapper, both in the 128-byte
+//      swizzle. (cp.async copies of the same tiles held layer 1 at 18% of
+//      the tensor peak: they delivered ~9 bytes a clock to an SM.) Each
+//      warpgroup keeps one group of products in flight while the next
+//      tile's barrier passes; the GELU and the bf16 rounding run on the
+//      accumulator registers, which are stored as they are. The two blocks
+//      of an A tile run side by side, so A comes from device memory once.
 // The GELU is the exact erf form (erff).
 
+#include <cuda.h>  // CUtensorMap and its enums (the encoder comes through the runtime)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-namespace {
+#include "wgmma.cuh"
 
-using namespace nvcuda;
+namespace {
 
 constexpr int C = 512;
 constexpr int K0 = 10, S0 = 5;
@@ -167,122 +177,141 @@ conv0_gelu(const float* __restrict__ x, const float* __restrict__ w0,
   }
 }
 
-// ---- 3. layers 1-6: strided conv as a GEMM -----------------------------
+// ---- 3. layers 1-6: strided conv as a GEMM on wgmma ---------------------
 
-constexpr int BM = 128, BN = 128, BKT = 32;
-constexpr int GEMM_THREADS = 256;  // 8 warps: 2 (M) x 4 (N), 64 x 32 each
-constexpr int AP = BKT + 8;        // smem pitches (bf16 elements)
-constexpr int BP = BN + 8;
-constexpr int CP = BN + 4;         // epilogue pitch (floats)
-constexpr int STAGE = BM * AP + BKT * BP;  // bf16 elements per stage
-constexpr int GEMM_SMEM =
-    (2 * STAGE * 2 > BM * CP * 4) ? 2 * STAGE * 2 : BM * CP * 4;
+constexpr int BM = 128, BN = 256, BK = 64, STAGES = 4;
+constexpr int GEMM_THREADS = 256;  // two warpgroups, 64 output rows each
+constexpr int A_BYTES = BM * BK * 2;
+constexpr int STAGE_BYTES = A_BYTES + BN * BK * 2;
+// 1024 bytes of slack to align the ring for the 128-byte swizzle, then one
+// mbarrier a stage
+constexpr int GEMM_SMEM = 1024 + STAGES * STAGE_BYTES + STAGES * 8;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// out[b, t, :] = gelu(h[b, 2t : 2t + k, :] (flattened) @ w), w: (k*512, 512)
-__global__ void __launch_bounds__(GEMM_THREADS)
-strided_conv_gemm(const __nv_bfloat16* __restrict__ h,
-                  const __nv_bfloat16* __restrict__ w,
-                  __nv_bfloat16* __restrict__ out, int t_in, int t_out,
-                  int k_taps) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+// out[b, t, :] = gelu(sum_j h[b, 2t + j, :] @ w_j): k-tile kt is tap
+// j = kt / 8, input channels 64 (kt % 8)... Its A tile is rows 2t + j of h
+// (one TMA box with a row stride of 2), its B tile rows n0... of the
+// transposed kernel (512, k*512), columns 64 kt...; both K-major in the
+// 128-byte swizzle. Grid: (512 / BN, M tiles, batch), so the blocks that
+// share an A tile run side by side and read it from L2.
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+conv_gemm_wgmma(const __grid_constant__ CUtensorMap tm_h, const __grid_constant__ CUtensorMap tm_w,
+                __nv_bfloat16* __restrict__ out, int t_out, int k_taps) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t full = ring + STAGES * STAGE_BYTES;  // mbarrier of stage s at full + 8 s
   const int b = blockIdx.z;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int kdim = k_taps * C;
-  const __nv_bfloat16* hb = h + (size_t)b * t_in * C;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 4, wn = warp % 4;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int nk = k_taps * C / BK;
+  if (tid == 0) {
+    for (int st = 0; st < STAGES; ++st) mbar_init(full + 8 * st, 1);
+    fence_mbarrier_init();
+  }
+  __syncthreads();
 
-  auto load_stage = [&](int stage, int k0) {
-    __nv_bfloat16* As = sm + stage * STAGE;
-    __nv_bfloat16* Bs = As + BM * AP;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      int chunk = tid + i * GEMM_THREADS;  // 512 chunks of 8 values in A
-      int r = chunk / 4, c = chunk % 4;
-      int t = m0 + r;
-      bool ok = t < t_out;
-      const __nv_bfloat16* src = hb + (size_t)(ok ? 2 * t : 0) * C + k0 + 8 * c;
-      cp_async16(As + r * AP + 8 * c, src, ok);
+  auto issue = [&](int kt) {  // tile kt's two boxes into its stage, if there is one
+    if (tid == 0 && kt < nk) {
+      const uint32_t stage = ring + (kt % STAGES) * STAGE_BYTES, bar = full + 8 * (kt % STAGES);
+      mbar_expect_tx(bar, STAGE_BYTES);
+      tma_load_3d(stage, &tm_h, (kt % (C / BK)) * BK, 2 * m0 + kt / (C / BK), b, bar);
+      tma_load_2d(stage + A_BYTES, &tm_w, kt * BK, n0, bar);
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      int chunk = tid + i * GEMM_THREADS;  // 512 chunks of 8 values in B
-      int r = chunk / 16, c = chunk % 16;
-      const __nv_bfloat16* src = w + (size_t)(k0 + r) * C + n0 + 8 * c;
-      cp_async16(Bs + r * BP + 8 * c, src, true);
-    }
-    cp_async_commit();
   };
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+  float acc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int nk = kdim / BKT;
-  load_stage(0, 0);
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  issue(0);
+  issue(1);
+  // Tile kt: wait for its boxes (tile kt + 1's may still fly); one barrier
+  // frees the stage of tile kt - 2, whose products both warpgroups retired
+  // in the last iteration (each keeps one group of products in flight):
+  // tile kt + 2 goes there.
   for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      load_stage((kt + 1) & 1, (kt + 1) * BKT);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    mbar_wait(full + 8 * (kt % STAGES), (kt / STAGES) & 1);
     __syncthreads();
-    const __nv_bfloat16* As = sm + (kt & 1) * STAGE;
-    const __nv_bfloat16* Bs = As + BM * AP;
+    issue(kt + 2);
+    const uint32_t stage = ring + (kt % STAGES) * STAGE_BYTES;
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BKT; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 64 + 16 * i) * AP + kk, AP);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bf[j], Bs + kk * BP + wn * 32 + 16 * j, BP);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], bf[j], acc[i][j]);
-    }
-    __syncthreads();
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_ss_n256(acc, desc_sw128(stage + 64 * wg * BK * 2 + 32 * kk),
+                    desc_sw128(stage + A_BYTES + 32 * kk), 1);
+    wgmma_commit();
+    wgmma_wait<1>();
   }
+  wgmma_wait<0>();
+  fence_regs(acc);
 
-  // epilogue: accumulators -> smem -> GELU -> bf16, 16-byte stores
-  float* Cs = reinterpret_cast<float*>(smem_raw);
+  // epilogue on the registers: acc[4j + 2hh + e] is row 16 w + l/4 + 8 hh,
+  // column 8j + 2(l % 4) + e of this warpgroup's 64 x BN tile
+  const int wq = (tid % 128) / 32, l = tid % 32;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 64 + 16 * i) * CP + wn * 32 + 16 * j,
-                              acc[i][j], CP, wmma::mem_row_major);
-  __syncthreads();
-  for (int chunk = tid; chunk < BM * BN / 8; chunk += GEMM_THREADS) {
-    int r = chunk / (BN / 8), c = chunk % (BN / 8);
-    int t = m0 + r;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = m0 + 64 * wg + 16 * wq + l / 4 + 8 * hh;
     if (t >= t_out) continue;
-    const float* src = Cs + r * CP + 8 * c;
-    __align__(16) __nv_bfloat162 v[4];
+    __nv_bfloat16* orow = out + ((size_t)b * t_out + t) * C + n0 + 2 * (l % 4);
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      v[e] = __floats2bfloat162_rn(gelu(src[2 * e]), gelu(src[2 * e + 1]));
-    *reinterpret_cast<uint4*>(out + ((size_t)b * t_out + t) * C + n0 + 8 * c) =
-        *reinterpret_cast<uint4*>(v);
+    for (int j = 0; j < BN / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+          pack_bf16(gelu(acc[4 * j + 2 * hh]), gelu(acc[4 * j + 2 * hh + 1]));
   }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link
+// against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found) != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) != cudaSuccess)
+      p = nullptr;
+#endif
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a bf16 tensor map with a 128-byte-swizzled box of `box` (elements, the
+// first 64 wide) at `elem_stride`
+bool encode(CUtensorMap* tm, const void* base, int rank, const cuuint64_t* dims,
+            const cuuint64_t* strides, const cuuint32_t* box, const cuuint32_t* elem_stride) {
+  EncodeTiled fn = encode_tiled();
+  return fn && fn(tm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
+                  box, elem_stride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// one layer: h (batch, t_in, 512) -> out (batch, t_out, 512); w the
+// transposed kernel (512, k*512)
+cudaError_t conv_layer(const __nv_bfloat16* h, const __nv_bfloat16* w, __nv_bfloat16* out,
+                       int batch, int t_in, int t_out, int k, cudaStream_t s) {
+  CUtensorMap tm_h, tm_w;
+  const cuuint64_t h_dims[3] = {C, (cuuint64_t)t_in, (cuuint64_t)batch};
+  const cuuint64_t h_strides[2] = {C * 2, (cuuint64_t)t_in * C * 2};
+  const cuuint32_t h_box[3] = {BK, 2 * BM, 1}, h_step[3] = {1, 2, 1};  // every other row
+  const cuuint64_t w_dims[2] = {(cuuint64_t)k * C, C};
+  const cuuint64_t w_strides[1] = {(cuuint64_t)k * C * 2};
+  const cuuint32_t w_box[2] = {BK, BN}, w_step[2] = {1, 1};
+  if (!encode(&tm_h, h, 3, h_dims, h_strides, h_box, h_step) ||
+      !encode(&tm_w, w, 2, w_dims, w_strides, w_box, w_step))
+    return cudaErrorInvalidValue;
+  dim3 grid(C / BN, (t_out + BM - 1) / BM, batch);
+  conv_gemm_wgmma<<<grid, GEMM_THREADS, GEMM_SMEM, s>>>(tm_h, tm_w, out, t_out, k);
+  return cudaGetLastError();
 }
 
 constexpr int KERNEL[7] = {10, 3, 3, 3, 3, 2, 2};
@@ -293,7 +322,8 @@ int out_len(int n, int k, int s) { return (n - k) / s + 1; }
 
 // x: (B, L) f32; feat_len: (B,) int32 valid layer-0 windows (each in
 // [0, T0]); w0: (10, 512) f32; gn_scale/gn_bias: (512,) f32; w_stack: the
-// layer 1-6 kernels, each (k, 512, 512) bf16, back to back; partials:
+// layer 1-6 kernels, each transposed to (512 out, k*512) bf16 (column
+// j*512 + c is tap j, input channel c), back to back; partials:
 // (B, 64, 65) f32; gs, gb: (B, 512) f32; buf0: (B, T0, 512) bf16;
 // buf1: (B, T1, 512) bf16; out: (B, T6, 512) bf16.
 extern "C" int a2f_conv_encoder(const float* x, const int* feat_len,
@@ -315,7 +345,7 @@ extern "C" int a2f_conv_encoder(const float* x, const int* feat_len,
       x, w0, gs, gb, static_cast<__nv_bfloat16*>(buf0), n_samples, t0);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  err = cudaFuncSetAttribute(strided_conv_gemm,
+  err = cudaFuncSetAttribute(conv_gemm_wgmma,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
   if (err != cudaSuccess) return err;
   const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(w_stack);
@@ -328,9 +358,7 @@ extern "C" int a2f_conv_encoder(const float* x, const int* feat_len,
     if (t_out < 1) return cudaErrorInvalidValue;
     const __nv_bfloat16* src = bufs[(layer + 1) % 2];
     __nv_bfloat16* dst = layer == 6 ? static_cast<__nv_bfloat16*>(out) : bufs[layer % 2];
-    dim3 grid((t_out + BM - 1) / BM, C / BN, batch);
-    strided_conv_gemm<<<grid, GEMM_THREADS, GEMM_SMEM, s>>>(src, w, dst, t_in, t_out, k);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((err = conv_layer(src, w, dst, batch, t_in, t_out, k, s)) != cudaSuccess) return err;
     w += (size_t)k * C * C;
     t_in = t_out;
   }

@@ -135,9 +135,10 @@ def _conv_encoder_cuda(x, kernels, gn_scale, gn_bias, lengths):
     xf = x.float().contiguous()
     feat = _feat_lengths(lengths, b, n, dev).contiguous()
     w0 = kernels[0].reshape(K0, C).to(device=dev, dtype=torch.float32).contiguous()
-    w_stack = torch.cat(
-        [w.to(device=dev, dtype=torch.bfloat16).reshape(-1) for w in kernels[1:]]
-    ).contiguous()
+    # each kernel (k, c_in, c_out) transposed to K-major (c_out, k*c_in)
+    w_stack = torch.cat([
+        w.to(device=dev, dtype=torch.bfloat16).permute(2, 0, 1).reshape(-1) for w in kernels[1:]
+    ]).contiguous()
     scale = gn_scale.to(device=dev, dtype=torch.float32).contiguous()
     bias = gn_bias.to(device=dev, dtype=torch.float32).contiguous()
     partials = torch.empty((b, _MOM_BLOCKS, _NMOM), dtype=torch.float32, device=dev)

@@ -2,11 +2,12 @@
 
 Port of ``audio2face_tpu/ops/decode_kernel.py``, both variants.
 ``faceformer_decode_loop`` runs the whole autoregressive loop: for CUDA
-tensors in one launch of ``csrc/decode_loop.cu`` (one block per batch item,
-weights in shared memory, the KV cache in device memory), for CPU tensors
-as ``decode_loop_reference``, a Python loop over t (``decode_steps`` in f32;
-``decode_steps`` is also the differentiable loop that training runs, with
-dropout masks and chunk checkpointing). Each step:
+tensors in one launch of ``csrc/decode_loop.cu`` (a thread-block cluster of
+CL CTAs per batch item, the KV cache rows spread over the cluster's shared
+memory, weights in shared memory in the caller's storage type), for CPU
+tensors as ``decode_loop_reference``, a Python loop over t (``decode_steps``
+in f32; ``decode_steps`` is also the differentiable loop that training runs,
+with dropout masks and chunk checkpointing). Each step:
 
   x_t   = emb_t + PPE[t mod period]
   attn  = softmax_{j<=t}(q_t . k_j / sqrt(hd) - slope_h * ((t-j) // period)) v_j
@@ -39,46 +40,94 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from audio2face_tpu_torch.ops import _build
-from audio2face_tpu_torch.ops.attention import alibi_slopes
+from audio2face_tpu_torch.ops.attention import device_alibi_slopes
 
 D = 64
 N_HEADS = 4
 HD = D // N_HEADS
 FF = 2 * D
 
-# order of the packed f32 weight buffer of csrc/decode_loop.cu
+# the packed weight buffer of csrc/decode_loop.cu, in the storage type:
+# each matrix stored (out, in), i.e. its (in, out) kernel transposed, then
+# its bias; (name, offset in elements) as the C constants WQKV ... BCO
 _PACK_ORDER = (
     "qkv_kernel", "qkv_bias", "o_kernel", "o_bias", "f1_kernel", "f1_bias",
-    "f2_kernel", "f2_bias", "fb_kernel", "fb_bias", "ln1_scale", "ln1_bias",
-    "ln2_scale", "ln2_bias", "ln3_scale", "ln3_bias",
+    "f2_kernel", "f2_bias", "fb_kernel", "fb_bias",
 )
 # the BIWI variant's buffer continues with its cross-attention projections
 _PACK_ORDER_BIWI = _PACK_ORDER + ("cq_kernel", "cq_bias", "co_kernel", "co_bias")
-# shared memory the kernel needs per block (csrc/decode_loop.cu SMEM_BYTES):
-# the packed weights plus per-step scratch, independent of T
-SMEM_BYTES = 4 * (
-    3 * D * D + 3 * D + D * D + D + D * FF + FF + FF * D + D + D * D + D
-    + 6 * D + 5 * D + FF + 8 * (2 + HD) + 8
-)
-# BIWI: W_cq, b_cq, W_co, b_co, and scratch for qc, the two mem_k and mem_v
-# rows of the step and the per-head value sum
-SMEM_BYTES_BIWI = SMEM_BYTES + 4 * (2 * (D * D + D) + D + 2 * D + 2 * D + D)
+# the layer-norm parameters, a separate f32 buffer (C: LN1S ... LN3B)
+_LN_ORDER = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias", "ln3_scale", "ln3_bias")
+N_WEIGHTS = 3 * D * D + 3 * D + D * D + D + FF * D + FF + D * FF + D + D * D + D
+N_WEIGHTS_BIWI = N_WEIGHTS + 2 * (D * D + D)
+N_LN = 6 * D
+N_WARPS = 8  # 256 threads a CTA
+# f32 scratch a CTA (C: S_Q ... S_STEP): q, attention output, style, two
+# 128-wide matvec outputs, each warp's own 64-wide row, two mbarriers, and
+# the step's rows prefetched a step ahead (2 parities x the pe row and the
+# cross row, or BIWI's pe row and 4 latent rows)
+PART = 2 + HD  # a warp's attention partial: max, sum, 16 value sums
+SCRATCH_FLOATS = 3 * D + 2 * FF + N_WARPS * D + 4 + 2 * 2 * D
+SCRATCH_FLOATS_BIWI = 3 * D + 2 * FF + N_WARPS * D + 4 + 2 * 5 * D
+# then every CTA's partials, pushed there by their CTAs (C: GATHER_FLOATS
+# a CTA of the cluster: 2 parities x 8 warps)
+GATHER_FLOATS = 2 * N_WARPS * PART
+ROW_BYTES = 2 * D * 4  # one cache row, f32 k | v
+MAX_CLUSTER = 16
 # shared memory one block may use on sm_90 (H100/H200)
 SM90_SMEM_PER_BLOCK = 232448
 
 
+def fixed_smem_bytes(biwi: bool = False, bf16_weights: bool = False, cluster: int = 1) -> int:
+    """Shared memory a CTA of a cluster of ``cluster`` needs besides its
+    cache rows: the packed weights (2 or 4 bytes each), the f32 layer-norm
+    parameters, the scratch and the gathered partials of the cluster."""
+    n_w = N_WEIGHTS_BIWI if biwi else N_WEIGHTS
+    scratch = SCRATCH_FLOATS_BIWI if biwi else SCRATCH_FLOATS
+    return n_w * (2 if bf16_weights else 4) + 4 * N_LN + 4 * (scratch + cluster * GATHER_FLOATS)
+
+
+# the least a CTA needs (f32 weights, a cluster of 1, no cache row in shared memory)
+SMEM_BYTES = fixed_smem_bytes(False)
+SMEM_BYTES_BIWI = fixed_smem_bytes(True)
+
+
 def smem_bytes(biwi: bool = False) -> int:
-    """Shared memory per block that the kernel variant needs."""
+    """Shared memory a CTA of the kernel variant needs at least (f32
+    weights; cache rows that do not fit stay in device memory)."""
     return SMEM_BYTES_BIWI if biwi else SMEM_BYTES
 
 
 def smem_fits(device: torch.device, biwi: bool = False) -> bool:
-    """True iff the variant's shared-memory need fits one block of ``device``."""
+    """True iff the variant's least shared-memory need fits one block of ``device``."""
     limit = getattr(
         torch.cuda.get_device_properties(device), "shared_memory_per_block_optin",
         SM90_SMEM_PER_BLOCK,
     )
     return smem_bytes(biwi) <= limit
+
+
+def cluster_plan(
+    n_steps: int, cluster: int, biwi: bool = False, bf16_weights: bool = False,
+    smem_limit: int = SM90_SMEM_PER_BLOCK,
+) -> dict:
+    """The shared-memory plan of one CTA for a cluster of ``cluster`` CTAs
+    per item (csrc/decode_loop.cu ``rows_per_cta``): cache row j belongs to
+    CTA j mod cluster, which holds its rows in shared memory up to as many
+    as fit beside the fixed part (and no more than its share of T); later
+    rows stay in device memory. Raises if the fixed part does not fit."""
+    fixed = fixed_smem_bytes(biwi, bf16_weights, cluster)
+    capacity = (smem_limit - fixed) // ROW_BYTES
+    if capacity < 0:
+        raise RuntimeError(
+            f"the decode kernel needs {fixed} bytes of shared memory per block, "
+            f"more than the {smem_limit} a block may use"
+        )
+    rows = min(capacity, -(-n_steps // cluster))
+    return {
+        "cluster": cluster, "rows_per_cta": rows, "smem_bytes": fixed + rows * ROW_BYTES,
+        "rows_resident": min(n_steps, cluster * rows), "capacity_rows": cluster * capacity,
+    }
 
 
 def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -131,7 +180,7 @@ def decode_steps(
     w = weights
     qkv_k = torch.cat([w["q_kernel"], w["k_kernel"], w["v_kernel"]], dim=1)
     qkv_b = torch.cat([w["q_bias"], w["k_bias"], w["v_bias"]])
-    slopes = torch.as_tensor(alibi_slopes(nh), device=style.device)
+    slopes = device_alibi_slopes(nh, style.device)
     pos = torch.arange(n_frames, device=style.device)
     sm_scale = 1.0 / math.sqrt(hd)
     mask_keys = sorted(masks) if masks else []
@@ -219,16 +268,67 @@ def decode_loop_reference(
     return decode_steps(cross.float(), style.float(), pe.float(), w, period=period).to(cross.dtype)
 
 
-def _pack_weights(weights: dict, device, biwi: bool = False) -> torch.Tensor:
-    w = {k: v.to(device=device, dtype=torch.float32) for k, v in weights.items()}
+def _stores_bf16(weights: dict, biwi: bool) -> bool:
+    """bf16 storage is exact iff every matrix and bias the kernel packs is
+    bf16 (as ``FaceFormer.decoder_weights(torch.bfloat16)`` gives them)."""
+    names = [f"{k}_{part}" for k in ("q", "k", "v", "o", "f1", "f2", "fb")
+             + (("cq", "co") if biwi else ()) for part in ("kernel", "bias")]
+    return all(weights[n].dtype == torch.bfloat16 for n in names)
+
+
+def _pack_weights(weights: dict, device, biwi: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """(packed weights in the storage type, f32 layer-norm parameters) in
+    the layout of csrc/decode_loop.cu. The storage type is bf16 where every
+    matrix and bias is bf16 (exact), else f32."""
+    dtype = torch.bfloat16 if _stores_bf16(weights, biwi) else torch.float32
+    w = {k: v.to(device=device, dtype=dtype) for k, v in weights.items() if k not in _LN_ORDER}
     w["qkv_kernel"] = torch.cat([w["q_kernel"], w["k_kernel"], w["v_kernel"]], dim=1)
     w["qkv_bias"] = torch.cat([w["q_bias"], w["k_bias"], w["v_bias"]])
     order = _PACK_ORDER_BIWI if biwi else _PACK_ORDER
-    return torch.cat([w[name].reshape(-1) for name in order]).contiguous()
+    packed = torch.cat([(w[n].T if n.endswith("kernel") else w[n]).reshape(-1) for n in order])
+    ln = torch.cat([weights[n].to(device=device, dtype=torch.float32).reshape(-1) for n in _LN_ORDER])
+    return packed.contiguous(), ln.contiguous()
 
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_ARGTYPES_BIWI = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES_BIWI = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_PLAN_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_LAYOUT_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_plans: dict[tuple, dict] = {}
+
+
+def kernel_cluster_plan(
+    batch: int, n_steps: int, device, biwi: bool = False, bf16_weights: bool = True,
+) -> dict:
+    """The launch plan the kernel takes on ``device``: the cluster size CL
+    (the largest of 16, 8, ... that keeps min(batch, 8) items resident at
+    once, by ``cudaOccupancyMaxActiveClusters``), the cache rows a CTA
+    holds, shared bytes a CTA, resident clusters and the block's shared
+    memory limit. Checked against ``cluster_plan``, the Python mirror of its
+    arithmetic; made once per shape and device."""
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    key = (batch, n_steps, biwi, bf16_weights, dev)
+    if key not in _plans:
+        layout = (ctypes.c_int * 3)()
+        _build.function("decode_loop", "a2f_decode_layout", _LAYOUT_ARGTYPES)(
+            int(biwi), int(bf16_weights), MAX_CLUSTER, ctypes.addressof(layout))
+        want = [N_WEIGHTS_BIWI if biwi else N_WEIGHTS,
+                fixed_smem_bytes(biwi, bf16_weights, MAX_CLUSTER), ROW_BYTES]
+        if list(layout) != want:
+            raise RuntimeError(f"decode kernel layout mismatch: C {list(layout)} vs Python {want}")
+        out = (ctypes.c_int * 5)()
+        with torch.cuda.device(dev):
+            rc = _build.function("decode_loop", "a2f_decode_plan", _PLAN_ARGTYPES)(
+                int(biwi), int(bf16_weights), batch, n_steps, ctypes.addressof(out))
+        _build.check(rc, "faceformer_decode_loop: no cluster size fits")
+        cl, rows, smem, active, limit = list(out)
+        plan = cluster_plan(n_steps, cl, biwi, bf16_weights, limit)
+        if (plan["rows_per_cta"], plan["smem_bytes"]) != (rows, smem):
+            raise RuntimeError(f"decode kernel plan mismatch: C {list(out)} vs Python {plan}")
+        _plans[key] = dict(plan, max_active_clusters=active, smem_limit=limit)
+    return _plans[key]
 
 
 def _decode_loop_cuda(cross, style, pe, weights, period, mem_k=None, mem_v=None):
@@ -236,23 +336,19 @@ def _decode_loop_cuda(cross, style, pe, weights, period, mem_k=None, mem_v=None)
     data = mem_k if biwi else cross
     b, dev = data.shape[0], data.device
     t_steps = mem_k.shape[2] // 2 if biwi else cross.shape[1]
-    packed = _pack_weights(weights, dev, biwi)
-    n_weights = _build.function("decode_loop", "a2f_decode_n_weights", [ctypes.c_int])(int(biwi))
-    smem = _build.function("decode_loop", "a2f_decode_smem_bytes", [ctypes.c_int])(int(biwi))
-    if packed.numel() != n_weights or smem != smem_bytes(biwi):
-        raise RuntimeError(
-            f"decode kernel layout mismatch: {packed.numel()} packed floats vs "
-            f"{n_weights}, {smem_bytes(biwi)} shared bytes vs {smem}"
-        )
+    packed, ln = _pack_weights(weights, dev, biwi)
+    bf16 = packed.dtype == torch.bfloat16
+    plan = kernel_cluster_plan(b, t_steps, dev, biwi, bf16)
     style32 = style.to(device=dev, dtype=torch.float32).contiguous()
     pe32 = pe.to(device=dev, dtype=torch.float32).contiguous()
-    slopes = torch.as_tensor(alibi_slopes(N_HEADS), device=dev)
+    slopes = device_alibi_slopes(N_HEADS, dev)
+    # rows past the cluster's shared memory: their owner keeps them here
     kv = torch.empty((b, t_steps, 2 * D), dtype=torch.float32, device=dev)
     out = torch.empty((b, t_steps, D), dtype=torch.float32, device=dev)
     tail = (
-        style32.data_ptr(), pe32.data_ptr(), packed.data_ptr(), slopes.data_ptr(),
-        kv.data_ptr(), out.data_ptr(), b, t_steps, period,
-        torch.cuda.current_stream(dev).cuda_stream,
+        style32.data_ptr(), pe32.data_ptr(), packed.data_ptr(), ln.data_ptr(), slopes.data_ptr(),
+        kv.data_ptr(), out.data_ptr(), b, t_steps, period, int(bf16), plan["cluster"],
+        plan["rows_per_cta"], torch.cuda.current_stream(dev).cuda_stream,
     )
     if biwi:
         # one conversion to f32 outside the loop, rows in the loop's h*hd + i order

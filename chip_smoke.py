@@ -8,7 +8,8 @@ which raises (exit code != 0) on failure:
    TF32 off for the f32 products of the plain versions;
 2. build: compiles the port's CUDA sources (``build/torch_kernels/``) and
    prints the bf16 attention kernels' registers and spills (``-Xptxas -v``),
-   shared memory per block and resident blocks per SM (CUDA runtime);
+   shared memory per block and resident blocks per SM (CUDA runtime), and
+   the conv encoder's and decode loop's registers and spills;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the shapes its main path gives it (the flagship request,
    60 s x batch 8; the BIWI request, 30 s x batch 8; a transfer batch of 64
@@ -16,7 +17,11 @@ which raises (exit code != 0) on failure:
    times kernel, plain version and (attention) one
    ``scaled_dot_product_attention`` call with CUDA events; K1 and K4 also
    over head dims 16, 32, 64 and 128 in bf16 and f32 with their options at
-   small shapes, and K4's delta against its plain version;
+   small shapes, and K4's delta against its plain version; K2's launches
+   split by the profiler; K3's cluster plan (cluster size, resident
+   clusters, cache rows and shared memory a CTA) and us a step, and K3 (both
+   variants) also at small f32 shapes, past the cluster's shared-memory
+   capacity (bf16 and f32, a batch of 1) and at a batch of 20;
 4. serving path: the full-width FaceFormerPredictor (wav2vec2-base,
    15069-wide vertex head, bf16, random weights from a seed) answers three
    requests (8 x 60 s, 5 clips of 3-45 s, one 44.1 kHz clip); the forward
@@ -152,10 +157,58 @@ def read_count(row: dict) -> int:
     return getattr(row["wrapper"], counter(row))
 
 
+def k3_check(torch, dk, label: str, cross, style, pe, weights, **kw) -> dict:
+    """K3 against its plain version on the same inputs: f32 outputs within
+    K3_F32_TOL, bf16 outputs within one bf16 step more; raises on a miss."""
+    out = dk.faceformer_decode_loop(cross, style, pe, weights, **kw)
+    ref = dk.decode_loop_reference(cross, style, pe, weights, **kw)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    step = K3_BF16_STEP if out.dtype == torch.bfloat16 else 0.0
+    over = (diff - step * ref.float().abs()).max().item()
+    finite = bool(torch.isfinite(out.float()).all())
+    require(out.shape == ref.shape and out.dtype == ref.dtype and finite and over <= K3_F32_TOL,
+            f"K3 {label}: err {over} > {K3_F32_TOL} (finite {finite}, {out.dtype} {tuple(out.shape)})")
+    return {"check": f"faceformer_decode_loop {label}", "max_abs_err": diff.max().item(),
+            "err_less_bf16_step" if step else "err": over, "tol": K3_F32_TOL}
+
+
+K2_KERNELS = ("conv0_moments", "gn_fold", "conv0_gelu", "conv_gemm_wgmma")
+
+
+def k2_launch_ms(torch, fn) -> list:
+    """K2's launches in one call of ``fn``, in order, with their device ms
+    (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [[next(k for k in K2_KERNELS if k in ev.name), ev.time_range.elapsed_us() / 1e3]
+            for ev in prof.events() if any(k in ev.name for k in K2_KERNELS)
+            and ev.time_range.elapsed_us() > 0]
+
+
+def k3_extra_shapes(dk, dev, biwi: bool) -> list:
+    """(dtype, batch, T) of K3's checks off the serving shape: a batch of 1
+    with T at least 1.5x the cluster's shared-memory capacity, in bf16 and
+    f32 weights (rows past it stay in device memory), and a batch of 20
+    (more clusters than are resident at once)."""
+    import torch
+
+    shapes = []
+    for dtype in (torch.bfloat16, torch.float32):
+        capacity = dk.kernel_cluster_plan(1, 1, dev, biwi, dtype == torch.bfloat16)["capacity_rows"]
+        shapes.append((dtype, 1, -(-3 * capacity // 2)))
+    return shapes + [(torch.bfloat16, 20, 200)]
+
+
 def kernel_name(mangled: str) -> str:
-    """``name<D>`` of a mangled kernel: ``_Z<len><name>...`` or, in an
-    anonymous namespace, ``_ZN<len><namespace><len><name>...``; D is the
-    first template argument (the head dim)."""
+    """``name<args>`` of a mangled kernel: ``_Z<len><name>...`` or, in an
+    anonymous namespace, ``_ZN<len><namespace><len><name>...``, with its
+    template arguments: integers and booleans as numbers (the attention
+    kernels' head dim: ``flash_fwd_wgmma_kernel<64>``), ``float`` and named
+    types (``decode_cluster_kernel<1, __nv_bfloat16>``)."""
     import re
 
     nested = mangled.startswith("_ZN")
@@ -163,8 +216,22 @@ def kernel_name(mangled: str) -> str:
     while len(parts) < (2 if nested else 1) and (n := re.match(r"\d+", rest)):
         parts.append(rest[n.end(): n.end() + int(n.group(0))])
         rest = rest[n.end() + int(n.group(0)):]
-    d = re.match(r"ILi(\d+)E", rest)
-    return f"{parts[-1]}<{d.group(1)}>" if d else parts[-1]
+    if not rest.startswith("I"):
+        return parts[-1]
+    args, i = [], 1
+    while i < len(rest) and rest[i] != "E":
+        if m := re.match(r"L[ib](\d+)E", rest[i:]):
+            args.append(m.group(1))
+            i += m.end()
+        elif rest[i] == "f":
+            args.append("float")
+            i += 1
+        elif m := re.match(r"\d+", rest[i:]):
+            args.append(rest[i + m.end(): i + m.end() + int(m.group(0))])
+            i += m.end() + int(m.group(0))
+        else:
+            break
+    return f"{parts[-1]}<{', '.join(args)}>"
 
 
 def ptxas_report(log_text: str) -> dict:
@@ -318,6 +385,11 @@ def main() -> int:
     require(all(r_["spill_store_bytes"] == 0 and r_["spill_load_bytes"] == 0
                 for n_, r_ in resources.items() if n_.endswith("<64>")),
             "a bf16 attention kernel spills at head dim 64")
+    # K2's and K3's registers and spills (-Xptxas -v)
+    dc_resources = {}
+    for lib in ("conv_encoder", "decode_loop"):
+        dc_resources.update(ptxas_report((_build.BUILD_DIR / f"{lib}.log").read_text()))
+    print(json.dumps({"decode_conv_kernel_resources": dc_resources}), flush=True)
 
     g = torch.Generator().manual_seed(0)
 
@@ -411,13 +483,19 @@ def main() -> int:
     nbytes = b * n * 4 + b * 4 + w_bytes + b * t_l * ce.C * 2
     # every layer multiplies bf16 operands with f32 sums, layer 0 included
     bms, bby = bound(nbytes, (l0_flops + gemm_flops) / PEAK_BF16_FLOPS)
+    launch_ms = k2_launch_ms(torch, lambda: ce.fused_conv_encoder(x, kernels, gscale, gbias, lens))
+    gemm_ms = sum(m_ for k_, m_ in launch_ms if k_ == "conv_gemm_wgmma")
     rows.append({
         "name": "fused_conv_encoder", "route": "cuda",
         "source": "audio2face_tpu_torch/csrc/conv_encoder.cu",
         "replaces": "audio2face_tpu/ops/conv_encoder.py:295",
         "wrapper": ce.fused_conv_encoder, "max_abs_err": err, "tol": tol,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, "library_ms": None,
+        "launch_ms": launch_ms, "gemm_share_of_bf16_peak": gemm_flops / PEAK_BF16_FLOPS / (gemm_ms / 1e3),
+        "resources": {k_: dc_resources[k_] for k_ in K2_KERNELS},
     })
+    print(json.dumps({"check": "fused_conv_encoder (8, 960000) mixed lengths", "max_abs_err": err,
+                      "tol": tol, "ms": ms, "launch_ms": launch_ms}), flush=True)
     del x, out, ref
 
     # ---- 3c. K3 decode loop: 8 x 3600 frames, as the bf16 predictor calls it
@@ -446,6 +524,7 @@ def main() -> int:
     nbytes = (2 * (2 * b * t * 64 + b * 64 + pe16.numel())
               + sum(w.numel() * w.element_size() for w in weights.values()))
     bms, bby = bound(nbytes, flops / PEAK_F32_FLOPS)
+    plan = dk.kernel_cluster_plan(b, t, dev, biwi=False, bf16_weights=True)
     rows.append({
         "name": "faceformer_decode_loop", "route": "cuda",
         "source": "audio2face_tpu_torch/csrc/decode_loop.cu",
@@ -453,7 +532,13 @@ def main() -> int:
         "wrapper": dk.faceformer_decode_loop, "max_abs_err": err,
         "max_err_less_one_bf16_step": over, "tol": K3_F32_TOL,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, "library_ms": None,
+        "us_per_step": 1e3 * ms / t, "cluster_plan": plan,
+        "resources": dc_resources["decode_cluster_kernel<0, __nv_bfloat16>"],
     })
+    print(json.dumps({"K3 vocaset (8, 3600) bf16": {
+        "cluster": plan["cluster"], "max_active_clusters": plan["max_active_clusters"],
+        "rows_per_cta": plan["rows_per_cta"], "smem_per_cta": plan["smem_bytes"],
+        "rows_resident": plan["rows_resident"], "us_per_step": 1e3 * ms / t, "ms": ms}}), flush=True)
     del cross, out, ref, diff
     torch.cuda.empty_cache()
 
@@ -595,6 +680,14 @@ def main() -> int:
         err = (dk.faceformer_decode_loop(cross, style, pe, weights)
                - dk.decode_loop_reference(cross, style, pe, weights)).abs().max().item()
         require(err <= K3_F32_TOL, f"K3 f32 ({b}, {t}) err {err} > {K3_F32_TOL}")
+    # K3 past the cluster's shared memory (a tail of rows in device memory;
+    # a batch of 1), bf16 and f32, and a batch of 20 (more than one wave)
+    for dtype, b, t in k3_extra_shapes(dk, dev, biwi=False):
+        w_ = pred.model.decoder_weights(dtype)
+        k3_row = k3_check(torch, dk, f"vocaset {str(dtype)[6:]} ({b}, {t})", randn(b, t, 64, scale=0.5, dtype=dtype),
+                          randn(b, 64, scale=0.5, dtype=dtype), pe.to(dtype), w_)
+        k3_row["cluster_plan"] = dk.kernel_cluster_plan(b, t, dev, False, dtype == torch.bfloat16)
+        print(json.dumps(k3_row), flush=True)
     # an f32 predictor (bf16=False): K1's f32 path and K3, against the plain
     # versions; the repo's conversion bar
     f32_kw = dict(n_verts=n_verts, bf16=False, max_batch=2, bucket_seconds=1.0,
@@ -633,6 +726,15 @@ def main() -> int:
                - dk.decode_loop_reference(None, style, pe25, w32, period=25, mem_k=mem_k, mem_v=mem_v)
                ).abs().max().item()
         require(err <= K3_F32_TOL, f"K3 BIWI f32 ({b}, {t}) err {err} > {K3_F32_TOL}")
+    for dtype, b, t in k3_extra_shapes(dk, dev, biwi=True):
+        w_ = biwi.model.decoder_weights(dtype)
+        kw = dict(period=25, mem_k=randn(b, 4, 2 * t, 16, scale=0.5, dtype=dtype),
+                  mem_v=randn(b, 4, 2 * t, 16, scale=0.5, dtype=dtype))
+        k3_row = k3_check(torch, dk, f"BIWI {str(dtype)[6:]} ({b}, {t})", None,
+                          randn(b, 64, scale=0.5, dtype=dtype), pe25.to(dtype), w_, **kw)
+        k3_row["cluster_plan"] = dk.kernel_cluster_plan(b, t, dev, True, dtype == torch.bfloat16)
+        print(json.dumps(k3_row), flush=True)
+        del kw
     # the serving shape, mem_k / mem_v as the bf16 predictor computes them
     # from 8 x 30 s of audio with mixed lengths: the encoder's 50 fps latents,
     # trimmed or zero-padded to 2 latents per frame, projected per head
@@ -672,6 +774,11 @@ def main() -> int:
     nbytes = (2 * (2 * b * 2 * t * 64 + b * t * 64 + b * 64 + pe25_16.numel())
               + sum(w.numel() * w.element_size() for w in weights.values()))
     bms, bby = bound(nbytes, flops / PEAK_F32_FLOPS)
+    plan = dk.kernel_cluster_plan(b, t, dev, biwi=True, bf16_weights=True)
+    print(json.dumps({"K3 BIWI (8, 750) bf16": {
+        "cluster": plan["cluster"], "max_active_clusters": plan["max_active_clusters"],
+        "rows_per_cta": plan["rows_per_cta"], "smem_per_cta": plan["smem_bytes"],
+        "rows_resident": plan["rows_resident"], "us_per_step": 1e3 * ms / t, "ms": ms}}), flush=True)
     rows.append({
         "name": "faceformer_decode_loop_biwi", "route": "cuda",
         "source": "audio2face_tpu_torch/csrc/decode_loop.cu",
@@ -679,6 +786,8 @@ def main() -> int:
         "wrapper": dk.faceformer_decode_loop, "counter": "biwi_launches", "max_abs_err": err,
         "max_err_less_one_bf16_step": over, "tol": K3_F32_TOL, "shape": [b, t, 64],
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, "library_ms": None,
+        "us_per_step": 1e3 * ms / t, "cluster_plan": plan,
+        "resources": dc_resources["decode_cluster_kernel<1, __nv_bfloat16>"],
     })
     del mem_k, mem_v, out, ref, diff
     torch.cuda.empty_cache()

@@ -17,6 +17,10 @@ audio2face_tpu_torch (random weights from a seed), then:
 Prints the profiler's table of the 25 kernels with the most device time,
 then, last, one JSON line ``{"breakdown": {...}}``.
 
+``python3 tools/torch_flagship_breakdown.py biwi`` does the same for the
+BIWI request: 8 clips x 30 s through ``FaceFormerPredictor(dataset="biwi")``
+with its 70110-wide vertex head, ``{"breakdown": {...}}`` last.
+
 ``python3 tools/torch_flagship_breakdown.py train`` does the same for one
 full-width training step: it builds the port's ``Audio2FaceExperiment``
 (same model, bf16 compute, random weights from a seed) and a batch of 8
@@ -69,8 +73,8 @@ GROUPS = (  # (group, substrings of CUDA kernel names)
     ("K1 flash_attention", ("flash_fwd_wgmma_kernel", "flash_fwd_f32_kernel")),
     ("K4 flash_attention_bwd", ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                                 "flash_bwd_dkdv_f32_kernel", "flash_bwd_dq_f32_kernel")),
-    ("K2 conv encoder", ("conv0_moments", "gn_fold", "conv0_gelu", "strided_conv_gemm")),
-    ("K3 decode loop", ("decode_loop_kernel",)),
+    ("K2 conv encoder", ("conv0_moments", "gn_fold", "conv0_gelu", "conv_gemm_wgmma")),
+    ("K3 decode loop", ("decode_cluster_kernel",)),
     ("K5 rasterizer", ("raster_kernel",)),
     ("library conv", ("convolve", "cudnn", "winograd", "fft")),
     ("library matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")),
@@ -117,7 +121,7 @@ def profile_table(prof, rows: int = 25) -> str:
         return prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=rows)
 
 
-def main() -> int:
+def main(biwi: bool = False) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -126,15 +130,17 @@ def main() -> int:
     from audio2face_tpu_torch.serving import FaceFormerPredictor
 
     card = card_line()
-    n_verts = 15069
-    pred = FaceFormerPredictor(n_verts=n_verts, bf16=True, max_batch=8, bucket_seconds=5.0, seed=0)
+    # the flagship: vocaset, 8 x 60 s; BIWI: 70110-wide head, 8 x 30 s at 25 fps
+    n_verts, seconds, fps = (70110, 30, 25) if biwi else (15069, 60, 60)
+    pred = FaceFormerPredictor(n_verts=n_verts, bf16=True, max_batch=8, bucket_seconds=5.0, seed=0,
+                               dataset="biwi" if biwi else "vocaset")
     g = torch.Generator().manual_seed(1)
     with torch.no_grad():
         for lin in (pred.model.vertice_map, pred.model.vertice_map_r):
             lin.weight.copy_(torch.randn(lin.weight.shape, generator=g) * 0.02)
             lin.bias.copy_(torch.randn(lin.bias.shape, generator=g) * 0.02)
     rng = np.random.default_rng(0)
-    audios = [(rng.normal(size=960000) * 0.1).astype(np.float32) for _ in range(8)]
+    audios = [(rng.normal(size=16000 * seconds) * 0.1).astype(np.float32) for _ in range(8)]
     one_hot = np.eye(12, dtype=np.float32)[rng.integers(0, 12, 8)]
     template = rng.normal(size=(n_verts // 3, 3)).astype(np.float32)
     pred(audios, one_hot, template)  # builds the kernels, warms the libraries
@@ -157,7 +163,7 @@ def main() -> int:
     tic = time.perf_counter()
     pred(audios, one_hot, template)
     wall = time.perf_counter() - tic
-    frames = 8 * 3600
+    frames = 8 * seconds * fps
     del pred._hidden, pred._emit_vertices  # the class's own methods again
 
     from torch.profiler import ProfilerActivity, profile
@@ -174,10 +180,11 @@ def main() -> int:
 
     result = {
         "card": card,
-        "request": "8 clips x 60 s, bf16, 15069-wide vertex head",
+        "request": f"8 clips x {seconds} s, bf16, {n_verts}-wide vertex head"
+                   + (", BIWI" if biwi else ""),
         "wall_s": wall,
         "mesh_frames_per_s": frames / wall,
-        "realtime_factor": 8 * 60.0 / wall,
+        "realtime_factor": 8 * seconds / wall,
         **spans,
         "host_other_s": wall - sum(spans.values()),
         "traced_wall_s": traced_wall,
@@ -421,7 +428,8 @@ def render_main() -> int:
 
 
 if __name__ == "__main__":
-    modes = {(): main, ("train",): train_main, ("render",): render_main}
+    modes = {(): main, ("biwi",): lambda: main(biwi=True), ("train",): train_main,
+             ("render",): render_main}
     if tuple(sys.argv[1:]) not in modes:
-        sys.exit("usage: torch_flagship_breakdown.py [train|render]")
+        sys.exit("usage: torch_flagship_breakdown.py [biwi|train|render]")
     sys.exit(modes[tuple(sys.argv[1:])]())
