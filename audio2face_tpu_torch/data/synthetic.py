@@ -244,3 +244,79 @@ def generate_demo_assets(
         wav = synthesize_speech_like(seconds, sr, seed=seed)
         wavfile.write(paths["audio"], sr, (wav * 32767).astype(np.int16))
     return paths
+
+
+def adversarial_screen_triangles(seed: int, height: int, width: int) -> tuple:
+    """One frame of screen-space triangles that stress a tile rasterizer's
+    culling and edge rules, as ``plane_coefficients``' inputs ``(u, v, z,
+    shade, visible, faces, face_valid)`` (numpy; f32 vertices, three per
+    triangle, rows padded to a multiple of 128 with invalid faces):
+
+    - ordinary triangles around the screen;
+    - slivers with |area| from 1e-9 to 1e-3 px^2: two vertices on pixel
+      centres (or 1e-3 px apart), the third a hair off their line;
+    - huge triangles, up to 10^5 px across, covering the screen or a corner;
+    - quads split along a diagonal whose corners lie on pixel centres and on
+      the borders of 16 x 32 sub-tiles (x = 32k, 32k +- 0.5; y = 16k,
+      16k +- 0.5), and fans with one vertex far off;
+    - a zero-area triangle, an off-screen one, one with a vertex outside the
+      frustum and invalid rows, which the prepass culls.
+    """
+    rng = np.random.default_rng(seed)
+    size = np.array([width, height], np.float64)
+    tris = []
+    # ordinary
+    centre = rng.uniform([-20, -10], size + [20, 10], size=(128, 1, 2))
+    tris.append(centre + rng.normal(0, 12, size=(128, 3, 2)) * rng.choice([0.3, 1.0, 5.0], (128, 1, 1)))
+    # slivers: two vertices on pixel centres, the third off their line by 2 |area| / length
+    n = 96
+    p0 = np.floor(rng.uniform(0, size, size=(n, 2))) + 0.5
+    d = rng.integers(-40, 41, size=(n, 2)).astype(np.float64)
+    d[(d == 0).all(axis=1)] = [1.0, 0.0]
+    short = np.arange(n) % 4 == 0  # 1e-3 px long
+    d[short] *= 1e-3 / np.linalg.norm(d[short], axis=1, keepdims=True)
+    length = np.linalg.norm(d, axis=1, keepdims=True)
+    perp = np.stack([-d[:, 1], d[:, 0]], axis=1) / length
+    area = 10.0 ** rng.uniform(-9, -3, size=(n, 1)) * rng.choice([-1.0, 1.0], (n, 1))
+    p2 = p0 + rng.uniform(0, 1, (n, 1)) * d + 2 * area / length * perp
+    tris.append(np.stack([p0, p0 + d, p2], axis=1))
+    # huge
+    tris.append(np.array([
+        [[-5e4, -3e4], [6e4, 100.0], [200.0, 7e4]],
+        [[-1e5, 50.0], [1e5, -40.0], [3.5, 1e5]],
+        [[-2e4, -2e4], [width + 0.5, -2e4], [-2e4, height + 0.5]],  # a corner of the screen
+        [[width * 0.5 + 0.5, -3e4], [1e5, height * 0.5 + 0.5], [width * 0.5 + 0.5, height * 0.5 + 0.5]],
+    ]))
+    # quads on pixel centres and sub-tile borders, each split along a diagonal
+    xs = np.concatenate([np.arange(0, width + 1, 32.0) + o for o in (0.0, 0.5, -0.5)])
+    ys = np.concatenate([np.arange(0, height + 1, 16.0) + o for o in (0.0, 0.5, -0.5)])
+    for _ in range(48):
+        xa, xb = np.sort(rng.choice(xs, 2, replace=False))
+        ya, yb = np.sort(rng.choice(ys, 2, replace=False))
+        tris.append(np.array([[[xa, ya], [xb, ya], [xb, yb]], [[xa, ya], [xb, yb], [xa, yb]]]))
+    # fans: two grid vertices and one far off
+    for _ in range(16):
+        a = [rng.choice(xs), rng.choice(ys)]
+        b = [rng.choice(xs), rng.choice(ys)]
+        far = rng.uniform(-3e3, 3e3, 2)
+        tris.append(np.array([[a, b, far]]))
+    # what the prepass culls
+    tris.append(np.array([
+        [[10.0, 10.0], [20.0, 20.0], [30.0, 30.0]],  # zero area
+        [[5e3, 5e3], [5e3 + 9, 5e3], [5e3, 5e3 + 9]],  # off screen
+        [[40.5, 8.5], [70.5, 8.5], [40.5, 30.5]],  # a vertex outside the frustum (below)
+    ]))
+    xy = np.concatenate(tris).astype(np.float32)
+    n_tri = xy.shape[0]
+    n_pad = -(-n_tri // 128) * 128
+    xy = np.concatenate([xy, np.zeros((n_pad - n_tri, 3, 2), np.float32)])
+    n_v = 3 * n_pad
+    u, v = xy[..., 0].reshape(n_v), xy[..., 1].reshape(n_v)
+    z = rng.uniform(0.5, 1.5, n_v).astype(np.float32)
+    shade = rng.uniform(0, 1, n_v).astype(np.float32)
+    visible = np.ones(n_v, bool)
+    visible[3 * (n_tri - 1)] = False
+    faces = np.arange(n_v, dtype=np.int32).reshape(n_pad, 3)
+    face_valid = np.arange(n_pad) < n_tri
+    face_valid[rng.choice(n_tri - 3, 4, replace=False)] = False  # a few invalid rows among the live
+    return u, v, z, shade, visible, faces, face_valid

@@ -1,4 +1,4 @@
-"""Chunk-culled tile rasterizer: a hand-written CUDA kernel + its plain version.
+"""Tile rasterizer: a hand-written CUDA kernel + its plain version.
 
 Port of ``audio2face_tpu/ops/rasterizer.py``. There is no per-fragment
 scatter: each triangle's barycentrics, depth and shade are affine in screen
@@ -21,7 +21,13 @@ Kernel and plain version share one evaluation order, so that they can be
 held to each other exactly: the screen is cut into tiles of 16 rows by 128
 columns; a chunk is evaluated on a tile iff its box overlaps the tile; row 0
 of a tile is ``(a + b*px) + c*py0`` and each next row adds ``c``; no product
-and sum contract into a fused multiply-add.
+and sum contract into a fused multiply-add. The kernel evaluates a triangle
+of an overlapping chunk only on the 16 x 32 sub-tiles, and the rows of
+them, that ``subtile_cull`` keeps (edge-function corner tests and x/y range
+tests, with margins that make them conservative under rounding), which
+changes no key; the plain version evaluates every triangle of the chunk and
+is the unculled oracle. ``subtile_pairs`` and ``triangle_box_pixels`` count
+the kernel's work and the work the inputs need.
 """
 
 from __future__ import annotations
@@ -35,6 +41,12 @@ from audio2face_tpu_torch.ops import _build
 TRI_CHUNK = 128  # triangles per culling chunk
 STRIP_H = 16  # image rows per tile
 XBLOCK = 128  # image columns per tile
+SUB_W = 32  # image columns per sub-tile: one warp of the kernel
+TAU_PER_S = 2.0**-17  # the cull's margin over its scale S (csrc/rasterizer.cu)
+NO_CULL_ABOVE = 2.0**100
+AXIS_COND_MAX = 1024.0  # the axis tests' limits and margin (csrc/rasterizer.cu)
+AXIS_TAU_MAX = 0.5
+AXIS_MARGIN = 2.0**-18
 
 IZ_BITS = 22
 IZ_MAX = float((1 << IZ_BITS) - 1)
@@ -198,6 +210,149 @@ def rasterize_keys_reference(
     return out
 
 
+def subtile_cull(
+    coefs: torch.Tensor,  # (..., T, 16) f32 from plane_coefficients
+    y0,  # sub-tile top rows (int or tensor), broadcast together with x0 and tw
+    x0,  # sub-tile left columns
+    th: int,  # rows of a sub-tile
+    tw,  # columns of a sub-tile (int or tensor: clipped at the frame's width)
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's cull, in the same float operations: for every (triangle,
+    sub-tile [x0, x0 + tw) x [y0, y0 + th)) pair, whether a pixel centre of
+    the sub-tile may pass the inside test in the kernel's rounded evaluation
+    order, and the first and last row (0 .. th - 1) that may.
+
+    Returns ``(keep, row_lo, row_hi)``, each (..., T, *G), G the broadcast
+    shape of y0, x0 and tw. Each of w0, w1 and w2 = 1 - w0 - w1 is largest
+    over the rectangle of pixel centres at a corner; a pair is culled when
+    one of the three corner maxima is below -tau, with tau = 2^-17 S and S =
+    1 + sum over w0, w1 of |a| + |b| xh + |c| yh, 4.7 times the rounding
+    bound of evaluation and test. Then the x and y ranges of the triangle
+    widened by tau (computed from the planes), widened again by a rounding
+    margin, give the columns and rows whose centres they hold; a pair with
+    none is culled, and a kept pair evaluates only those rows. The range
+    tests are skipped for ill-conditioned planes (all rows). Both are
+    derived in ``csrc/rasterizer.cu``. NaN coefficients cull; S above 2^100
+    culls nothing. Only the tests and the work counts call it.
+    """
+    dev = coefs.device
+    y0, x0, tw = (torch.as_tensor(t, device=dev, dtype=torch.float32) for t in (y0, x0, tw))
+    grid = torch.broadcast_shapes(y0.shape, x0.shape, tw.shape)
+    shape = coefs.shape[:-1] + (1,) * len(grid)
+    a0, b0, c0, a1, b1, c1 = (coefs[..., j].reshape(shape) for j in range(6))
+    xl, xh = x0 + 0.5, (x0 + tw) - 0.5  # exact: integers plus a half
+    yl, yh = y0 + 0.5, (y0 + th) - 0.5
+
+    def abs_plane(a, b, c):
+        return (a.abs() + b.abs() * xh) + c.abs() * yh
+
+    def corner_max(a, b, c):
+        return (a + torch.fmax(b * xl, b * xh)) + torch.fmax(c * yl, c * yh)
+
+    s = (1.0 + abs_plane(a0, b0, c0)) + abs_plane(a1, b1, c1)
+    neg_tau = -(s * TAU_PER_S)
+    a2, b2, c2 = (1.0 - a0) - a1, (-b0) - b1, (-c0) - c1
+    edges = ((corner_max(a0, b0, c0) >= neg_tau) & (corner_max(a1, b1, c1) >= neg_tau)
+             & (corner_max(a2, b2, c2) >= neg_tau))
+    # the axes: x and y are affine in (w0, w1), x = x2 + alpha w0 + beta w1
+    # (x2 the vertex where w0 = w1 = 0); their range over the triangle
+    # widened by tau, plus a margin for the rounding of all this
+    p, q = b0 * c1, b1 * c0
+    inv = 1.0 / (p - q)
+    cond = (p.abs() + q.abs()) * inv.abs()
+    t = -neg_tau
+    well = (cond <= AXIS_COND_MAX) & (t <= AXIS_TAU_MAX)
+
+    def centres(vertex, alpha, beta, spread, first, n):
+        """First and last index k in [0, n) whose centre first + k the range holds."""
+        e0 = alpha + t * (2.0 * alpha - beta)
+        e1 = beta + t * (2.0 * beta - alpha)
+        e2 = -(t * (alpha + beta))
+        margin = AXIS_MARGIN * (
+            spread + (cond + 4.0) * ((vertex.abs() + 3.0 * alpha.abs()) + 3.0 * beta.abs()))
+        hi = (vertex + torch.fmax(torch.fmax(e0, e1), e2)) + margin
+        lo = (vertex + torch.fmin(torch.fmin(e0, e1), e2)) - margin
+        # clamped so that a NaN gives the whole range (fmin / fmax drop a NaN)
+        neg, big = torch.tensor(-1.0, device=dev), torch.tensor(1e6, device=dev)
+        k_lo = torch.ceil(torch.fmin(torch.fmax(lo - first, neg), big)).clamp(min=0.0)
+        k_hi = torch.floor(torch.fmax(torch.fmin(hi - first, big), neg))
+        return k_lo, torch.minimum(k_hi, torch.as_tensor(n - 1.0, device=dev))
+
+    col_lo, col_hi = centres((a1 * c0 - a0 * c1) * inv, c1 * inv, -(c0 * inv),
+                             ((a1 * c0).abs() + (a0 * c1).abs()) * inv.abs(), xl, tw)
+    row_lo, row_hi = centres((a0 * b1 - a1 * b0) * inv, -(b1 * inv), b0 * inv,
+                             ((a0 * b1).abs() + (a1 * b0).abs()) * inv.abs(), yl, th)
+    empty = (col_lo > col_hi) | (row_lo > row_hi)  # false where NaN: not `well` then
+    keep = (s > NO_CULL_ABOVE) | (edges & ~(well & empty))
+    use = keep & well & (s <= NO_CULL_ABOVE)
+    row_lo = torch.where(use, row_lo, torch.zeros_like(row_lo)).to(torch.int64)
+    row_hi = torch.where(use, row_hi, torch.full_like(row_hi, th - 1.0)).to(torch.int64)
+    return keep, row_lo, row_hi
+
+
+def _chunk_tiles(chunk_bbox: torch.Tensor, height: int, width: int):
+    """Per chunk, the first and last strip and x block its box overlaps
+    (``tile_range`` on tensors)."""
+    n_strips, n_xblocks = height // STRIP_H, -(-width // XBLOCK)
+    xmin, xmax, ymin, ymax = chunk_bbox.long().unbind(-1)
+    return ((ymin // STRIP_H).clamp(min=0), (ymax // STRIP_H).clamp(max=n_strips - 1),
+            (xmin // XBLOCK).clamp(min=0), (xmax // XBLOCK).clamp(max=n_xblocks - 1))
+
+
+def tile_chunk_pairs(chunk_bbox: torch.Tensor, *, height: int, width: int) -> torch.Tensor:
+    """(F,) int64: the (chunk, 16 x 128 tile) pairs whose box and tile
+    overlap, on which both versions evaluate a chunk."""
+    s0, s1, b0, b1 = _chunk_tiles(chunk_bbox, height, width)
+    return ((s1 - s0 + 1).clamp(min=0) * (b1 - b0 + 1).clamp(min=0)).sum(-1)
+
+
+def subtile_pairs(coefs: torch.Tensor, chunk_bbox: torch.Tensor, *, height: int,
+                  width: int) -> torch.Tensor:
+    """(F,) int64: the (triangle, 16 x 32 sub-tile) pairs the kernel
+    evaluates: sub-tiles left of ``width`` in a tile that the triangle's
+    chunk box overlaps, kept by ``subtile_cull``."""
+    _check(coefs, chunk_bbox, height, width)
+    dev = coefs.device
+    strip = torch.arange(height // STRIP_H, device=dev)  # (S,)
+    sx = torch.arange(0, width, SUB_W, device=dev)  # (X,)
+    xb = sx // XBLOCK
+    s0, s1, b0, b1 = _chunk_tiles(chunk_bbox, height, width)  # (F, C) each
+    counts = []
+    for f in range(coefs.shape[0]):
+        # (C, S, X): does chunk c's box overlap the tile of sub-tile (s, x)
+        over = (((s0[f, :, None] <= strip) & (strip <= s1[f, :, None]))[:, :, None]
+                & ((b0[f, :, None] <= xb) & (xb <= b1[f, :, None]))[:, None, :])
+        keep = subtile_cull(coefs[f], strip[:, None] * STRIP_H, sx[None, :], STRIP_H,
+                            (width - sx).clamp(max=SUB_W)[None, :])[0]  # (T, S, X)
+        counts.append((keep.reshape(*over.shape[:1], TRI_CHUNK, *keep.shape[1:]) & over[:, None]).sum())
+    return torch.stack(counts) if counts else torch.zeros(0, dtype=torch.int64, device=dev)
+
+
+def triangle_box_pixels(
+    u: torch.Tensor,  # (F, V) screen x per vertex
+    v: torch.Tensor,  # (F, V) screen y
+    faces: torch.Tensor,  # (T, 3)
+    coefs: torch.Tensor,  # (F, T, 16) from plane_coefficients: which triangles live
+    *,
+    height: int,
+    width: int,
+) -> torch.Tensor:
+    """(F,) int64: the work the inputs need, the pixels whose centres lie in
+    a live triangle's screen box, inside the frame, summed over the live
+    triangles (those the prepass did not cull to a0 = -1, b0 = c0 = 0)."""
+    faces = faces.long()
+    uu, vv = u[:, faces].double(), v[:, faces].double()  # (F, T, 3)
+
+    def span(lo, hi, n):  # pixels p with lo <= p + 0.5 <= hi, 0 <= p < n
+        first = torch.ceil(lo - 0.5).clamp(min=0)
+        last = torch.floor(hi - 0.5).clamp(max=n - 1)
+        return (last - first + 1).clamp(min=0)
+
+    live = ~((coefs[..., 0] == -1) & (coefs[..., 1] == 0) & (coefs[..., 2] == 0))
+    pix = span(uu.amin(-1), uu.amax(-1), width) * span(vv.amin(-1), vv.amax(-1), height)
+    return torch.where(live, pix, torch.zeros_like(pix)).sum(-1).long()
+
+
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
@@ -222,6 +377,8 @@ def rasterize_keys(
     if n_frames > 65535:
         raise ValueError(f"{n_frames} frames in one launch: at most 65535")
     coefs, chunk_bbox = coefs.contiguous(), chunk_bbox.contiguous()
+    if coefs.data_ptr() % 16:  # the kernel's bulk copies read 16-byte aligned chunks
+        coefs = coefs.clone()
     out = torch.empty((n_frames, height, width), dtype=torch.int32, device=coefs.device)
     if n_frames == 0:
         return out

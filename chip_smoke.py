@@ -9,13 +9,19 @@ which raises (exit code != 0) on failure:
 2. build: compiles the port's CUDA sources (``build/torch_kernels/``) and
    prints the bf16 attention kernels' registers and spills (``-Xptxas -v``),
    shared memory per block and resident blocks per SM (CUDA runtime), and
-   the conv encoder's and decode loop's registers and spills;
+   the conv encoder's and decode loop's registers and spills, and the
+   rasterizer's registers, spills and shared memory a block;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the shapes its main path gives it (the flagship request,
    60 s x batch 8; the BIWI request, 30 s x batch 8; a transfer batch of 64
    frames of the 5,023-vertex head at 800 x 800), with a stated tolerance;
    times kernel, plain version and (attention) one
-   ``scaled_dot_product_attention`` call with CUDA events; K1 and K4 also
+   ``scaled_dot_product_attention`` call with CUDA events, and at the
+   training shape K1, K4 and SDPA's forward and backward by the profiler's
+   device time (5 repeats, SDPA's backend named); K5 also on adversarial
+   frames (slivers, huge and edge-touching triangles, a NaN frame), its
+   registers, spills and shared memory, and its work (box pixels, tile-chunk
+   pairs, evaluated sub-tile pairs) under its bound; K1 and K4 also
    over head dims 16, 32, 64 and 128 in bf16 and f32 with their options at
    small shapes, and K4's delta against its plain version; K2's launches
    split by the profiler; K3's cluster plan (cluster size, resident
@@ -137,10 +143,12 @@ K5_DIFFERING_PIXELS = 0
 # tied depths resolve to the brightest shade): share of pixels off by more
 # than 3 grey levels
 ORACLE_OFF_SHARE = 0.01
-# f32 operations K5 spends on one pixel x triangle test: four plane
-# increments, two subtractions for the third barycentric, and the 16
-# operations of a strip's first row spread over its 16 rows
-K5_OPS_PER_TEST = 7.0
+# f32 operations one pixel x triangle test needs: four plane increments,
+# two subtractions for the third barycentric, and the 16 operations of a
+# strip's first row spread over its 16 rows. K5's bound counts them over the
+# pixels in each live triangle's screen box (what the inputs need), not over
+# the pairs a design evaluates.
+K5_OPS_PER_PIXEL = 7.0
 
 
 def counter(row: dict) -> str:
@@ -189,6 +197,45 @@ def k2_launch_ms(torch, fn) -> list:
             and ev.time_range.elapsed_us() > 0]
 
 
+def profiled_ms(torch, fn, calls: int, repeats: int = 5) -> tuple[list, list]:
+    """Device time of one call of ``fn``, by the profiler: the summed device
+    time of the kernels and memsets it launches over ``calls`` calls, divided
+    by ``calls`` (host gaps between the launches are not in it), in
+    ``repeats`` windows after a warm call; and the names of those kernels.
+    A window that lost device events (fewer than the most any window
+    recorded) is taken again, up to ``repeats`` more times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    windows, names = [], set()
+    for _ in range(2 * repeats):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if getattr(e, "device_type", None) == DeviceType.CUDA]
+        windows.append((len(events), sum(e.time_range.elapsed_us() for e in events) / 1e3 / calls))
+        names |= {e.name for e in events}
+        full = max(n_ for n_, _ in windows)
+        if sum(n_ == full for n_, _ in windows) >= repeats:
+            break
+    full = max(n_ for n_, _ in windows)
+    times = [t_ for n_, t_ in windows if n_ == full][:repeats]
+    require(full > 0 and len(times) == repeats, f"the profiler recorded {[n_ for n_, _ in windows]} device events")
+    return times, sorted(names)
+
+
+def sdpa_backend(kernel_names: list) -> str:
+    """The backend ``scaled_dot_product_attention`` took, from its kernels' names."""
+    joined = " ".join(kernel_names).lower()
+    for key, backend in (("cudnn", "cudnn"), ("fmha_cutlass", "efficient (CUTLASS)"), ("flash", "flash")):
+        if key in joined:
+            return backend
+    return "math"
+
+
 def k3_extra_shapes(dk, dev, biwi: bool) -> list:
     """(dtype, batch, T) of K3's checks off the serving shape: a batch of 1
     with T at least 1.5x the cluster's shared-memory capacity, in bf16 and
@@ -235,9 +282,10 @@ def kernel_name(mangled: str) -> str:
 
 
 def ptxas_report(log_text: str) -> dict:
-    """Registers, stack and spill bytes of each kernel in an ``nvcc -Xptxas -v``
-    log, keyed by ``kernel_name``, and whether ptxas serialized its ``wgmma``
-    (its C75xx notes: the products then do not overlap)."""
+    """Registers, stack and spill bytes and static shared memory of each
+    kernel in an ``nvcc -Xptxas -v`` log, keyed by ``kernel_name``, and
+    whether ptxas serialized its ``wgmma`` (its C75xx notes: the products
+    then do not overlap)."""
     import re
 
     report, name = {}, None
@@ -257,6 +305,9 @@ def ptxas_report(log_text: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             report[name]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m and name:
+            report[name]["static_smem_bytes"] = int(m.group(1))
     return report
 
 
@@ -342,7 +393,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; the port's smoke test needs a GPU",
               file=sys.stderr)
         return 1
-    from audio2face_tpu_torch.data.synthetic import generate_synthetic_face_obj
+    from audio2face_tpu_torch.data.synthetic import adversarial_screen_triangles, generate_synthetic_face_obj
     from audio2face_tpu_torch.models.faceformer import (
         frame_count, normalize_waveform, periodic_positional_encoding)
     from audio2face_tpu_torch.ops import _build
@@ -390,6 +441,9 @@ def main() -> int:
     for lib in ("conv_encoder", "decode_loop"):
         dc_resources.update(ptxas_report((_build.BUILD_DIR / f"{lib}.log").read_text()))
     print(json.dumps({"decode_conv_kernel_resources": dc_resources}), flush=True)
+    # K5's registers, spills and shared memory a block (-Xptxas -v)
+    k5_resources = ptxas_report((_build.BUILD_DIR / "rasterizer.log").read_text())["raster_subtile_kernel"]
+    print(json.dumps({"rasterizer_kernel_resources": k5_resources}), flush=True)
 
     g = torch.Generator().manual_seed(0)
 
@@ -641,6 +695,38 @@ def main() -> int:
         "resources_d64": {n_: resources[f"{n_}<64>"] for n_ in ("flash_bwd_dq_wgmma_kernel",
                                                                 "flash_bwd_dkdv_wgmma_kernel")},
     })
+    # the library yardstick of K1 and K4 at the training shape: SDPA forward
+    # and backward with the same boolean kv_lengths mask, and K1 and K4
+    # without dropout, each by the profiler's device time of its own kernels
+    # (the backward's window holds no forward, and no host gap of the
+    # autograd engine counts), 5 repeats of 20 calls
+    yard = {}
+    yard["k1"], k1_names = profiled_ms(torch, lambda: attn_ops.flash_attention(q, k, v, kv_lengths=kvl), 20)
+    yard["sdpa_forward"], fwd_names = profiled_ms(
+        torch, lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask), 20)
+    yard["k4"], k4_names = profiled_ms(
+        torch, lambda: attn_ops.flash_attention_bwd(q, k, v, out, lse, go, kv_lengths=kvl), 20)
+    with torch.enable_grad():
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        lib_out = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask)
+        yard["sdpa_backward"], bwd_names = profiled_ms(
+            torch, lambda: torch.autograd.grad(lib_out, leaves, go, retain_graph=True), 20)
+    del leaves, lib_out
+    median = {n_: sorted(t_)[len(t_) // 2] for n_, t_ in yard.items()}
+    backend = {"forward": sdpa_backend(fwd_names), "backward": sdpa_backend(bwd_names)}
+    print(json.dumps({"library_yardstick (8,12,600,64) bf16 kv_lengths": {
+        "device_ms_per_call": yard, "median_ms": median, "sdpa_backend": backend,
+        "k1_kernels": k1_names, "k4_kernels": k4_names, "sdpa_forward_kernels": fwd_names,
+        "sdpa_backward_kernels": bwd_names, "card": smi}}), flush=True)
+    k1["train_shape_device_ms"], k1["train_shape_library_device_ms"] = median["k1"], median["sdpa_forward"]
+    k1["train_shape_library_spread_ms"] = [min(yard["sdpa_forward"]), max(yard["sdpa_forward"])]
+    k1["train_shape_library_backend"] = backend["forward"]
+    rows[-1].update({
+        "library_events_through_autograd_ms": lib_ms, "library_ms": median["sdpa_backward"],
+        "library_spread_ms": [min(yard["sdpa_backward"]), max(yard["sdpa_backward"])],
+        "library_backend": backend["backward"], "no_dropout_device_ms": median["k4"],
+        "no_dropout_device_spread_ms": [min(yard["k4"]), max(yard["k4"])],
+    })
     # causal + period-60 ALiBi with dropout at the same shape
     kw = dict(causal=True, alibi_period=60, **drop)
     out_c, lse_c = attn_ops.flash_attention(q, k, v, return_lse=True, **kw)
@@ -802,8 +888,8 @@ def main() -> int:
     frames[5] = np.nan  # an all-NaN frame: background
     frames[9] = head * 3.0  # triangles leave the screen
     vd = torch.as_tensor(frames, device=dev)
-    coefs, bbox = rz.plane_coefficients(
-        *rd.project_and_shade(vd, faces_p, lights), faces_p, valid_p, height=height, width=width)
+    proj = rd.project_and_shade(vd, faces_p, lights)
+    coefs, bbox = rz.plane_coefficients(*proj, faces_p, valid_p, height=height, width=width)
     keys = rz.rasterize_keys(coefs, bbox, height=height, width=width)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()  # the plain version is a host loop over frames and chunks: timed in its one run
@@ -850,29 +936,49 @@ def main() -> int:
     tiled_16_ms = cuda_ms(torch, lambda: rd.render_frames_tiled(v16, faces_p, valid_p, lights), 5)
     scatter_16_ms = cuda_ms(torch, lambda: rd.render_frames_u8(
         v16, faces_p, valid_p, lights, patch_h=16, patch_w=24), 2)
-    # the tests this run's boxes ask for: every pixel of a tile against every
-    # triangle of every chunk whose box overlaps the tile
-    n_strips, n_xblocks = height // rz.STRIP_H, -(-width // rz.XBLOCK)
-    pairs = 0
-    for frame_boxes in bbox.cpu().tolist():
-        for xmin, xmax, ymin, ymax in frame_boxes:
-            s0, s1 = rz.tile_range(ymin, ymax, rz.STRIP_H, n_strips)
-            x0, x1 = rz.tile_range(xmin, xmax, rz.XBLOCK, n_xblocks)
-            pairs += max(s1 - s0 + 1, 0) * max(x1 - x0 + 1, 0)
-    tests = float(pairs) * rz.TRI_CHUNK * rz.STRIP_H * rz.XBLOCK
+    # adversarial frames: slivers of 1e-9 to 1e-3 px^2, triangles 10^5 px
+    # across, vertices and edges on pixel centres and sub-tile borders, and
+    # a NaN frame, held to the unculled plain version at the same bar
+    adv = [[torch.as_tensor(a, device=dev) for a in adversarial_screen_triangles(s_, height, width)]
+           for s_ in range(4)]
+    for a in adv[3][:2]:
+        a.fill_(float("nan"))
+    adv_pairs = [rz.plane_coefficients(*a, height=height, width=width) for a in adv]
+    ac, ab = torch.stack([p_[0] for p_ in adv_pairs]), torch.stack([p_[1] for p_ in adv_pairs])
+    adv_keys = rz.rasterize_keys(ac, ab, height=height, width=width)
+    adv_differing = int((adv_keys != rz.rasterize_keys_reference(ac, ab, height=height, width=width)).sum())
+    adv_covered = (adv_keys[:3] != 0).float().mean().item()
+    print(json.dumps({"check": "rasterize_keys adversarial (4, 800, 800)", "differing_pixels": adv_differing,
+                      "of": adv_keys.numel(), "tol_differing_pixels": K5_DIFFERING_PIXELS,
+                      "covered_share": adv_covered}), flush=True)
+    require(adv_differing <= K5_DIFFERING_PIXELS and adv_covered > 0.5 and not bool(adv_keys[3].any()),
+            f"K5 adversarial frames: {adv_differing} pixels differ, covered {adv_covered}, NaN frame drawn")
+    del adv, adv_pairs, ac, ab, adv_keys
+    # the work: what the inputs need (pixels in each live triangle's box),
+    # what a design without the cull evaluates (chunk-tile pairs x 128
+    # triangles), what this kernel evaluates (triangle x 16 x 32 sub-tile
+    # pairs its cull keeps)
+    box_pixels = rz.triangle_box_pixels(proj[0], proj[1], faces_p, coefs, height=height, width=width)
+    tile_pairs = rz.tile_chunk_pairs(bbox, height=height, width=width)
+    sub_pairs = rz.subtile_pairs(coefs, bbox, height=height, width=width)
     nbytes = coefs.numel() * 4 + bbox.numel() * 4 + keys.numel() * 4
-    bms, bby = bound(nbytes, K5_OPS_PER_TEST * tests / PEAK_F32_FLOPS)
+    bms, bby = bound(nbytes, K5_OPS_PER_PIXEL * box_pixels.sum().item() / PEAK_F32_FLOPS)
     rows.append({
         "name": "rasterize_keys", "route": "cuda",
         "source": "audio2face_tpu_torch/csrc/rasterizer.cu",
         "replaces": "audio2face_tpu/ops/rasterizer.py:202",
         "wrapper": rz.rasterize_keys, "max_abs_err": err, "differing_pixels": differing,
-        "tol_differing_pixels": K5_DIFFERING_PIXELS, "oracle_share_off_by_more_than_3": off_share,
-        "shape": [64, height, width], "triangles": int(coefs.shape[1]), "tile_chunk_pairs": pairs,
+        "tol_differing_pixels": K5_DIFFERING_PIXELS, "adversarial_differing_pixels": adv_differing,
+        "oracle_share_off_by_more_than_3": off_share,
+        "shape": [64, height, width], "triangles": int(coefs.shape[1]),
+        "triangle_box_pixels": box_pixels.sum().item(), "frame0_triangle_box_pixels": box_pixels[0].item(),
+        "tile_chunk_pairs": tile_pairs.sum().item(), "frame0_tile_chunk_pairs": tile_pairs[0].item(),
+        "subtile_pairs": sub_pairs.sum().item(), "frame0_subtile_pairs": sub_pairs[0].item(),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, "library_ms": None,
         "tiled_16_frames_ms": tiled_16_ms, "scatter_16_frames_ms": scatter_16_ms,
+        "resources": k5_resources,
     })
-    del coefs, bbox, keys, ref, vd
+    del coefs, bbox, keys, ref, vd, proj
     torch.cuda.empty_cache()
 
     # ---- 4. serving path: the full-width predictor --------------------------

@@ -75,7 +75,7 @@ GROUPS = (  # (group, substrings of CUDA kernel names)
                                 "flash_bwd_dkdv_f32_kernel", "flash_bwd_dq_f32_kernel")),
     ("K2 conv encoder", ("conv0_moments", "gn_fold", "conv0_gelu", "conv_gemm_wgmma")),
     ("K3 decode loop", ("decode_cluster_kernel",)),
-    ("K5 rasterizer", ("raster_kernel",)),
+    ("K5 rasterizer", ("raster_subtile_kernel",)),
     ("library conv", ("convolve", "cudnn", "winograd", "fft")),
     ("library matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")),
     ("copies", ("memcpy", "Memcpy", "memset", "Memset")),
