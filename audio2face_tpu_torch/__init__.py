@@ -1,12 +1,15 @@
 """audio2face_tpu_torch: the PyTorch/CUDA port of audio2face_tpu.
 
 FaceFormer (wav2vec2-base encoder, autoregressive d=64 decoder, vertex head)
-on an NVIDIA H100. Serving: ``audio2face_tpu_torch.serving.FaceFormerPredictor``;
-training: ``audio2face_tpu_torch.training.trainer.Audio2FaceExperiment``.
-Hand-written CUDA kernels carry the hot paths: flash attention forward with
-in-kernel dropout and its two backward kernels (``ops/attention.py``), the
-wav2vec2 conv feature encoder (``ops/conv_encoder.py``) and the whole decode
-loop (``ops/decode_kernel.py``). They build from ``csrc/`` at first launch;
-importing the package builds nothing. On CPU tensors every kernel wrapper
-runs its plain PyTorch version.
+and the frame models (Audio2Mesh, VOCA, Song2Face, on MFCC or wav2vec2
+features) on an NVIDIA H100. Serving:
+``audio2face_tpu_torch.serving.FaceFormerPredictor`` and ``FramePredictor``;
+training: ``audio2face_tpu_torch.training.trainer.Audio2FaceExperiment``;
+reference PyTorch checkpoints load through ``compat/``. Hand-written CUDA
+kernels carry the hot paths: flash attention forward with in-kernel dropout
+and its two backward kernels (``ops/attention.py``), the wav2vec2 conv
+feature encoder (``ops/conv_encoder.py``), the whole decode loop
+(``ops/decode_kernel.py``) and the tile rasterizer (``ops/rasterizer.py``).
+They build from ``csrc/`` at first launch; importing the package builds
+nothing. On CPU tensors every kernel wrapper runs its plain PyTorch version.
 """

@@ -1,16 +1,20 @@
 """Inference entry point: wav file(s) -> vertex animation (+ optional video).
 
-Port of ``audio2face_tpu/cli/infer.py`` for FaceFormer (vocaset or
-``--dataset biwi``). Decodes any number of clips of any length in padded
-batches on one GPU.
+Port of ``audio2face_tpu/cli/infer.py``. Decodes any number of clips of
+any length in padded batches on one GPU: FaceFormer by default (vocaset, or
+``--dataset biwi``), a frame model (audio2mesh, voca, song2face) with
+``--config configs/<model>.yaml``.
 
 Example:
     python -m audio2face_tpu_torch.cli.infer --audio clip.wav --subject 3 \
-        --template assets/FLAME_sample.obj --output out/ --video
+        --template assets/FLAME_sample.obj \
+        --checkpoint logs/.../checkpoints/epoch=7-step=123 --output out/ --video
 
-Without a checkpoint the weights are random (smoke mode). Checkpoint
-loading, the streaming decoder and the frame models are not ported yet: their
-options raise and name the ROADMAP.md item that brings them.
+``--checkpoint`` takes a checkpoint of the port's trainer,
+``--torch-checkpoint`` a reference PyTorch/Lightning ``.ckpt``; without
+either the weights are random (smoke mode). The streaming decoder is not
+ported yet: ``--streaming`` raises and names the ROADMAP.md item that
+brings it.
 """
 
 import argparse
@@ -19,10 +23,7 @@ import os
 import numpy as np
 
 _NOT_PORTED = {
-    "checkpoint": "loading the trainer's checkpoints into the predictor: ROADMAP.md queue 1 item 4",
-    "torch_checkpoint": "loading reference PyTorch checkpoints: ROADMAP.md queue 1 item 4",
-    "streaming": "the streaming front ends: ROADMAP.md queue 1 item 10",
-    "config": "the frame models (audio2mesh/voca/song2face): ROADMAP.md queue 1 item 7",
+    "streaming": "the streaming front ends: ROADMAP.md queue 1 item 2",
 }
 
 
@@ -32,17 +33,20 @@ def main(argv=None) -> None:
     parser.add_argument("--subject", type=int, nargs="+", default=None,
                         help="style one-hot index per clip (default 0)")
     parser.add_argument("--template", required=True, help="FLAME template .obj/.ply")
-    parser.add_argument("--checkpoint", default=None, help="trainer checkpoint (not ported yet)")
-    parser.add_argument("--torch-checkpoint", default=None, help="reference .ckpt/.pt (not ported yet)")
+    parser.add_argument("--checkpoint", default=None, help="checkpoint of the port's trainer")
+    parser.add_argument("--torch-checkpoint", default=None, help="reference .ckpt/.pt")
     parser.add_argument("--output", default="output")
     parser.add_argument("--video", action="store_true", help="render mp4 per clip")
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--f32", action="store_true")
     parser.add_argument("--streaming", action="store_true", help="not ported yet")
     parser.add_argument("--config", default=None,
-                        help="experiment YAML for a frame model (not ported yet)")
-    parser.add_argument("--dataset", choices=["vocaset", "biwi"], default="vocaset",
-                        help="faceformer dataset family ('biwi': frames run at 25 fps)")
+                        help="experiment YAML for a frame model "
+                             "(audio2mesh/voca/song2face); omit for faceformer")
+    parser.add_argument("--dataset", choices=["vocaset", "biwi"], default=None,
+                        help="faceformer dataset family (trainer checkpoints are "
+                             "detected; REQUIRED as 'biwi' for BIWI-trained torch "
+                             "checkpoints: frames run at 25 fps)")
     parser.add_argument("--device", default="cuda", help="'cpu' runs the plain versions")
     args = parser.parse_args(argv)
 
@@ -50,16 +54,30 @@ def main(argv=None) -> None:
         if getattr(args, name):
             raise NotImplementedError(f"--{name.replace('_', '-')} is not ported yet ({what})")
 
-    from audio2face_tpu_torch.serving import FaceFormerPredictor
+    from audio2face_tpu_torch.serving import FaceFormerPredictor, FramePredictor
     from audio2face_tpu_torch.utils.audio_io import read_wav
     from audio2face_tpu_torch.utils.facemesh import FaceMesh
 
     mesh = FaceMesh.load(args.template)
-    print("WARNING: no checkpoint given: using random weights (smoke mode)")
-    predictor = FaceFormerPredictor(
-        n_verts=mesh.n_verts * 3, max_batch=args.batch, bf16=not args.f32,
-        dataset=args.dataset, device=args.device,
-    )
+    if args.config:
+        from audio2face_tpu_torch.config import ExpConfig
+
+        cfg = ExpConfig.from_yaml(args.config)
+        if cfg.modelname == "faceformer":
+            raise SystemExit("--config is for the frame models; omit it for faceformer")
+        cls, kwargs = FramePredictor, dict(config=cfg, max_batch=args.batch, device=args.device)
+    else:
+        cls, kwargs = FaceFormerPredictor, dict(
+            n_verts=mesh.n_verts * 3, max_batch=args.batch, bf16=not args.f32, device=args.device)
+        if args.dataset:
+            kwargs["dataset"] = args.dataset
+    if args.torch_checkpoint:
+        predictor = cls.from_torch_checkpoint(args.torch_checkpoint, **kwargs)
+    elif args.checkpoint:
+        predictor = cls.from_checkpoint(args.checkpoint, **kwargs)
+    else:
+        print("WARNING: no checkpoint given: using random weights (smoke mode)")
+        predictor = cls(**kwargs)
 
     audios, rates = [], set()
     for path in args.audio:

@@ -10,7 +10,10 @@ become ``(c_out, c_in/groups, k)``; LayerNorm/GroupNorm ``scale`` becomes
 side. ``faceformer_jax_tree_from_state_dict`` is the inverse map: it lays a
 port state dict, or a dict of the port's gradients under the same names,
 out as the JAX tree, so that tests compare gradients leaf by leaf with
-``jax.grad``'s. Imports no JAX.
+``jax.grad``'s. ``frame_model_state_dict_from_jax`` and
+``frame_model_jax_variables_from_state_dict`` do the same both ways for the
+frame models (Audio2Mesh, VOCA, Song2Face), ``params`` and
+``batch_stats`` together. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -158,3 +161,77 @@ def faceformer_jax_tree_from_state_dict(sd: Mapping) -> dict:
         for leaf, value in _module_tree(sd, f"norm{i}", "norm").items():
             tree[f"norm{i}_{leaf}"] = value
     return tree
+
+
+# ---------------------------------------------------------------------------
+# Frame models (Audio2Mesh, VOCA, Song2Face): params and batch_stats
+# ---------------------------------------------------------------------------
+
+_BN_STATS = {"mean": "running_mean", "var": "running_var"}
+_LSTM_LEAVES = ("w_ih", "w_hh", "b_ih", "b_hh")
+
+
+def _flatten(tree: Mapping, prefix: str = ""):
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _flatten(value, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", value
+
+
+def frame_model_state_dict_from_jax(modelname: str, variables: Mapping) -> dict[str, torch.Tensor]:
+    """The port's state dict of a frame model from the JAX model's
+    ``{"params", "batch_stats"}`` (numpy leaves): conv kernels HWIO -> OIHW,
+    dense kernels (in, out) -> (out, in), BatchNorm ``scale``/``bias`` and
+    ``mean``/``var`` -> ``weight``/``bias`` and ``running_mean``/
+    ``running_var``, LSTM ``w_ih``/``w_hh`` (in, 4H) -> (4H, in)."""
+    if modelname not in ("audio2mesh", "voca", "song2face"):
+        raise KeyError(f"{modelname!r} is not a frame model")
+    out: dict[str, torch.Tensor] = {}
+    for name, value in _flatten(variables["params"]):
+        path, leaf = name.rsplit(".", 1)
+        x = np.asarray(value, dtype=np.float32)
+        if leaf == "kernel":
+            x = np.transpose(x, (3, 2, 0, 1)) if x.ndim == 4 else x.T
+            leaf = "weight"
+        elif leaf == "scale":
+            leaf = "weight"
+        elif leaf in _LSTM_LEAVES and x.ndim == 2:
+            x = x.T
+        out[f"{path}.{leaf}"] = _t(x)
+    for name, value in _flatten(variables.get("batch_stats", {})):
+        path, leaf = name.rsplit(".", 1)
+        out[f"{path}.{_BN_STATS[leaf]}"] = _t(value)
+    return out
+
+
+def frame_model_jax_variables_from_state_dict(modelname: str, sd: Mapping) -> dict:
+    """The JAX frame model's ``{"params", "batch_stats"}`` (numpy) from a
+    port state dict, or from a dict of gradients under the state dict's
+    names (then ``batch_stats`` stays empty): the inverse of
+    ``frame_model_state_dict_from_jax``."""
+    if modelname not in ("audio2mesh", "voca", "song2face"):
+        raise KeyError(f"{modelname!r} is not a frame model")
+    stats_names = {v: k for k, v in _BN_STATS.items()}
+    variables: dict = {"params": {}, "batch_stats": {}}
+    for name, value in sd.items():
+        parts = name.split(".")
+        leaf = parts[-1]
+        x = _np(value)
+        if leaf in stats_names:
+            collection, leaf = "batch_stats", stats_names[leaf]
+        else:
+            collection = "params"
+            if leaf == "weight" and x.ndim == 4:
+                x, leaf = np.transpose(x, (2, 3, 1, 0)), "kernel"
+            elif leaf == "weight" and x.ndim == 2:
+                x, leaf = x.T, "kernel"
+            elif leaf == "weight":
+                leaf = "scale"  # a BatchNorm's
+            elif leaf in _LSTM_LEAVES and x.ndim == 2:
+                x = x.T
+        node = variables[collection]
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[leaf] = x
+    return variables

@@ -9,6 +9,7 @@ dataclass that checks and coerces its field types itself.
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Optional
 
 
@@ -44,6 +45,75 @@ def _coerce(name: str, value, kind: str):
     if not ok:
         raise TypeError(f"ExpConfig.{name}: expected {kind}, got {value!r}")
     return value
+
+
+# YAML 1.1's implicit scalar types as PyYAML's SafeLoader resolves them, for
+# the forms a flat config file uses (so ``1e-4``, with no dot, stays a string)
+_YAML_NULL = re.compile(r"~|null|Null|NULL|")
+_YAML_BOOL = {v: True for v in ("yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON")}
+_YAML_BOOL.update({v: False for v in ("no", "No", "NO", "false", "False", "FALSE", "off", "Off", "OFF")})
+_YAML_INT = re.compile(r"[-+]?(?:0|[1-9][0-9_]*)")
+_YAML_FLOAT = re.compile(r"[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?|[-+]?\.[0-9_]+(?:[eE][-+][0-9]+)?")
+# forms PyYAML reads as something this reader does not resolve (octal, hex,
+# sexagesimal, special floats, timestamps, anchors, tags, block values)
+_YAML_OTHER = re.compile(r"[-+]?0[0-9xob_]|[-+]?[0-9][0-9_]*:|[-+]?\.(?:inf|Inf|INF|nan|NaN|NAN)$"
+                         r"|[0-9]{4}-[0-9]{2}-[0-9]{2}|[&*!|>{@`%]|[-?:](?:\s|$)")
+
+
+def _yaml_scalar(text: str):
+    if text[:1] in ("'", '"'):
+        quote = text[0]
+        if len(text) < 2 or text[-1] != quote or (quote == '"' and "\\" in text):
+            raise ValueError(f"unsupported quoted value {text!r}")
+        body = text[1:-1]
+        return body.replace("''", "'") if quote == "'" else body
+    if _YAML_NULL.fullmatch(text):
+        return None
+    if text in _YAML_BOOL:
+        return _YAML_BOOL[text]
+    if _YAML_INT.fullmatch(text):
+        return int(text.replace("_", ""))
+    if _YAML_FLOAT.fullmatch(text):
+        return float(text.replace("_", ""))
+    if _YAML_OTHER.match(text):
+        raise ValueError(f"unsupported value {text!r}")
+    return text
+
+
+def read_flat_yaml(text: str) -> dict:
+    """A flat ``key: value`` YAML document (the form of ``config.yaml`` and
+    ``configs/*.yaml``: scalars, quoted strings, ``[a, b]`` lists of
+    scalars, ``#`` comments) as ``yaml.safe_load`` reads it. Raises
+    ValueError on anything else: nesting, multi-line values, anchors, tags,
+    or scalar forms it does not resolve."""
+    out: dict = {}
+    for n, raw in enumerate(text.splitlines(), start=1):
+        line = raw
+        # a comment starts at a '#' outside quotes that follows whitespace
+        quote = None
+        for i, ch in enumerate(line):
+            if quote:
+                quote = None if ch == quote else quote
+            elif ch in ("'", '"'):
+                quote = ch
+            elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+                line = line[:i]
+                break
+        if not line.strip() or line.strip() == "---":
+            continue
+        if line[0] in " \t" or ":" not in line:
+            raise ValueError(f"line {n}: not a flat 'key: value' line: {raw!r}")
+        key, _, value = line.partition(":")
+        key, value = key.strip(), value.strip()
+        if value.startswith("[") and value.endswith("]"):
+            inner = value[1:-1].strip()
+            out[key] = [_yaml_scalar(v.strip()) for v in inner.split(",")] if inner else []
+        else:
+            try:
+                out[key] = _yaml_scalar(value)
+            except ValueError as e:
+                raise ValueError(f"line {n}: {e}") from None
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,15 +192,16 @@ class ExpConfig:
 
     @classmethod
     def from_yaml(cls, path: str) -> "ExpConfig":
+        """From a YAML file: through PyYAML where it is installed, else
+        through ``read_flat_yaml``, which reads the repo's flat config files
+        the same way."""
+        with open(path, "r") as f:
+            text = f.read()
         try:
             import yaml
-        except ImportError as e:
-            raise ImportError(
-                "ExpConfig.from_yaml needs the `yaml` package (PyYAML); without it, "
-                "build the config with ExpConfig(...) or ExpConfig.from_dict(...)"
-            ) from e
-        with open(path, "r") as f:
-            return cls.from_dict(yaml.safe_load(f))
+        except ImportError:
+            return cls.from_dict(read_flat_yaml(text))
+        return cls.from_dict(yaml.safe_load(text))
 
     def model_copy(self, update: Optional[dict] = None) -> "ExpConfig":
         """A copy with ``update`` applied (and checked)."""

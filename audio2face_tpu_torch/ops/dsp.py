@@ -1,15 +1,245 @@
-"""Audio DSP on the main path: interpolation, resampling, normalization.
+"""Audio DSP: the MFCC front end, interpolation, resampling, normalization
+and the on-device fragmenter.
 
-Port of the serving-path parts of ``audio2face_tpu/ops/dsp.py``.
+Port of ``audio2face_tpu/ops/dsp.py``. ``mfcc`` follows
+``torchaudio.transforms.MFCC`` with the reference's settings: STFT (center,
+reflect pad, periodic Hann window of ``win_length`` zero-padded centred to
+``n_fft``) -> power -> HTK mel filterbank (128 mels, 0 to sr/2, no norm) ->
+power to dB -> orthonormal DCT-II. The DFT is ``torch.fft.rfft`` on strided
+views of the padded signal. The window, filterbank and DCT basis are numpy
+constants built in float64 on the host, as the JAX package builds them, and
+copied to each device once (``device_constant``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# Windows and filterbanks (host-side constants, cached on each device)
+# ---------------------------------------------------------------------------
+
+
+def hann_window(win_length: int, *, periodic: bool = True) -> np.ndarray:
+    n = np.arange(win_length, dtype=np.float64)
+    denom = win_length if periodic else win_length - 1
+    return (0.5 * (1.0 - np.cos(2.0 * np.pi * n / denom))).astype(np.float32)
+
+
+def _hz_to_mel(freq, mel_scale: str = "htk"):
+    freq = np.asarray(freq, dtype=np.float64)
+    if mel_scale == "htk":
+        return 2595.0 * np.log10(1.0 + freq / 700.0)
+    # slaney: linear below 1 kHz, log above
+    f_min, f_sp = 0.0, 200.0 / 3
+    mels = (freq - f_min) / f_sp
+    min_log_hz = 1000.0
+    min_log_mel = (min_log_hz - f_min) / f_sp
+    logstep = math.log(6.4) / 27.0
+    return np.where(freq >= min_log_hz, min_log_mel + np.log(np.maximum(freq, 1e-10) / min_log_hz) / logstep, mels)
+
+
+def _mel_to_hz(mels, mel_scale: str = "htk"):
+    mels = np.asarray(mels, dtype=np.float64)
+    if mel_scale == "htk":
+        return 700.0 * (10.0 ** (mels / 2595.0) - 1.0)
+    f_min, f_sp = 0.0, 200.0 / 3
+    freqs = f_min + f_sp * mels
+    min_log_hz = 1000.0
+    min_log_mel = (min_log_hz - f_min) / f_sp
+    logstep = math.log(6.4) / 27.0
+    return np.where(mels >= min_log_mel, min_log_hz * np.exp(logstep * (mels - min_log_mel)), freqs)
+
+
+def mel_filterbank(
+    n_freqs: int,
+    f_min: float,
+    f_max: float,
+    n_mels: int,
+    sample_rate: int,
+    norm: str | None = None,
+    mel_scale: str = "htk",
+) -> np.ndarray:
+    """Triangular mel filterbank, (n_freqs, n_mels), as torchaudio's
+    ``melscale_fbanks`` builds it: FFT bin centres linspace(0, sr/2,
+    n_freqs), n_mels+2 points equally spaced in mel, optional slaney area
+    normalization."""
+    all_freqs = np.linspace(0.0, sample_rate / 2.0, n_freqs)
+    m_min = _hz_to_mel(f_min, mel_scale)
+    m_max = _hz_to_mel(f_max, mel_scale)
+    m_pts = np.linspace(m_min, m_max, n_mels + 2)
+    f_pts = _mel_to_hz(m_pts, mel_scale)
+
+    f_diff = f_pts[1:] - f_pts[:-1]  # (n_mels + 1,)
+    slopes = f_pts[None, :] - all_freqs[:, None]  # (n_freqs, n_mels + 2)
+    down_slopes = -slopes[:, :-2] / f_diff[:-1]
+    up_slopes = slopes[:, 2:] / f_diff[1:]
+    fb = np.maximum(0.0, np.minimum(down_slopes, up_slopes))
+
+    if norm == "slaney":
+        enorm = 2.0 / (f_pts[2 : n_mels + 2] - f_pts[:n_mels])
+        fb = fb * enorm[None, :]
+    return fb.astype(np.float32)
+
+
+def dct_matrix(n_mfcc: int, n_mels: int, norm: str | None = "ortho") -> np.ndarray:
+    """DCT-II basis, (n_mels, n_mfcc), as torchaudio's ``create_dct``."""
+    n = np.arange(n_mels, dtype=np.float64)
+    k = np.arange(n_mfcc, dtype=np.float64)[:, None]
+    dct = np.cos(np.pi / n_mels * (n + 0.5) * k)  # (n_mfcc, n_mels)
+    if norm is None:
+        dct = dct * 2.0
+    else:
+        if norm != "ortho":
+            raise ValueError(f"norm must be None or 'ortho', got {norm!r}")
+        dct[0] *= 1.0 / math.sqrt(2.0)
+        dct = dct * math.sqrt(2.0 / n_mels)
+    return dct.T.astype(np.float32)
+
+
+def _stft_window(win_length: int, n_fft: int) -> np.ndarray:
+    """The periodic Hann window of ``win_length`` zero-padded centred to
+    ``n_fft`` (torch.stft's convention)."""
+    window = hann_window(win_length)
+    if win_length < n_fft:
+        left = (n_fft - win_length) // 2
+        window = np.pad(window, (left, n_fft - win_length - left))
+    return window
+
+
+_CONSTANTS = {
+    "stft_window": _stft_window,
+    "mel_filterbank": mel_filterbank,
+    "dct_matrix": dct_matrix,
+}
+
+
+@functools.lru_cache(maxsize=64)
+def _device_constant(name: str, args: tuple, device: str) -> torch.Tensor:
+    return torch.as_tensor(_CONSTANTS[name](*args), device=device)
+
+
+def device_constant(name: str, *args, device) -> torch.Tensor:
+    """The numpy constant ``name(*args)`` (``stft_window``, ``mel_filterbank``
+    or ``dct_matrix``) as a tensor on ``device``, built and copied once per
+    (arguments, device)."""
+    return _device_constant(name, tuple(args), str(torch.device(device)))
+
+
+# ---------------------------------------------------------------------------
+# Spectrogram / MFCC
+# ---------------------------------------------------------------------------
+
+
+def frame_signal(x: torch.Tensor, frame_length: int, hop: int, n_frames: int) -> torch.Tensor:
+    """(..., L) -> (..., n_frames, frame_length): a strided view, no copy."""
+    return x.unfold(-1, frame_length, hop)[..., :n_frames, :]
+
+
+def spectrogram(
+    waveform: torch.Tensor,
+    *,
+    n_fft: int,
+    win_length: int,
+    hop_length: int,
+    power: float = 2.0,
+    center: bool = True,
+    pad_mode: str = "reflect",
+) -> torch.Tensor:
+    """Power spectrogram, (..., n_freqs, n_frames), torch.stft conventions:
+    the window of ``win_length`` zero-padded centred to ``n_fft``;
+    ``center=True`` pads n_fft//2 on both sides (reflect), so n_frames =
+    1 + L // hop_length. f32."""
+    x = waveform.to(torch.float32)
+    batch_shape = x.shape[:-1]
+    if center:
+        pad = n_fft // 2
+        # F.pad's reflect mode takes a (N, C, L) input
+        x = F.pad(x.reshape(-1, 1, x.shape[-1]), (pad, pad), mode=pad_mode)
+        x = x.reshape(*batch_shape, -1)
+    n_frames = (x.shape[-1] - n_fft) // hop_length + 1
+    window = device_constant("stft_window", win_length, n_fft, device=x.device)
+    frames = frame_signal(x, n_fft, hop_length, n_frames)  # (..., n_frames, n_fft)
+    spec = torch.fft.rfft(frames * window, dim=-1).abs()  # (..., n_frames, n_freqs)
+    if power != 1.0:
+        spec = spec**power
+    return spec.transpose(-1, -2)
+
+
+def amplitude_to_db(
+    x: torch.Tensor,
+    *,
+    multiplier: float = 10.0,
+    amin: float = 1e-10,
+    db_multiplier: float = 0.0,
+    top_db: float | None = None,
+) -> torch.Tensor:
+    """Power/amplitude to decibels, torchaudio ``AmplitudeToDB`` semantics."""
+    x_db = multiplier * torch.log10(torch.clamp(x, min=amin)) - multiplier * db_multiplier
+    if top_db is not None:
+        x_db = torch.maximum(x_db, x_db.max() - top_db)
+    return x_db
+
+
+def mel_spectrogram(
+    waveform: torch.Tensor,
+    *,
+    sample_rate: int,
+    n_fft: int,
+    win_length: int,
+    hop_length: int,
+    n_mels: int = 128,
+    f_min: float = 0.0,
+    f_max: float | None = None,
+    power: float = 2.0,
+    norm: str | None = None,
+    mel_scale: str = "htk",
+) -> torch.Tensor:
+    """(..., L) -> (..., n_mels, n_frames), torchaudio MelSpectrogram defaults."""
+    f_max = f_max if f_max is not None else sample_rate / 2.0
+    spec = spectrogram(
+        waveform, n_fft=n_fft, win_length=win_length, hop_length=hop_length, power=power
+    )
+    fb = device_constant(
+        "mel_filterbank", n_fft // 2 + 1, f_min, f_max, n_mels, sample_rate, norm, mel_scale,
+        device=spec.device,
+    )
+    return torch.einsum("...ft,fm->...mt", spec, fb)
+
+
+def mfcc(
+    waveform: torch.Tensor,
+    *,
+    sample_rate: int,
+    n_mfcc: int,
+    n_fft: int,
+    win_length: int,
+    hop_length: int,
+    n_mels: int = 128,
+    log_mels: bool = False,
+) -> torch.Tensor:
+    """(..., L) -> (..., n_mfcc, n_frames), torchaudio ``transforms.MFCC``."""
+    mel = mel_spectrogram(
+        waveform, sample_rate=sample_rate, n_fft=n_fft, win_length=win_length,
+        hop_length=hop_length, n_mels=n_mels,
+    )
+    if log_mels:
+        mel = torch.log(mel + 1e-6)
+    else:
+        mel = amplitude_to_db(mel)
+    dct = device_constant("dct_matrix", n_mfcc, n_mels, "ortho", device=mel.device)
+    return torch.einsum("...mt,mk->...kt", mel, dct)
+
+
+# ---------------------------------------------------------------------------
+# Interpolation (F.interpolate parity)
+# ---------------------------------------------------------------------------
 
 
 def _interp_weights(in_size: int, out_size: int, align_corners: bool):
@@ -41,6 +271,14 @@ def interp_linear(x: torch.Tensor, out_size: int, *, axis: int, align_corners: b
     shape[axis] = out_size
     w = torch.as_tensor(w_hi, device=x.device).reshape(shape)
     return x_lo * (1.0 - w) + x_hi * w
+
+
+def interp_bilinear(
+    x: torch.Tensor, out_h: int, out_w: int, *, align_corners: bool = False
+) -> torch.Tensor:
+    """Bilinear interpolation of the last two axes (F.interpolate parity)."""
+    x = interp_linear(x, out_h, axis=-2, align_corners=align_corners)
+    return interp_linear(x, out_w, axis=-1, align_corners=align_corners)
 
 
 def linear_interpolation_fps(features: torch.Tensor, output_len: int) -> torch.Tensor:
@@ -140,3 +378,33 @@ def wav2vec2_zero_mean_unit_var(x: torch.Tensor, axis: int = -1) -> torch.Tensor
     mean = x.mean(dim=axis, keepdim=True)
     var = x.var(dim=axis, keepdim=True, unbiased=False)
     return (x - mean) / torch.sqrt(var + 1e-7)
+
+
+def fragment_starts(frame_idx: torch.Tensor, fps: int, sample_rate: int) -> torch.Tensor:
+    """``frame_idx * sample_rate // fps`` evaluated as ``(f // fps) * sr +
+    (f % fps) * sr // fps``: exact, and free of the int32 overflow of the
+    naive product past frame ~97,000 at 22 kHz."""
+    return (frame_idx // fps) * sample_rate + (frame_idx % fps) * sample_rate // fps
+
+
+def batched_audio_fragments(
+    audio: torch.Tensor,
+    frame_idx: torch.Tensor,
+    *,
+    fps: int = 60,
+    sample_rate: int = 22000,
+    length: float = 0.52,
+    shift: torch.Tensor | None = None,
+    max_shift: int = 500,
+) -> torch.Tensor:
+    """The ``length``-second window centred at each frame time, gathered on
+    the device: ``audio`` is a zero-padded (L,) clip, ``frame_idx`` (N,)
+    frame indices (semantics of the reference's host fragmenter)."""
+    n_pad = int(sample_rate * length / 2)
+    window = 2 * n_pad
+    padded = F.pad(audio, (n_pad + max_shift, window))
+    starts = frame_idx.to(audio.device) * sample_rate // fps + max_shift
+    if shift is not None:
+        starts = starts - shift.to(audio.device)
+    idx = starts[:, None] + torch.arange(window, device=audio.device)[None, :]
+    return padded[idx]

@@ -1,6 +1,8 @@
-"""Inference/serving API: bucketed, batched FaceFormer prediction.
+"""Inference/serving API: bucketed, batched prediction.
 
-Port of ``audio2face_tpu/serving.py`` (``FaceFormerPredictor``):
+Port of ``audio2face_tpu/serving.py``: ``FaceFormerPredictor`` and, for the
+frame models (Audio2Mesh, VOCA, Song2Face), ``FramePredictor``.
+``FaceFormerPredictor``:
 
 - clips are sorted by length and grouped up to ``max_batch``; each group is
   padded to an audio bucket (seconds rounded up to a grid) and to a batch
@@ -12,10 +14,13 @@ Port of ``audio2face_tpu/serving.py`` (``FaceFormerPredictor``):
   convention, so the predictor feeds ``template * 100`` and returns
   ``output / 100`` (``unit_scale``).
 
-Runs on the card unless ``device="cpu"`` is asked for. Weights come from
-carried JAX variables, a port state dict, or a seeded random init.
-``dataset="biwi"`` serves the BIWI mode (25 fps, period 25, 2-way cross
-softmax). Multi-device meshes and checkpoint loading are not ported yet.
+Both run on the card unless ``device="cpu"`` is asked for. Weights come
+from a reference PyTorch/Lightning checkpoint (``from_torch_checkpoint``),
+the port trainer's checkpoint (``from_checkpoint``), carried JAX variables,
+a port state dict, or a seeded random init. ``dataset="biwi"`` serves
+FaceFormer's BIWI mode (25 fps, period 25, 2-way cross softmax). The JAX
+trainer's orbax checkpoints are not read: orbax imports JAX. Multi-device
+meshes are not ported yet (``ROADMAP.md`` queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -26,9 +31,14 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from audio2face_tpu_torch.compat.jax_params import faceformer_state_dict_from_jax
+import torch.nn.functional as F
+
+from audio2face_tpu_torch.compat.jax_params import (
+    faceformer_state_dict_from_jax,
+    frame_model_state_dict_from_jax,
+)
 from audio2face_tpu_torch.models.faceformer import AUDIO_SR, FaceFormer
-from audio2face_tpu_torch.ops.dsp import resample
+from audio2face_tpu_torch.ops.dsp import fragment_starts, resample
 from audio2face_tpu_torch.utils.device import resolve_device
 from audio2face_tpu_torch.utils.shapes import round_up as _round_up
 
@@ -51,6 +61,37 @@ def _pad_batch(b: int, max_batch: int) -> int:
         if g >= b:
             return g
     raise ValueError(f"group of {b} clips exceeds max_batch={max_batch}")
+
+
+def _warmup_predictor(predictor, max_seconds: float, batches: Optional[Sequence[int]],
+                      sample_rate: int) -> int:
+    """Run every (batch, bucket) shape a deployment will hit once on zero
+    audio: builds the kernels and warms the library kernels' caches before
+    live traffic. ``batches=None`` covers the full batch grid. Returns the
+    number of warm calls made."""
+    if batches is None:
+        batches = _batch_grid(predictor.max_batch)
+    bucket = predictor.bucket_samples
+    n_buckets = max(1, -(-int(max_seconds * sample_rate) // bucket))
+    template = np.zeros((predictor.n_verts // 3, 3), np.float32)
+    calls = 0
+    for b in batches:
+        for k in range(1, n_buckets + 1):
+            audios = [np.zeros(k * bucket, np.float32)] * b
+            predictor(audios, np.zeros((b, predictor.n_onehot), np.float32), template)
+            calls += 1
+    return calls
+
+
+def _resampled(audios, sample_rate: int, target: int, device) -> list:
+    """The clips at ``target`` Hz (the resampler runs on ``device``)."""
+    if sample_rate == target:
+        return list(audios)
+    return [
+        resample(torch.as_tensor(np.asarray(a, np.float32), device=device), sample_rate, target)
+        .cpu().numpy()
+        for a in audios
+    ]
 
 
 class FaceFormerPredictor:
@@ -118,6 +159,28 @@ class FaceFormerPredictor:
             self.model.init_parameters(torch.Generator().manual_seed(seed))
         self.model.eval().to(self.device)
 
+    @classmethod
+    def from_torch_checkpoint(cls, path: str, **kwargs) -> "FaceFormerPredictor":
+        """Load a reference PyTorch/Lightning checkpoint. Pass
+        ``dataset="biwi"`` for BIWI-trained weights: the converter then also
+        carries the live cross-attention q/k projections."""
+        from audio2face_tpu_torch.compat.faceformer_convert import convert_faceformer
+        from audio2face_tpu_torch.compat.torch_convert import load_torch_checkpoint
+
+        state_dict = convert_faceformer(
+            load_torch_checkpoint(path), dataset=kwargs.get("dataset", "vocaset"))
+        return cls(state_dict=state_dict, **kwargs)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, **kwargs) -> "FaceFormerPredictor":
+        """Load a checkpoint written by the port's trainer
+        (``Audio2FaceExperiment.save_checkpoint``). The dataset family is
+        detected from the weights: BIWI checkpoints carry the live
+        ``cross_q``/``cross_k`` projections, vocaset's have none."""
+        state_dict = torch.load(path, map_location="cpu", weights_only=True)["model"]
+        kwargs.setdefault("dataset", "biwi" if "cross_q.weight" in state_dict else "vocaset")
+        return cls(state_dict=state_dict, **kwargs)
+
     @torch.inference_mode()
     def _hidden(self, audio, one_hot, lengths):
         return self.model(
@@ -166,14 +229,7 @@ class FaceFormerPredictor:
         if template.ndim == 2:
             template = np.broadcast_to(template[None], (n, *template.shape))
 
-        if sample_rate != AUDIO_SR:
-            audios = [
-                resample(
-                    torch.as_tensor(np.asarray(a, np.float32), device=self.device),
-                    sample_rate, AUDIO_SR,
-                ).cpu().numpy()
-                for a in audios
-            ]
+        audios = _resampled(audios, sample_rate, AUDIO_SR, self.device)
 
         results: list[Optional[np.ndarray]] = [None] * n
         order = sorted(range(n), key=lambda i: len(audios[i]))
@@ -206,21 +262,8 @@ class FaceFormerPredictor:
 
     def warmup(self, max_seconds: float = 60.0, *, batches: Optional[Sequence[int]] = None) -> int:
         """Run every (batch, bucket) shape a deployment will hit once on zero
-        audio: builds the kernels and warms the library kernels' caches
-        before live traffic. ``batches=None`` covers the full batch grid.
-        Returns the number of warm calls made."""
-        if batches is None:
-            batches = _batch_grid(self.max_batch)
-        bucket = self.bucket_samples
-        n_buckets = max(1, -(-int(max_seconds * AUDIO_SR) // bucket))
-        template = np.zeros((self.n_verts // 3, 3), np.float32)
-        calls = 0
-        for b in batches:
-            for k in range(1, n_buckets + 1):
-                audios = [np.zeros(k * bucket, np.float32)] * b
-                self(audios, np.zeros((b, self.n_onehot), np.float32), template)
-                calls += 1
-        return calls
+        audio (``_warmup_predictor``). Returns the number of warm calls."""
+        return _warmup_predictor(self, max_seconds, batches, AUDIO_SR)
 
     def realtime_factor(self, seconds: float = 60.0, batch: Optional[int] = None) -> float:
         """Measured decode throughput in multiples of real time (one warm
@@ -235,3 +278,186 @@ class FaceFormerPredictor:
         self(audios, one_hot, template)
         wall = time.perf_counter() - tic
         return batch * seconds / wall
+
+
+# the frame models' clock and per-frame window (data/vocaset.py: 60 fps,
+# 0.52 s windows centred on each frame)
+FPS = 60
+FRAGMENT_SECONDS = 0.52
+
+
+class FramePredictor:
+    """Batched speech -> per-frame vertex inference for the frame models
+    (audio2mesh, voca, song2face: every registry model except faceformer).
+
+    - each clip is uploaded once; the 0.52 s per-frame windows (the
+      dataset's fragmenter, shift 0) are gathered on the device, one chunk
+      of ``frame_batch`` frames per clip at a time, with overflow-safe
+      window starts and frames past a clip's end clamped into its pad;
+    - MFCC or wav2vec2 features are extracted on the device inside each
+      chunk's forward;
+    - shapes follow the FaceFormer predictor: audio buckets on a
+      ``bucket_seconds`` grid, batches padded to the power-of-two grid;
+    - units: checkpoints train against x100 vertices, so templates feed
+      ``* 100`` and outputs return ``/ 100`` (``unit_scale``);
+    - each chunk is copied to the host as it is done.
+
+    Weights: ``variables`` (the JAX model's ``{"params", "batch_stats"}``
+    as numpy arrays), ``state_dict`` (the port's), or a random init from
+    ``seed``. The model computes in bf16 when the config asks for
+    "16-mixed", with BatchNorm in eval mode."""
+
+    def __init__(
+        self,
+        config,
+        variables: Optional[dict] = None,
+        *,
+        state_dict: Optional[dict] = None,
+        max_batch: int = 8,
+        frame_batch: int = 128,
+        bucket_seconds: float = 5.0,
+        seed: int = 0,
+        unit_scale: float = 100.0,
+        mesh=None,
+        device="cuda",
+    ):
+        from audio2face_tpu_torch.registry import get_extractor, get_model
+
+        if config.modelname == "faceformer":
+            raise ValueError("use FaceFormerPredictor for faceformer")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= serving is not ported yet (ROADMAP.md queue 1 item 4: parallelism)")
+        if variables is not None and state_dict is not None:
+            raise ValueError("pass variables= or state_dict=, not both")
+        self.device = resolve_device(device, "FramePredictor")
+        self.config = config
+        self.fps = FPS
+        self.sample_rate = config.sample_rate
+        self.n_verts = config.vertex_count
+        self.n_onehot = config.one_hot_size
+        self.max_batch = max_batch
+        self.frame_batch = frame_batch
+        self.unit_scale = float(unit_scale)
+        self.bucket_samples = int(bucket_seconds * config.sample_rate)
+        self.n_pad = int(config.sample_rate * FRAGMENT_SECONDS / 2)
+        self.window = 2 * self.n_pad
+
+        dtype = torch.bfloat16 if config.bf16_compute else None
+        self.model = get_model(config.modelname)(
+            n_verts=config.vertex_count, n_onehot=config.one_hot_size, dtype=dtype)
+        if variables is not None:
+            state_dict = frame_model_state_dict_from_jax(config.modelname, variables)
+        if state_dict is not None:
+            self.model.load_state_dict(state_dict)
+        else:
+            self.model.init_parameters(torch.Generator().manual_seed(seed))
+        self.model.eval().to(self.device)
+        self.extractor = get_extractor(config.feature_extractor)(
+            sample_rate=config.sample_rate, n_feature=config.n_feature, out_dim=config.out_dim,
+            win_length=config.win_length, hop_length=config.hop_length, n_fft=1024,
+        ).to(self.device)
+
+    @classmethod
+    def from_torch_checkpoint(cls, path: str, config, **kwargs) -> "FramePredictor":
+        """Load a reference PyTorch/Lightning checkpoint for this model."""
+        from audio2face_tpu_torch.compat.torch_convert import (
+            convert_state_dict,
+            load_torch_checkpoint,
+        )
+
+        state_dict = convert_state_dict(config.modelname, load_torch_checkpoint(path))
+        return cls(config, state_dict=state_dict, **kwargs)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, config, **kwargs) -> "FramePredictor":
+        """Load a checkpoint written by the port's trainer
+        (``Audio2FaceExperiment.save_checkpoint``): weights and BatchNorm
+        running statistics."""
+        state_dict = torch.load(path, map_location="cpu", weights_only=True)["model"]
+        return cls(config, state_dict=state_dict, **kwargs)
+
+    @torch.inference_mode()
+    def forward_chunk(self, padded: torch.Tensor, one_hot: torch.Tensor,
+                      template: torch.Tensor, frame0: int) -> torch.Tensor:
+        """Vertices of frames ``frame0 .. frame0 + frame_batch - 1`` of every
+        clip, (B, frame_batch, V, 3) f32 in data units, on the device.
+
+        ``padded``: (B, n_pad + samples + window) clips with ``n_pad`` zeros
+        before and a window of zeros after; ``one_hot``: (B * frame_batch,
+        n); ``template``: (B * frame_batch, V, 3), already scaled by
+        ``unit_scale``."""
+        b = padded.shape[0]
+        fb = self.frame_batch
+        f = frame0 + torch.arange(fb, device=padded.device)
+        starts = fragment_starts(f, self.fps, self.sample_rate)
+        idx = starts[:, None] + torch.arange(self.window, device=padded.device)[None, :]
+        frags = padded[:, idx.clamp(max=padded.shape[1] - 1)].reshape(b * fb, self.window)
+        feats = self.extractor(frags)
+        out = self.model(feats, one_hot, template, train=False)
+        return out.reshape(b, fb, -1, 3) / self.unit_scale
+
+    def prepare(self, group: Sequence[np.ndarray], one_hot: np.ndarray,
+                template: np.ndarray) -> tuple:
+        """One group's device inputs: the clips padded to their audio bucket
+        and the batch grid, uploaded once, plus the one-hot and scaled
+        template rows of ``forward_chunk``."""
+        b = len(group)
+        samples = _round_up(max(max(len(a) for a in group), self.bucket_samples),
+                            self.bucket_samples)
+        b_pad = _pad_batch(b, self.max_batch)
+        audio = np.zeros((b_pad, samples), np.float32)
+        for j, a in enumerate(group):
+            audio[j, : len(a)] = a
+        oh = np.zeros((b_pad, one_hot.shape[1]), np.float32)
+        tmpl = np.zeros((b_pad,) + template.shape[1:], np.float32)
+        oh[:b] = one_hot
+        tmpl[:b] = template
+        dev, fb = self.device, self.frame_batch
+        padded = F.pad(torch.as_tensor(audio, device=dev), (self.n_pad, self.window))
+        oh_rows = torch.as_tensor(oh, device=dev).repeat_interleave(fb, dim=0)
+        tmpl_rows = (torch.as_tensor(tmpl, device=dev) * self.unit_scale).repeat_interleave(fb, dim=0)
+        return padded, oh_rows, tmpl_rows
+
+    def warmup(self, max_seconds: float = 60.0, *, batches: Optional[Sequence[int]] = None) -> int:
+        """Run every (batch, bucket) shape once (``_warmup_predictor``).
+        Returns the number of warm calls."""
+        return _warmup_predictor(self, max_seconds, batches, self.sample_rate)
+
+    def __call__(
+        self,
+        audios: Sequence[np.ndarray],
+        one_hot: np.ndarray,
+        template: np.ndarray,
+        sample_rate: Optional[int] = None,
+    ) -> list[np.ndarray]:
+        """Decode a batch of clips to per-frame vertices.
+
+        audios: 1-D float waveforms (any lengths) at ``sample_rate`` (default:
+        the config's rate; other rates are resampled); one_hot: (N,
+        one_hot_size); template: (N, V, 3) or (V, 3) shared. Returns per-clip
+        (T_i, V, 3) vertex animations at 60 fps in data units."""
+        n = len(audios)
+        if one_hot.shape[0] != n:
+            raise ValueError(f"one_hot batch {one_hot.shape[0]} != {n} clips")
+        if template.ndim == 2:
+            template = np.broadcast_to(template[None], (n, *template.shape))
+        if sample_rate is not None:
+            audios = _resampled(audios, sample_rate, self.sample_rate, self.device)
+
+        results: list[Optional[np.ndarray]] = [None] * n
+        order = sorted(range(n), key=lambda i: len(audios[i]))
+        for lo in range(0, n, self.max_batch):
+            idx = order[lo : lo + self.max_batch]
+            group = [audios[i] for i in idx]
+            n_frames = [len(a) * self.fps // self.sample_rate for a in group]
+            for j, i in enumerate(idx):
+                results[i] = np.empty((n_frames[j], self.n_verts // 3, 3), np.float32)
+            inputs = self.prepare(group, one_hot[idx], template[idx].astype(np.float32))
+            for f0 in range(0, max(n_frames), self.frame_batch):
+                chunk = self.forward_chunk(*inputs, f0).cpu().numpy()
+                for j, i in enumerate(idx):
+                    m = min(n_frames[j], f0 + self.frame_batch) - f0
+                    if m > 0:
+                        results[i][f0 : f0 + m] = chunk[j, :m]
+        return results  # type: ignore[return-value]

@@ -1,11 +1,16 @@
 """Experiment runtime: training loop, checkpointing, early stopping.
 
-Port of ``audio2face_tpu/training/trainer.py`` for ``modelname ==
-"faceformer"`` on ``dataset == "vocaset"`` or ``"biwi"`` (the BIWI model:
-25 fps frames, period 25, trained through the differentiable step loop),
-with the same observable semantics:
+Port of ``audio2face_tpu/training/trainer.py`` for every model: FaceFormer
+on ``dataset == "vocaset"`` or ``"biwi"`` (the BIWI model: 25 fps frames,
+period 25, trained through the differentiable step loop) and the frame
+models (Audio2Mesh, VOCA, Song2Face), with the same observable semantics:
 
 - x100 vertex/template unit scaling before the model, /100 on predictions;
+- the frame models' feature extractor (MFCC or wav2vec2) runs inside the
+  step and its output is detached, as the reference detaches it;
+  BatchNorm runs in train mode and updates its running statistics (once
+  per microbatch under gradient accumulation), as flax does: with the
+  biased batch variance (``models/layers.py TorchBatchNorm``);
 - ``torch.optim.Adam(lr, weight_decay=lr/10)``: coupled decay, added to the
   gradient before the moment updates;
 - "err" metric = mean over items of the mean squared difference over the
@@ -18,13 +23,17 @@ with the same observable semantics:
   index under gradient accumulation) and every epoch's shuffle from
   ``(seed, epoch)``, so a resumed run replays an uninterrupted one.
 
-The experiment owns its state (model, optimizer, step count); the data
-module is duck-typed: ``train_batches(np_rng)`` and ``val_batches()`` yield
-dicts of numpy arrays ``audio`` (B, S), ``one_hot`` (B, n), ``verts``
-(B, T, V*3) or (B, T, V, 3), ``template_vert`` (B, V, 3) and, for padded
-batches, ``audio_lengths`` (B,). Runs on the GPU unless the caller passes
-``device="cpu"``. Not ported yet: ``evaluate``, loading reference
-checkpoints, tensorboard, profiler traces, meshes.
+The experiment owns its state (model with its BatchNorm statistics,
+optimizer, step count); the data module is duck-typed:
+``train_batches(np_rng)`` and ``val_batches()`` yield dicts of numpy arrays
+``audio`` (B, S), ``one_hot`` (B, n), ``verts`` (B, T, V*3) or (B, T, V, 3)
+(frame models: (B, V*3) or (B, V, 3), one frame an item), ``template_vert``
+(B, V, 3) and, for padded FaceFormer batches, ``audio_lengths`` (B,). Runs
+on the GPU unless the caller passes ``device="cpu"``. Checkpoints are the
+port's own ``torch.save`` files; ``load_torch_checkpoint`` takes a reference
+PyTorch/Lightning checkpoint. Not ported yet: ``evaluate``, tensorboard,
+profiler traces, meshes, and the JAX trainer's orbax checkpoints (orbax
+imports JAX).
 """
 
 from __future__ import annotations
@@ -90,7 +99,7 @@ class Audio2FaceExperiment:
         if tuple(config.mesh_shape) not in ((-1, 1), (1, 1)) or config.fsdp:
             raise NotImplementedError(
                 "the trainer takes one device: meshes and fsdp arrive with the "
-                "parallel modules (ROADMAP.md queue 1 item 12)"
+                "parallel modules (ROADMAP.md queue 1 item 4)"
             )
         if config.dataset not in ("vocaset", "biwi"):
             raise ValueError(f"unknown dataset {config.dataset!r}; available: vocaset, biwi")
@@ -109,12 +118,15 @@ class Audio2FaceExperiment:
         self.device = resolve_device(device, "Audio2FaceExperiment")
         self.use_kernels = use_kernels
         self.log_dir = log_dir or os.path.join("logs", config.name())
+        self.is_faceformer = config.modelname == "faceformer"
 
         model_cls = get_model(config.modelname)
         self.feature_extractor = get_extractor(config.feature_extractor)(
             sample_rate=config.sample_rate, n_feature=config.n_feature, out_dim=config.out_dim,
             win_length=config.win_length, hop_length=config.hop_length, n_fft=1024,
         )
+        if self.feature_extractor is not None:
+            self.feature_extractor = self.feature_extractor.to(self.device)
         self.model = model_cls(
             n_verts=config.vertex_count, n_onehot=config.one_hot_size,
             dtype=torch.bfloat16 if config.bf16_compute else None,
@@ -133,9 +145,12 @@ class Audio2FaceExperiment:
                     f"Unknown loss {config.loss!r}; available: {sorted(loss_map)}"
                 ) from None
         self.lr = config.lr
-        self.optimizer = torch.optim.Adam(
-            self.model.parameters(), lr=config.lr, weight_decay=config.lr / 10.0)
+        self.optimizer = self._new_optimizer()
         self.step = 0
+
+    def _new_optimizer(self) -> torch.optim.Adam:
+        return torch.optim.Adam(
+            self.model.parameters(), lr=self.config.lr, weight_decay=self.config.lr / 10.0)
 
     # ------------------------------------------------------------------
     # state
@@ -163,6 +178,26 @@ class Audio2FaceExperiment:
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
 
+    def load_torch_checkpoint(self, path: str) -> None:
+        """Swap in the weights (and BatchNorm statistics) of a reference
+        PyTorch/Lightning checkpoint, converted to the port's names, and
+        start the Adam state afresh; the step count stays. A FaceFormer
+        checkpoint is read for the config's dataset (BIWI carries the cross
+        q/k projections)."""
+        from audio2face_tpu_torch.compat.faceformer_convert import convert_faceformer
+        from audio2face_tpu_torch.compat.torch_convert import (
+            convert_state_dict,
+            load_torch_checkpoint,
+        )
+
+        sd = load_torch_checkpoint(path)
+        if self.is_faceformer:
+            state_dict = convert_faceformer(sd, dataset=self.config.dataset)
+        else:
+            state_dict = convert_state_dict(self.config.modelname, sd)
+        self.model.load_state_dict(state_dict)
+        self.optimizer = self._new_optimizer()
+
     # ------------------------------------------------------------------
     # step functions
     # ------------------------------------------------------------------
@@ -181,6 +216,10 @@ class Audio2FaceExperiment:
 
     def _apply(self, batch: dict, train: bool, generator=None):
         x, one_hot, verts, template, lengths = self._unpack(batch)
+        if not self.is_faceformer:
+            # the extractor's output comes detached (the reference detaches it)
+            feats = x if self.feature_extractor is None else self.feature_extractor(x)
+            return self.model(feats, one_hot, template, train=train), None, verts
         out = self.model(
             x, one_hot, template, lengths, train=train, generator=generator,
             use_kernels=self.use_kernels,
@@ -189,6 +228,8 @@ class Audio2FaceExperiment:
         return pred, frame_mask, verts
 
     def _compute_loss(self, pred, verts, frame_mask):
+        if not self.is_faceformer:
+            return self.loss_fn(pred, verts)
         gt = verts.reshape(pred.shape)
         if frame_mask is not None:
             return masked_faceformer_loss(pred, gt, frame_mask)
@@ -197,7 +238,7 @@ class Audio2FaceExperiment:
     def _train_loss(self, batch: dict, generator: torch.Generator):
         """(loss dict, err) of one microbatch in train mode."""
         n_verts = self.config.vertex_count // 3
-        if "audio_lengths" in batch:
+        if self.is_faceformer and "audio_lengths" in batch:
             # padded whole-clip training: decode to hidden states and run the
             # vertex head INSIDE the chunked loss; the (B, T, V, 3)
             # prediction never materializes, and its backward recomputes one

@@ -49,7 +49,25 @@ which raises (exit code != 0) on failure:
    launched, the inference-only kernels must not; the loss falls; then the
    gradients of an f32 model through the kernels are held against the plain
    versions;
-8. prints the ``{"kernels": [...]}`` line, then, last,
+9. the frame models and checkpoint I/O: (a) the default configuration
+   (``config.yaml``: Audio2Mesh, MFCC at 22 kHz, bf16, 15069-wide head)
+   through FramePredictor (``max_batch`` 8, ``frame_batch`` 128) on 8 x 60 s
+   of synthetic speech, wall time, frames/s and the request replayed with
+   the model call and the copy-out split, then the bf16 predictor against
+   its f32 run on 2 clips; (b) VOCA and Song2Face (``configs/``), 2 x 10 s
+   each, against their f32 runs; (c) Audio2Mesh with the wav2vec2
+   extractor, 2 x 10 s, which must launch the flash-attention kernel and
+   nothing else, and that kernel in f32 at the frame-window shape (B x 128,
+   12, 25, 64) against its plain version, timed beside its bound, its plain
+   version and SDPA; (d) two Audio2Mesh training steps on 128 fragments
+   (bf16), the BatchNorm running variance moving, a ``save_checkpoint``
+   loaded by ``FramePredictor.from_checkpoint`` equal to the trainer's
+   ``predict``; (e) FaceFormer trainer checkpoints (vocaset and BIWI) into
+   ``FaceFormerPredictor.from_checkpoint`` (dataset detected) giving the
+   same vertices as the predictor built from the same weights, through the
+   forward kernels;
+10. prints the ``{"kernels": [...]}`` line (each kernel's launches on the
+   serving, training, frame and checkpoint paths), then, last,
    ``{"ok": true, "device": {...}}``.
 
 Gradients are off process-wide (the inference phases build no autograd
@@ -202,20 +220,27 @@ def profiled_ms(torch, fn, calls: int, repeats: int = 5) -> tuple[list, list]:
     time of the kernels and memsets it launches over ``calls`` calls, divided
     by ``calls`` (host gaps between the launches are not in it), in
     ``repeats`` windows after a warm call; and the names of those kernels.
-    A window that lost device events (fewer than the most any window
-    recorded) is taken again, up to ``repeats`` more times."""
+    Each window starts and ends with a marker kernel (``torch.cuda._sleep``,
+    not counted): the profiler on the GPU machine has lost one device event
+    at a window's edge in most windows (K1's 60 events a window read 59 in
+    58 of 60 windows). A window that still lost device events (fewer than
+    the most any window recorded) is taken again, up to 12 x ``repeats``
+    windows in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     windows, names = [], set()
-    for _ in range(2 * repeats):
+    for _ in range(12 * repeats):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
             for _ in range(calls):
                 fn()
+            torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-        events = [e for e in prof.events() if getattr(e, "device_type", None) == DeviceType.CUDA]
+        events = [e for e in prof.events() if getattr(e, "device_type", None) == DeviceType.CUDA
+                  and "spin_kernel" not in e.name]
         windows.append((len(events), sum(e.time_range.elapsed_us() for e in events) / 1e3 / calls))
         names |= {e.name for e in events}
         full = max(n_ for n_, _ in windows)
@@ -223,7 +248,8 @@ def profiled_ms(torch, fn, calls: int, repeats: int = 5) -> tuple[list, list]:
             break
     full = max(n_ for n_, _ in windows)
     times = [t_ for n_, t_ in windows if n_ == full][:repeats]
-    require(full > 0 and len(times) == repeats, f"the profiler recorded {[n_ for n_, _ in windows]} device events")
+    require(full > 0 and len(times) == repeats,
+            f"the profiler recorded {[n_ for n_, _ in windows]} device events of {sorted(names)}")
     return times, sorted(names)
 
 
@@ -383,6 +409,294 @@ def attention_variant_checks(torch, attn_ops, randn) -> dict:
         require(all(err <= tol for err, tol in checks.values()) and finite and zero_ok,
                 f"K1/K4 {dtype} {(b, h, tq, tk, d)} {kw}: {checks}, finite {finite}, zero-length {zero_ok}")
     return {"cases": len(cases), "worst_err_over_tol": worst}
+
+
+# the bf16 frame predictors against their f32 runs on the same weights and
+# clips: the vertex offsets from the template are ~disp; bf16 activations
+# through ~10 convs and BatchNorms (no autoregressive feedback), so allow 5%
+# of them, the bf16 FaceFormer predictor's bar
+FRAME_BF16_SHARE = 0.05
+# K1 in f32 at the wav2vec2 extractor's frame-window shape against its plain
+# version (TF32 off): the largest |difference| over the largest |out| of its
+# row; tests/test_attention.py's f32 rtol
+K1_F32_ROW_TOL = 1e-4
+# a FramePredictor loaded from the trainer's checkpoint against the
+# trainer's predict on the same fragments, same bf16 weights: data units
+FRAME_CHECKPOINT_TOL = 1e-5
+
+
+def frame_request_split(torch, predictor, audios, one_hot, template) -> dict:
+    """The FramePredictor request replayed chunk by chunk with the device
+    synchronized between stages: upload and pad, the model call (window
+    gather, features, model) and the copy-out (device to host, then into
+    each clip's array)."""
+    n = len(audios)
+    template = np.broadcast_to(template[None], (n, *template.shape))
+    split = {"upload_s": 0.0, "model_s": 0.0, "copy_out_s": 0.0, "chunks": 0}
+    order = sorted(range(n), key=lambda i: len(audios[i]))
+    for lo in range(0, n, predictor.max_batch):
+        idx = order[lo : lo + predictor.max_batch]
+        group = [audios[i] for i in idx]
+        n_frames = [len(a) * predictor.fps // predictor.sample_rate for a in group]
+        results = [np.empty((f, predictor.n_verts // 3, 3), np.float32) for f in n_frames]
+        t0 = time.perf_counter()
+        inputs = predictor.prepare(group, one_hot[idx], template[idx].astype(np.float32))
+        torch.cuda.synchronize()
+        split["upload_s"] += time.perf_counter() - t0
+        for f0 in range(0, max(n_frames), predictor.frame_batch):
+            t0 = time.perf_counter()
+            out = predictor.forward_chunk(*inputs, f0)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            chunk = out.cpu().numpy()
+            for j in range(len(idx)):
+                m = min(n_frames[j], f0 + predictor.frame_batch) - f0
+                if m > 0:
+                    results[j][f0 : f0 + m] = chunk[j, :m]
+            split["model_s"] += t1 - t0
+            split["copy_out_s"] += time.perf_counter() - t1
+            split["chunks"] += 1
+    return split
+
+
+def frame_bf16_vs_f32(torch, cfg, predictor, audios, one_hot, template, label: str) -> dict:
+    """The bf16 predictor against an f32 one with the same weights."""
+    from audio2face_tpu_torch.serving import FramePredictor
+
+    f32 = FramePredictor(cfg.model_copy(update={"percision": "32"}), max_batch=8,
+                         state_dict=predictor.model.state_dict())
+    got = predictor(audios, one_hot, template)
+    want = f32(audios, one_hot, template)
+    l2 = max(float(np.linalg.norm(a - b, axis=-1).max()) for a, b in zip(got, want))
+    disp = max(float(np.abs(b - template).max()) for b in want)
+    tol = FRAME_BF16_SHARE * disp
+    check = {"check": f"{label}: bf16 predictor vs f32, {len(audios)} clips", "max_vertex_l2": l2,
+             "max_offset": disp, "tol": tol}
+    print(json.dumps(check), flush=True)
+    require(all(bool(np.isfinite(y).all()) for y in got), f"{label}: output not finite")
+    require(l2 <= tol, f"{label}: bf16 vs f32 max per-vertex L2 {l2} > {tol}")
+    return check
+
+
+def frame_model_phases(torch, rows, by_name, smi, pred, biwi_state, n_verts_biwi) -> None:
+    """9a-9e: the default frame configuration's request, VOCA and Song2Face,
+    the wav2vec2 extractor (K1 at the frame-window shape), two training
+    steps with a checkpoint into the predictor, and FaceFormer checkpoints
+    (vocaset and BIWI) into FaceFormerPredictor.from_checkpoint. Records
+    each kernel's launches on these paths in its row."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from audio2face_tpu_torch.config import ExpConfig
+    from audio2face_tpu_torch.data.synthetic import synthesize_speech_like
+    from audio2face_tpu_torch.ops import attention as attn_ops
+    from audio2face_tpu_torch.ops import dsp
+    from audio2face_tpu_torch.serving import FaceFormerPredictor, FramePredictor
+    from audio2face_tpu_torch.training.trainer import Audio2FaceExperiment
+
+    dev = torch.device("cuda")
+    for r in rows:
+        r["frame_launches"] = 0
+
+    def add_frame_launches():
+        for r in rows:
+            r["frame_launches"] += read_count(r)
+
+    # ---- 9a. the default configuration (config.yaml): Audio2Mesh, MFCC ----
+    cfg = ExpConfig.from_yaml("config.yaml")  # PyYAML or the flat reader
+    require(cfg.modelname == "audio2mesh" and cfg.feature_extractor == "mfcc" and cfg.bf16_compute
+            and (cfg.sample_rate, cfg.n_feature, cfg.out_dim, cfg.win_length) == (22000, 32, 52, 440),
+            f"config.yaml is not the default frame configuration: {cfg}")
+    sr, n_v = cfg.sample_rate, cfg.vertex_count
+    tic = time.perf_counter()
+    with ThreadPoolExecutor(8) as ex:
+        speech = list(ex.map(lambda s_: synthesize_speech_like(60.0, sr, seed=s_), range(8)))
+    print(f"8 x 60 s of synthetic speech: {time.perf_counter() - tic:.1f} s", flush=True)
+    rng = np.random.default_rng(7)
+    template = (rng.normal(size=(n_v // 3, 3)) * 0.1).astype(np.float32)
+    one_hot = np.eye(12, dtype=np.float32)[rng.integers(0, 12, 8)]
+    a2m = FramePredictor(cfg, max_batch=8, frame_batch=128, seed=0)
+    a2m([s_[:sr] for s_ in speech], one_hot, template)  # warm-up: the request's chunk shapes
+    torch.cuda.synchronize()
+    reset_counts(rows)
+    tic = time.perf_counter()
+    res = a2m(speech, one_hot, template)
+    wall = time.perf_counter() - tic
+    add_frame_launches()
+    frames = sum(y.shape[0] for y in res)
+    for a, y in zip(speech, res):
+        require(y.shape == (len(a) * 60 // sr, n_v // 3, 3) and bool(np.isfinite(y).all()),
+                f"frame request: shape {y.shape} or not finite")
+    require(frames == 28800, f"frame request: {frames} frames")
+    del res
+    split = frame_request_split(torch, a2m, speech, one_hot, template)
+    print(json.dumps({"frame_request": {
+        "model": "audio2mesh", "extractor": "mfcc", "clips": 8, "seconds_each": 60, "frames": frames,
+        "max_batch": 8, "frame_batch": 128, "wall_s": wall, "mesh_frames_per_s": frames / wall,
+        "realtime_factor": 8 * 60.0 / wall, "split_replayed": split,
+        "output_bytes": frames * n_v * 4, "card": smi,
+    }}), flush=True)
+    clips2 = [speech[0][: 10 * sr], speech[1][: int(7.5 * sr)]]
+    frame_bf16_vs_f32(torch, cfg, a2m, clips2, one_hot[:2], template, "audio2mesh mfcc")
+    del a2m, speech
+    torch.cuda.empty_cache()
+
+    # ---- 9b. VOCA and Song2Face (configs/), 2 clips x 10 s each ------------
+    clips10 = [synthesize_speech_like(10.0, sr, seed=10 + i) for i in range(2)]
+    for name in ("voca", "song2face"):
+        cfg_m = ExpConfig.from_yaml(f"configs/{name}.yaml")
+        require(cfg_m.modelname == name, f"configs/{name}.yaml names {cfg_m.modelname}")
+        model = FramePredictor(cfg_m, max_batch=8, frame_batch=128, seed=1)
+        model([c_[:sr] for c_ in clips10], one_hot[:2], template)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts(rows)
+        tic = time.perf_counter()
+        res = model(clips10, one_hot[:2], template)
+        wall = time.perf_counter() - tic
+        add_frame_launches()
+        require(all(y.shape == (600, n_v // 3, 3) for y in res), f"{name}: shapes {[y.shape for y in res]}")
+        print(json.dumps({f"{name}_request": {
+            "clips": 2, "seconds_each": 10, "frames": 1200, "wall_s": wall,
+            "mesh_frames_per_s": 1200 / wall, "card": smi}}), flush=True)
+        frame_bf16_vs_f32(torch, cfg_m, model, clips10, one_hot[:2], template, name)
+        del model
+    torch.cuda.empty_cache()
+
+    # ---- 9c. the wav2vec2 extractor: K1 in f32 at the frame-window shape -----
+    cfg_w = cfg.model_copy(update={"feature_extractor": "wav2vec"})
+    w2v = FramePredictor(cfg_w, max_batch=8, frame_batch=128, seed=2)
+    w2v([c_[:sr] for c_ in clips10], one_hot[:2], template)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts(rows)
+    tic = time.perf_counter()
+    res = w2v(clips10, one_hot[:2], template)
+    wall = time.perf_counter() - tic
+    k1 = by_name["flash_attention"]
+    k1_path = read_count(k1)
+    add_frame_launches()
+    require(all(y.shape == (600, n_v // 3, 3) and bool(np.isfinite(y).all()) for y in res),
+            "wav2vec frame request: shapes or values")
+    # 12 layers a chunk, 5 chunks of 2 x 128 frames
+    require(k1_path == 12 * 5, f"the wav2vec2 extractor launched K1 {k1_path} times")
+    require(all(read_count(r) == 0 for r in rows if r is not k1),
+            "the wav2vec2 frame path launched a kernel other than K1")
+    print(json.dumps({"wav2vec_frame_request": {
+        "clips": 2, "seconds_each": 10, "frames": 1200, "wall_s": wall,
+        "mesh_frames_per_s": 1200 / wall, "k1_launches": k1_path, "card": smi}}), flush=True)
+    frame_bf16_vs_f32(torch, cfg_w, w2v, clips10, one_hot[:2], template, "audio2mesh wav2vec")
+    del w2v, res
+    torch.cuda.empty_cache()
+    # the shape the path gives K1: (B * frame_batch, 12, T, 64), T = 25
+    # positions of one 0.52 s window resampled to 16 kHz (8,320 samples);
+    # the request above gave B = 2, a full batch of the grid gives 8
+    t_w = 25
+    g = torch.Generator().manual_seed(5)
+    frame_window = {}
+    for b in (2 * 128, 8 * 128):
+        q, k, v = ((torch.randn(b, 12, t_w, 64, generator=g)).to(dev) for _ in range(3))
+        out = attn_ops.flash_attention(q, k, v)
+        ref = attn_ops.mha_reference(q, k, v)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        rel = row_scaled_err(out, ref)
+        entry = {"shape": [b, 12, t_w, 64], "dtype": "float32", "max_abs_err": err,
+                 "max_err_over_row_max": rel, "tol_over_row_max": K1_F32_ROW_TOL}
+        require(rel <= K1_F32_ROW_TOL and bool(torch.isfinite(out).all()),
+                f"K1 f32 at {entry['shape']}: err {rel} of the row's largest |out| > {K1_F32_ROW_TOL}")
+        if b == 8 * 128:
+            entry["ms"] = cuda_ms(torch, lambda: attn_ops.flash_attention(q, k, v), 20)
+            entry["plain_ms"] = cuda_ms(torch, lambda: attn_ops.mha_reference(q, k, v), 10)
+            entry["library_ms"] = cuda_ms(
+                torch, lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 20)
+            flops = 4.0 * b * 12 * t_w * t_w * 64
+            nbytes = 4 * b * 12 * t_w * 64 * 4 + b * 12 * t_w * 4  # q, k, v read; out written; lse
+            entry["bound_ms"], entry["bound_by"] = bound(nbytes, flops / PEAK_F32_FLOPS)
+        frame_window[str(b)] = entry
+    print(json.dumps({"check": "flash_attention f32 at the frame-window shape", **frame_window}),
+          flush=True)
+    k1["frame_window_f32"] = frame_window
+    del q, k, v, out, ref
+
+    # ---- 9d. two Audio2Mesh training steps, checkpoint into the predictor --
+    # batch 128 fragments (config.yaml's batch_size), bf16: the 128 frames of
+    # one clip, gathered by the fragmenter
+    n_clip = -(-128 * sr // 60)
+    clip_t = torch.as_tensor(clips10[0][:n_clip], device=dev)
+    frags = dsp.batched_audio_fragments(clip_t, torch.arange(128, device=dev), sample_rate=sr)
+    motion = (rng.normal(size=(128, n_v)) * 0.002 + rng.normal(size=(1, n_v)) * 0.01).astype(np.float32)
+    batch = {
+        "audio": frags.cpu().numpy(),
+        "one_hot": np.broadcast_to(one_hot[3], (128, 12)).copy(),
+        "verts": motion + template.reshape(1, -1),
+        "template_vert": np.broadcast_to(template, (128, n_v // 3, 3)).copy(),
+    }
+    exp = Audio2FaceExperiment(cfg.model_copy(update={"lr": 1e-3}), log_dir="build/chip_smoke_logs/frame")
+    bn = exp.model.artic4_pre_bn.bn
+    var_before = bn.running_var.clone()
+    reset_counts(rows)
+    step_s, losses = [], []
+    with torch.enable_grad():
+        for _ in range(2):
+            tic = time.perf_counter()
+            metrics = exp.train_step(batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - tic)
+            losses.append(float(metrics["loss"]))
+    add_frame_launches()
+    require(all(math.isfinite(x) for x in losses), f"frame training losses {losses}")
+    require(all(read_count(r) == 0 for r in rows), "the MFCC frame-model step launched a kernel")
+    var_change = float((bn.running_var - var_before).abs().max())
+    require(var_change > 0, "BatchNorm running variance did not change in train mode")
+    path = exp.save_checkpoint(epoch=0)
+    want, _ = exp.predict(batch)
+    loaded = FramePredictor.from_checkpoint(path, cfg, max_batch=1, frame_batch=128)
+    got = loaded([clips10[0][:n_clip]], one_hot[3:4], template)[0]
+    diff = float(np.abs(got - want.cpu().numpy()).max())
+    require(got.shape == (128, n_v // 3, 3) and diff <= FRAME_CHECKPOINT_TOL,
+            f"FramePredictor.from_checkpoint vs the trainer's predict: {got.shape}, max |diff| {diff}")
+    print(json.dumps({"frame_training": {
+        "model": "audio2mesh", "batch": 128, "steps": 2, "step_wall_s": step_s, "losses": losses,
+        "artic4_pre_bn_running_var_max_change": var_change,
+        "checkpoint_vs_trainer_predict_max_abs": diff, "tol": FRAME_CHECKPOINT_TOL, "card": smi,
+    }}), flush=True)
+    del exp, loaded, batch, frags
+    torch.cuda.empty_cache()
+
+    # ---- 9e. FaceFormer checkpoints of the trainer into the predictor ------
+    for r in rows:
+        r["checkpoint_launches"] = 0
+    rng_e = np.random.default_rng(8)
+    audios16 = [(rng_e.normal(size=n_) * 0.1).astype(np.float32) for n_ in (160000, 120000)]
+    one_e = np.eye(12, dtype=np.float32)[[4, 8]]
+    for dataset, nv, direct in (("vocaset", pred.n_verts, pred), ("biwi", n_verts_biwi, None)):
+        state = pred.model.state_dict() if direct is not None else biwi_state
+        cfg_f = ExpConfig(batch_size=2, modelname="faceformer", one_hot_size=12, feature_extractor=None,
+                          sample_rate=16000, vertex_count=nv, split_frame=False, n_feature=32,
+                          out_dim=52, win_length=440, percision="16-mixed", dataset=dataset)
+        exp = Audio2FaceExperiment(cfg_f, log_dir=f"build/chip_smoke_logs/ckpt_{dataset}")
+        exp.model.load_state_dict(state)
+        path = exp.save_checkpoint(epoch=0)
+        del exp
+        if direct is None:
+            direct = FaceFormerPredictor(n_verts=nv, bf16=True, max_batch=8, dataset=dataset,
+                                         state_dict=state)
+        loaded = FaceFormerPredictor.from_checkpoint(path, n_verts=nv, bf16=True, max_batch=8)
+        require(loaded.dataset == dataset, f"from_checkpoint detected {loaded.dataset}, not {dataset}")
+        tmpl_e = (rng_e.normal(size=(nv // 3, 3)) * 0.1).astype(np.float32)
+        want = direct(audios16, one_e, tmpl_e)
+        reset_counts(rows)
+        got = loaded(audios16, one_e, tmpl_e)
+        for r in rows:
+            r["checkpoint_launches"] += read_count(r)
+        diff = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+        print(json.dumps({"check": f"FaceFormer {dataset} trainer checkpoint -> from_checkpoint",
+                          "max_abs_diff": diff, "frames": [y.shape[0] for y in got]}), flush=True)
+        require(diff == 0.0, f"{dataset}: the checkpoint-loaded predictor differs by {diff}")
+        del loaded, direct, got, want
+        torch.cuda.empty_cache()
+    for name in ("flash_attention", "fused_conv_encoder", "faceformer_decode_loop",
+                 "faceformer_decode_loop_biwi"):
+        require(by_name[name]["checkpoint_launches"] > 0,
+                f"{name} did not launch on the checkpoint-loaded predictors")
 
 
 def main() -> int:
@@ -1197,6 +1511,7 @@ def main() -> int:
         "loss": float(metrics["loss"]), "k1_launches": attn_ops.flash_attention.launches,
         "k4_launches": attn_ops.flash_attention_bwd.launches, "card": smi,
     }}), flush=True)
+    biwi_state = biwi.model.state_dict()  # for the checkpoint phase (9e)
     del exp, batch, tmpl, biwi
     torch.cuda.empty_cache()
 
@@ -1307,7 +1622,12 @@ def main() -> int:
     require(worst <= GRAD_LEAF_TOL, f"gradient of {worst_leaf} differs by {worst} of its largest value")
     del grads
 
-    # ---- 8. results -----------------------------------------------------
+    # ---- 9. the frame models and checkpoint I/O ------------------------------
+    frame_model_phases(torch, rows, by_name, smi, pred, biwi_state, n_verts_biwi)
+    del biwi_state
+    torch.cuda.empty_cache()
+
+    # ---- 10. results ----------------------------------------------------
     for r in rows:
         del r["wrapper"]
         r.pop("counter", None)

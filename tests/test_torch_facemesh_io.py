@@ -164,10 +164,58 @@ def test_infer_cli_on_the_cpu(tmp_path):
     verts = np.load(tmp_path / "out" / "clip_verts.npy")
     n16 = -(-8800 * 8 // 11)  # 0.4 s at 22 kHz, resampled to 16 kHz
     assert verts.shape == (n16 * 25 // 16000, 60, 3) and np.isfinite(verts).all()
-    for flag in (["--checkpoint", "x"], ["--torch-checkpoint", "x"], ["--streaming"], ["--config", "x"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-            infer.main(base + flag)
+    # --checkpoint, --torch-checkpoint and --config work now
+    # (test_infer_cli_frame_models_and_checkpoints); streaming is still to come
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 2"):
+        infer.main(base + ["--streaming"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if torch.cuda.is_available():
             raise RuntimeError("CUDA is not available (skipped: a GPU is present)")
         infer.main([a for a in base if a not in ("--device", "cpu")])
+
+
+def test_infer_cli_frame_models_and_checkpoints(tmp_path):
+    """--config serves a frame model; --checkpoint takes the port trainer's
+    checkpoint and --torch-checkpoint a reference Lightning one, whose
+    vertices equal the predictor's own on the same weights."""
+    from audio2face_tpu_torch.config import ExpConfig
+    from audio2face_tpu_torch.serving import FramePredictor
+    from audio2face_tpu_torch.training.trainer import Audio2FaceExperiment
+    from tests.torch_mirrors import TorchVoca
+
+    template = syn.generate_synthetic_face_obj(str(tmp_path / "face.obj"), 60)
+    wav = str(tmp_path / "clip.wav")
+    wavfile.write(wav, 22000, (syn.synthesize_speech_like(0.4, seed=2) * 32767).astype(np.int16))
+    out = tmp_path / "out"
+    base = ["--audio", wav, "--template", template, "--output", str(out), "--device", "cpu",
+            "--batch", "1"]
+    configs = {}
+    for name, extra in (("audio2mesh", ""), ("voca", "n_feature: 16\nout_dim: 29\nwin_length: 790\n")):
+        path = tmp_path / f"{name}.yaml"
+        path.write_text(f'modelname: "{name}"\nbatch_size: 2\nvertex_count: 180\none_hot_size: 12\n'
+                        f'split_frame: True\npercision: "32"\nlr: 1e-4\nfeature_extractor: "mfcc"\n'
+                        f'sample_rate: 22000\nn_feature: 32\nout_dim: 52\nwin_length: 440\n{extra}')
+        configs[name] = str(path)
+    infer.main(base + ["--config", configs["audio2mesh"]])
+    assert np.load(out / "clip_verts.npy").shape == (24, 60, 3)
+
+    exp = Audio2FaceExperiment(ExpConfig.from_yaml(configs["audio2mesh"]), log_dir=str(tmp_path / "run"),
+                               device="cpu")
+    ckpt = exp.save_checkpoint(epoch=0)
+    infer.main(base + ["--config", configs["audio2mesh"], "--checkpoint", ckpt])
+    clip = audio_io.read_wav(wav)[0]
+    mesh = facemesh.FaceMesh.load(template)
+    want = FramePredictor.from_checkpoint(ckpt, exp.config, max_batch=1, device="cpu")(
+        [clip], np.eye(12, dtype=np.float32)[[0]], np.asarray(mesh.verts, np.float32))[0]
+    np.testing.assert_array_equal(np.load(out / "clip_verts.npy"), want)
+
+    torch.manual_seed(0)
+    sd = {f"model.{k}": v for k, v in TorchVoca(180, 12).state_dict().items()}
+    torch.save({"state_dict": sd}, tmp_path / "voca.ckpt")
+    infer.main(base + ["--config", configs["voca"], "--torch-checkpoint", str(tmp_path / "voca.ckpt")])
+    verts = np.load(out / "clip_verts.npy")
+    assert verts.shape == (24, 60, 3) and np.isfinite(verts).all()
+    with pytest.raises(SystemExit, match="frame models"):
+        faceformer = tmp_path / "ff.yaml"
+        faceformer.write_text(open(configs["voca"]).read().replace('"voca"', '"faceformer"'))
+        infer.main(base + ["--config", str(faceformer)])

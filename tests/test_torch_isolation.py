@@ -124,3 +124,31 @@ def test_cpu_tensors_take_plain_versions():
     assert [w.launches for w in wrappers] == [0, 0, 0, 0, 0]
     assert faceformer_decode_loop.biwi_launches == 0
     assert not _build._libs
+
+
+def test_frame_entry_points_refuse_the_cpu_unless_asked():
+    """FramePredictor and the trainer on a frame model run on the GPU by
+    default and never fall back; asked for the CPU, the wav2vec2 extractor
+    sends its attention through the kernel wrapper's plain version."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from audio2face_tpu_torch.config import ExpConfig
+    from audio2face_tpu_torch.models.extractor import Wav2VecExtractor
+    from audio2face_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+    from audio2face_tpu_torch.ops import _build
+    from audio2face_tpu_torch.ops.attention import flash_attention
+    from audio2face_tpu_torch.serving import FramePredictor
+    from audio2face_tpu_torch.training.trainer import Audio2FaceExperiment
+
+    cfg = ExpConfig(batch_size=2, modelname="audio2mesh", one_hot_size=12, feature_extractor="mfcc",
+                    sample_rate=22000, vertex_count=30, split_frame=True, n_feature=32, out_dim=52,
+                    win_length=440)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FramePredictor(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Audio2FaceExperiment(cfg.model_copy(update={"modelname": "song2face"}))
+    assert FramePredictor(cfg, device="cpu").device.type == "cpu"
+    flash_attention.launches = 0
+    fe = Wav2VecExtractor(22000, 32, 52, config=Wav2Vec2Config(num_layers=1))
+    out = fe(torch.zeros(2, 11440))
+    assert out.shape == (2, 52, 32) and flash_attention.launches == 0 and not _build._libs

@@ -81,21 +81,30 @@ def test_precision_alias_overrides_and_type_checks():
 
 
 def test_from_yaml_without_pyyaml_raises_a_clear_error(tmp_path, monkeypatch):
+    """Without PyYAML the flat reader takes the repo's config files
+    (tests/test_torch_config.py); a file it cannot read raises, naming the
+    line."""
     monkeypatch.setitem(sys.modules, "yaml", None)
-    with pytest.raises(ImportError, match="PyYAML"):
-        ExpConfig.from_yaml(str(tmp_path / "config.yaml"))
+    path = tmp_path / "config.yaml"
+    path.write_text("modelname: voca\nmesh:\n  data: 2\n")
+    with pytest.raises(ValueError, match="line 3: not a flat"):
+        ExpConfig.from_yaml(str(path))
 
 
 def test_registry():
+    from audio2face_tpu_torch.models.audio2mesh import Audio2Mesh
+    from audio2face_tpu_torch.models.extractor import MFCCExtractor, Wav2VecExtractor
+    from audio2face_tpu_torch.models.song2face import Song2Face
+    from audio2face_tpu_torch.models.voca import Voca
+
     assert registry.get_model("faceformer") is FaceFormer
-    for name in ("voca", "audio2mesh", "song2face"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            registry.get_model(name)
+    for name, cls in (("voca", Voca), ("audio2mesh", Audio2Mesh), ("song2face", Song2Face)):
+        assert registry.get_model(name) is cls
     with pytest.raises(KeyError, match="Unknown model"):
         registry.get_model("af_model")
     assert registry.get_extractor(None)(sample_rate=16000) is None
-    with pytest.raises(NotImplementedError):
-        registry.get_extractor("mfcc")
+    assert registry.get_extractor("mfcc") is MFCCExtractor
+    assert registry.get_extractor("wav2vec") is Wav2VecExtractor
     with pytest.raises(KeyError, match="Unknown extractor"):
         registry.get_extractor("fbank")
     assert isinstance(registry.get_loss_fn("faceformer"), FaceFormerLoss)
