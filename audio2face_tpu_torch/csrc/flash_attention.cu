@@ -33,8 +33,15 @@
 // this tile's P V, so that its softmax runs while the tensor cores work. No
 // score or accumulator tile touches shared memory.
 //
-// f32 (flash_fwd_f32_kernel): CUDA-core FMAs through shared memory, so that
-// f32 results keep f32 accuracy (the gradient checks' path).
+// f32 (the wav2vec2 frame windows, f32 models and the gradient checks):
+// CUDA-core FMAs, so that f32 keeps f32 accuracy, on two paths chosen by
+// t_k: flash_fwd_f32_short_kernel for t_k <= 64 (persistent blocks, whole
+// slices' K/V by cp.async, a group of eight lanes two query rows, the rows'
+// scores in registers and a one-pass softmax) and flash_fwd_f32_tiled_kernel above
+// (register-tiled FFMA over a cp.async ring, ffma_tile.cuh). At the frame
+// window (B*H = 12,288, T = 25, D = 64) the call moves 315 MB for 2 GFLOP,
+// so it is bound by bytes; at long t_k by FMAs (67 TFLOP/s). See the f32
+// section below.
 //
 // Layout: q (BH, Tq, D), k and v (BH, Tk, D), o (BH, Tq, D) in the input
 // type, lse (BH, Tq) f32; all contiguous, bf16 bases 16-byte aligned.
@@ -43,6 +50,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ffma_tile.cuh"
 #include "flash_common.cuh"
 #include "wgmma.cuh"
 
@@ -278,155 +286,389 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   }
 }
 
-// ---- f32: CUDA-core FMAs through shared memory ----------------------------
+// ---- f32: register-tiled CUDA-core FMAs ------------------------------------
+//
+// Two paths behind launch_f32, chosen by t_k:
+//
+// t_k <= 64 (flash_fwd_f32_short_kernel; the wav2vec2 frame windows, T =
+// 25): persistent blocks (as many as fit the SMs) walk items (short_plan):
+// the query rows of one (batch*head) slice, 32 at most. An item's K and V
+// (contiguous spans of the kernel layout) arrive whole by 16-byte cp.async copies into
+// a two-stage ring: the next item's copies fly while the block computes
+// this one. A group of eight lanes (a quarter-warp, so each 16-byte load
+// phase reads 128 distinct bytes) owns R = 2 query rows, read from device
+// memory with 16-byte loads into registers, D / 8 values of each a lane;
+// each K row the group loads serves both rows. A lane's partial dot
+// products for eight keys are joined by a butterfly reduce-scatter (7
+// shuffles), after which lane g holds the scores of keys 8 c + g in
+// registers: the softmax is one pass over the whole row (row max and sum
+// by three shuffles), with no online rescaling, and the lse comes from the
+// same registers. In the value product each probability goes from its
+// lane to the group by a shuffle; O is accumulated in registers and
+// written with 16-byte stores. No score or probability touches shared
+// memory. Shared memory is two stages of 2 t_k x D f32 (25.6 KB at
+// T = 25, D = 64: seven blocks an SM). What bounds it: every 16-byte shared
+// load takes the SM's shared-memory pipe four cycles whatever its
+// broadcast, so loads per FMA set the floor, then the blocks resident to
+// keep the copies in flight.
+//
+// t_k > 64 (flash_fwd_f32_tiled_kernel): a block per (batch*head, 64 query
+// rows), 128 threads; Q resident, K/V tiles of 32 keys through a two-stage
+// cp.async ring with one block barrier a tile; S and O register-tiled
+// (ffma_tile.cuh: 4 x 4 scores and 4 x D/8 outputs a thread); row max by
+// shuffles among the eight threads of a row, row sums kept per thread and
+// joined once at the end, O rescaled in registers; P crosses shared memory
+// once a tile, warp-locally, as the value product's operand.
+//
+// Both keep the floor-division ALiBi bucket, the -1e30 mask, the 1e-30
+// clamp and the hash dropout of flash_common.cuh; exponents in log2 units
+// with the scale folded into one multiply.
 
-constexpr int BQ = 64;         // query rows per block (16 per warp)
-constexpr int NTHREADS = 128;  // 4 warps
+constexpr int SK_NT = 128;               // threads a short-path block
+constexpr int SK_G = 8;                  // lanes a row group: one quarter-warp
+constexpr int SK_GROUPS = SK_NT / SK_G;  // row groups a block
+constexpr int SK_MAX_TK = 64;            // longest key sequence of the short path
+constexpr int SK_R = 2;                  // query rows a group computes together
 
 template <int D>
-struct Layout {
-  static constexpr int TP = D + 1;   // q/k/v pitch (odd: conflict-free columns)
-  static constexpr int SP = BK + 4;  // score pitch
-  static constexpr int PP = BK + 1;  // probability pitch
-  static constexpr int OP = D + 4;   // accumulator pitch
-  static constexpr int Q = 0;
-  static constexpr int K = Q + align128(BQ * TP * sizeof(float));
-  static constexpr int V = K + align128(BK * TP * sizeof(float));
-  static constexpr int S = V + align128(BK * TP * sizeof(float));
-  static constexpr int P = S + align128(BQ * SP * sizeof(float));
-  static constexpr int O = P + align128(BQ * PP * sizeof(float));
-  static constexpr int BYTES = O + align128(BQ * OP * sizeof(float));
+struct ShortFwd {
+  static constexpr int R = SK_R;
+  static constexpr int NV = D / SK_G;          // values of a row a lane holds
+  static constexpr int VEC = NV >= 4 ? 4 : 2;  // ... in 16- or 8-byte chunks
+  static constexpr int NCH = NV / VEC;
 };
 
-// 64 rows [row0, row0 + 64) of a (T, D) slab into a pitched tile; rows past
-// `valid` are zero
-template <int D, int TP>
-__device__ void load_tile(float* dst, const float* src, int row0, int valid) {
-  static_assert(BQ == BK, "one tile height for q, k and v");
-  for (int idx = threadIdx.x; idx < BQ * D; idx += NTHREADS) {
-    int r = idx / D, c = idx % D;
-    int g = row0 + r;
-    dst[r * TP + c] = g < valid ? src[(size_t)g * D + c] : 0.f;
+// How the short path cuts a call into items: an item is up to SK_R x
+// SK_GROUPS query rows of one (batch*head) slice, so that every row group
+// of the block computes at most one group of rows an item; the item's K
+// and V are the slice's, one contiguous span each.
+struct ShortPlan {
+  int q_rows, n_qc, n_items, groups_per_slice, smem_bytes;
+};
+
+inline ShortPlan short_plan(int head_dim, int n_bh, int t_q, int t_k) {
+  ShortPlan p;
+  p.q_rows = t_q < SK_R * SK_GROUPS ? t_q : SK_R * SK_GROUPS;
+  p.n_qc = (t_q + p.q_rows - 1) / p.q_rows;
+  p.groups_per_slice = (p.q_rows + SK_R - 1) / SK_R;
+  p.n_items = n_bh * p.n_qc;
+  p.smem_bytes = 2 * 2 * t_k * head_dim * 4;  // two stages of K and V
+  return p;
+}
+
+// a lane's NV values of a row: VEC-float chunks g + 8 m, m < NCH, so that
+// the eight lanes of a group read 8 x VEC contiguous floats at a time
+template <int D>
+__device__ __forceinline__ void load_row_part(float (&dst)[ShortFwd<D>::NV], const float* row, int g) {
+  using S = ShortFwd<D>;
+#pragma unroll
+  for (int m = 0; m < S::NCH; ++m) {
+    const int at = S::VEC * (g + SK_G * m);
+    if constexpr (S::VEC == 4) {
+      const float4 t = *reinterpret_cast<const float4*>(row + at);
+      dst[4 * m] = t.x, dst[4 * m + 1] = t.y, dst[4 * m + 2] = t.z, dst[4 * m + 3] = t.w;
+    } else {
+      const float2 t = *reinterpret_cast<const float2*>(row + at);
+      dst[2 * m] = t.x, dst[2 * m + 1] = t.y;
+    }
   }
 }
 
-// S = Q K^T for the whole 64x64 tile
-template <int D, int TP, int SP>
-__device__ void scores(const float* Qs, const float* Ks, float* Ss) {
-  for (int idx = threadIdx.x; idx < BQ * BK; idx += NTHREADS) {
-    int r = idx / BK, c = idx % BK;
-    float s = 0.f;
-#pragma unroll 16
-    for (int d = 0; d < D; ++d) s = fmaf(Qs[r * TP + d], Ks[c * TP + d], s);
-    Ss[r * SP + c] = s;
-  }
+// v[u] is this lane's partial sum for key u of eight; returns the group's
+// full sum for key g (this lane's own key): a butterfly reduce-scatter,
+// 4 + 2 + 1 shuffles instead of 8 x 3
+__device__ __forceinline__ float reduce_scatter8(const float (&v)[8], int g, unsigned gmask) {
+  float w[4], x[2];
+  const bool b4 = g & 4, b2 = g & 2, b1 = g & 1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = (b4 ? v[i + 4] : v[i]) + __shfl_xor_sync(gmask, b4 ? v[i] : v[i + 4], 4);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    x[i] = (b2 ? w[i + 2] : w[i]) + __shfl_xor_sync(gmask, b2 ? w[i] : w[i + 2], 2);
+  return (b1 ? x[1] : x[0]) + __shfl_xor_sync(gmask, b1 ? x[0] : x[1], 1);
 }
 
-// O += P V for the whole tile
-template <int D, int TP, int PP, int OP>
-__device__ void accumulate_pv(const float* Ps, const float* Vs, float* Os) {
-  for (int idx = threadIdx.x; idx < BQ * D; idx += NTHREADS) {
-    int r = idx / D, d = idx % D;
-    float o = Os[r * OP + d];
-#pragma unroll 16
-    for (int c = 0; c < BK; ++c) o = fmaf(Ps[r * PP + c], Vs[c * TP + d], o);
-    Os[r * OP + d] = o;
+template <int D, int TKB>
+__global__ void __launch_bounds__(SK_NT)
+flash_fwd_f32_short_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
+                           float* __restrict__ lse, const int* __restrict__ kv_len,
+                           const float* __restrict__ slopes, int heads, int t_q, int t_k,
+                           int causal, int period, float sm_scale, const int* __restrict__ seed,
+                           uint32_t drop_thr, float keep_scale, ShortPlan plan) {
+  using S = ShortFwd<D>;
+  constexpr int R = S::R, NV = S::NV, NC = TKB / SK_G;  // NC: key chunks of eight
+  extern __shared__ __align__(128) unsigned char smem[];
+  const float* ring = reinterpret_cast<const float*>(smem);
+  const uint32_t s_ring = smem_u32(smem);
+  const int tid = threadIdx.x;
+  const int g = tid % SK_G, grp = tid / SK_G;
+  const int lane0 = (tid % 32) & ~(SK_G - 1);  // the group's first lane
+  const unsigned gmask = 0xffu << lane0;
+  const int q_rows = plan.q_rows, n_qc = plan.n_qc;
+  const int stage = 2 * t_k * D;  // floats: K, then V
+  const float c = sm_scale * LOG2E;
+  const uint32_t seed0 = drop_thr > 0 ? (uint32_t)seed[0] : 0u;
+  const float NEG_INF = __int_as_float(0xff800000);
+
+  // item it: query rows r0 .. r0 + nr - 1 of slice it / n_qc
+  auto load_item = [&](int it, int st) {
+    if (it < plan.n_items) {
+      const uint32_t dk = s_ring + st * stage * 4, dv = dk + t_k * D * 4;
+      const float* ks = k + (size_t)(it / n_qc) * t_k * D;
+      const float* vs = v + (size_t)(it / n_qc) * t_k * D;
+      for (int i = tid; i < t_k * D / 4; i += SK_NT) {
+        cp_async16(dk + 16 * i, ks + 4 * i, true);
+        cp_async16(dv + 16 * i, vs + 4 * i, true);
+      }
+    }
+    cp_async_commit();
+  };
+
+  int st = 0;
+  load_item(blockIdx.x, 0);
+  for (int it = blockIdx.x; it < plan.n_items; it += gridDim.x, st ^= 1) {
+    cp_async_wait<0>();
+    __syncthreads();  // this item's K/V are everyone's; the other stage is read by all
+    load_item(it + gridDim.x, st ^ 1);
+    const int bh = it / n_qc, r0 = it % n_qc * q_rows, nr = min(q_rows, t_q - r0);
+    // this group's rows rl0 .. rl0 + R - 1 of the item's nr
+    const int rl0 = grp * R;
+    if (grp >= plan.groups_per_slice || rl0 >= nr) continue;  // an idle group (whole groups only)
+    const int kvlen = kv_len[bh / heads];
+    const float slope2 = slopes[bh % heads] * LOG2E;
+    const float* Kb = ring + st * stage;
+    const float* Vb = Kb + t_k * D;
+    int row[R];
+    float qv[R][NV];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int rl = min(rl0 + r, nr - 1);  // rows past nr repeat the last; not written
+      row[r] = r0 + rl;
+      load_row_part<D>(qv[r], q + ((size_t)bh * t_q + row[r]) * D, g);
+    }
+
+    // scores of this lane's own keys 8 ch + g, in log2 units, masked
+    float s[R][NC], mx[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) mx[r] = MASK2;
+#pragma unroll
+    for (int ch = 0; ch < NC; ++ch) {
+      const int j = SK_G * ch + g;
+      if (SK_G * ch < t_k) {
+        float part[R][SK_G];
+#pragma unroll
+        for (int u = 0; u < SK_G; ++u) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) part[r][u] = 0.f;  // keys past t_k: masked below
+          if (SK_G * ch + u < t_k) {
+            float kr[NV];
+            load_row_part<D>(kr, Kb + (SK_G * ch + u) * D, g);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              float p0 = 0.f, p1 = 0.f;  // two partial sums: short chains
+#pragma unroll
+              for (int e = 0; e < NV; e += 2) {
+                p0 = fmaf(qv[r][e], kr[e], p0);
+                p1 = fmaf(qv[r][e + 1], kr[e + 1], p1);
+              }
+              part[r][u] = p0 + p1;
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float x = reduce_scatter8(part[r], g, gmask) * c;
+          if (period > 0) x -= slope2 * (float)floor_div(row[r] - j, period);
+          x = j >= t_k ? NEG_INF : (j < kvlen && (!causal || j <= row[r])) ? x : MASK2;
+          s[r][ch] = x;
+          mx[r] = fmaxf(mx[r], x);
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r) s[r][ch] = NEG_INF;
+      }
+    }
+    // one pass: the row max over the group, probabilities of the own keys
+    // (0 past t_k), their sum before dropout, then dropout
+    float l[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(gmask, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(gmask, mx[r], 2));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(gmask, mx[r], 4));
+      l[r] = 0.f;
+#pragma unroll
+      for (int ch = 0; ch < NC; ++ch) {
+        float p = fast_exp2(s[r][ch] - mx[r]);
+        l[r] += p;
+        if (drop_thr > 0) p *= dropout_keep(seed0, bh, row[r], SK_G * ch + g, drop_thr, keep_scale);
+        s[r][ch] = p;
+      }
+    }
+    // O += p_j v_j: each key's probability from the lane that owns it
+    float acc[R][NV];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int e = 0; e < NV; ++e) acc[r][e] = 0.f;
+#pragma unroll
+    for (int ch = 0; ch < NC; ++ch) {
+      if (SK_G * ch < t_k) {
+#pragma unroll
+        for (int u = 0; u < SK_G; ++u) {
+          if (SK_G * ch + u < t_k) {
+            float vr[NV];
+            load_row_part<D>(vr, Vb + (SK_G * ch + u) * D, g);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              const float p = __shfl_sync(gmask, s[r][ch], lane0 + u);
+#pragma unroll
+              for (int e = 0; e < NV; ++e) acc[r][e] = fmaf(p, vr[e], acc[r][e]);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float lr = l[r];
+      lr += __shfl_xor_sync(gmask, lr, 1);
+      lr += __shfl_xor_sync(gmask, lr, 2);
+      lr += __shfl_xor_sync(gmask, lr, 4);
+      if (rl0 + r >= nr) continue;
+      lr = fmaxf(lr, 1e-30f);
+      const float inv = 1.f / lr;
+      float* orow = o + ((size_t)bh * t_q + row[r]) * D;
+#pragma unroll
+      for (int m = 0; m < S::NCH; ++m) {
+        const int at = S::VEC * (g + SK_G * m);
+        if constexpr (S::VEC == 4) {
+          *reinterpret_cast<float4*>(orow + at) =
+              make_float4(acc[r][4 * m] * inv, acc[r][4 * m + 1] * inv, acc[r][4 * m + 2] * inv,
+                          acc[r][4 * m + 3] * inv);
+        } else {
+          *reinterpret_cast<float2*>(orow + at) = make_float2(acc[r][2 * m] * inv, acc[r][2 * m + 1] * inv);
+        }
+      }
+      if (g == 0) lse[(size_t)bh * t_q + row[r]] = mx[r] * LN2 + logf(lr);
+    }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, const int* __restrict__ kv_len,
-                     const float* __restrict__ slopes, int heads, int t_q, int t_k,
-                     int causal, int period, float sm_scale,
-                     const int* __restrict__ seed, uint32_t drop_thr, float keep_scale) {
-  using L = Layout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem + L::Q);
-  float* Ks = reinterpret_cast<float*>(smem + L::K);
-  float* Vs = reinterpret_cast<float*>(smem + L::V);
-  float* Ss = reinterpret_cast<float*>(smem + L::S);
-  float* Ps = reinterpret_cast<float*>(smem + L::P);
-  float* Os = reinterpret_cast<float*>(smem + L::O);
+struct TiledFwd {
+  using T = FTile<D>;
+  static constexpr int STAGE = 2 * T::WALKED_BYTES;  // K then V
+  static constexpr int BYTES = T::OWNED_BYTES + 2 * STAGE + T::X_BYTES;
+};
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
+template <int D>
+__global__ void __launch_bounds__(FT_NT)
+flash_fwd_f32_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
+                           float* __restrict__ lse, const int* __restrict__ kv_len,
+                           const float* __restrict__ slopes, int heads, int t_q, int t_k,
+                           int causal, int period, float sm_scale, const int* __restrict__ seed,
+                           uint32_t drop_thr, float keep_scale) {
+  using T = FTile<D>;
+  using C = TiledFwd<D>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const float* Qs = reinterpret_cast<const float*>(smem);
+  float* Xs = reinterpret_cast<float*>(smem + T::OWNED_BYTES + 2 * C::STAGE);
+  const uint32_t s_q = smem_u32(smem), s_ring = s_q + T::OWNED_BYTES;
+  const int tid = threadIdx.x;
+  const FMap mp;
+  const int bh = blockIdx.y, q0 = blockIdx.x * FT_ROWS;
   const int kvlen = kv_len[bh / heads];
-  const float slope = slopes[bh % heads];
+  const float c = sm_scale * LOG2E, slope2 = slopes[bh % heads] * LOG2E;
   const uint32_t seed0 = drop_thr > 0 ? (uint32_t)seed[0] : 0u;
-  const float* qb = q + (size_t)bh * t_q * D;
   const float* kb = k + (size_t)bh * t_k * D;
   const float* vb = v + (size_t)bh * t_k * D;
 
-  // each row is owned by a lane pair of the warp that computes it; lane
-  // parity picks which half of the 64 columns (and of D) it handles
-  const int lane = threadIdx.x % 32;
-  const int r = 16 * (threadIdx.x / 32) + lane / 2;
-  const int half = lane % 2;
-  const int row = q0 + r;
-  float m_run = MASK_VALUE, l_run = 0.f;
+  // the last key tile the KV length and causality can reach
+  int last = max(kvlen - 1, 0) / FT_COLS;
+  last = min(last, (t_k + FT_COLS - 1) / FT_COLS - 1);
+  if (causal) last = min(last, (q0 + FT_ROWS - 1) / FT_COLS);
 
-  load_tile<D, L::TP>(Qs, qb, q0, t_q);
-  for (int idx = threadIdx.x; idx < BQ * L::OP; idx += NTHREADS) Os[idx] = 0.f;
+  auto load_kv = [&](int kt) {  // tile kt into its stage, if there is one
+    if (kt <= last) {
+      const uint32_t stage = s_ring + (kt % 2) * C::STAGE;
+      ft_load_async<D, FT_COLS>(stage, kb, kt * FT_COLS, t_k, tid);
+      ft_load_async<D, FT_COLS>(stage + T::WALKED_BYTES, vb, kt * FT_COLS, t_k, tid);
+    }
+    cp_async_commit();
+  };
+  ft_load_async<D, FT_ROWS>(s_q, q + (size_t)bh * t_q * D, q0, t_q, tid);
+  load_kv(0);
 
-  int last = (max(kvlen - 1, 0)) / BK;
-  last = min(last, (t_k + BK - 1) / BK - 1);
-  if (causal) last = min(last, (q0 + BQ - 1) / BK);
+  float m_run[4], l_run[4], acc[4][T::NV];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_run[i] = MASK2;
+    l_run[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < T::NV; ++e) acc[i][e] = 0.f;
+  }
 
   for (int kt = 0; kt <= last; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // previous tile's K/V/P reads are done
-    load_tile<D, L::TP>(Ks, kb, k0, t_k);
-    load_tile<D, L::TP>(Vs, vb, k0, t_k);
-    __syncthreads();
-    scores<D, L::TP, L::SP>(Qs, Ks, Ss);
-    __syncthreads();
-
-    // online-softmax update of this row's half
-    float s[BK / 2];
-    float m_cur = MASK_VALUE;
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt is everyone's; the other stage (tile kt - 1) is read by all
+    load_kv(kt + 1);
+    const float* Ks = reinterpret_cast<const float*>(smem + T::OWNED_BYTES + (kt % 2) * C::STAGE);
+    const float* Vs = Ks + T::WALKED_BYTES / 4;
+    const int k0 = kt * FT_COLS;
+    float s[4][4];
+    ft_scores<D>(Qs, Ks, mp, s);
 #pragma unroll
-    for (int i = 0; i < BK / 2; ++i) {
-      const int c = half * (BK / 2) + i;
-      const int col = k0 + c;
-      float x = Ss[r * L::SP + c] * sm_scale;
-      if (period > 0) x -= slope * (float)floor_div(row - col, period);
-      bool ok = col < kvlen && (!causal || col <= row);
-      x = ok ? x : MASK_VALUE;
-      s[i] = x;
-      m_cur = fmaxf(m_cur, x);
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + mp.row(i);
+      float mx = MASK2;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + mp.col(j);
+        float x = s[i][j] * c;
+        if (period > 0) x -= slope2 * (float)floor_div(row - col, period);
+        x = (col < kvlen && (!causal || col <= row)) ? x : MASK2;
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m_run[i], mx);
+      const float alpha = fast_exp2(m_run[i] - m_new);
+      m_run[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float p = fast_exp2(s[i][j] - m_new);
+        sum += p;
+        if (drop_thr > 0) p *= dropout_keep(seed0, bh, row, k0 + mp.col(j), drop_thr, keep_scale);
+        s[i][j] = p;
+      }
+      l_run[i] = alpha * l_run[i] + sum;  // this thread's share of the row sum
+#pragma unroll
+      for (int e = 0; e < T::NV; ++e) acc[i][e] *= alpha;
     }
-    m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, 1));
-    const float m_new = fmaxf(m_run, m_cur);
-    const float alpha = expf(m_run - m_new);
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < BK / 2; ++i) {
-      float p = expf(s[i] - m_new);
-      sum += p;
-      if (drop_thr > 0)
-        p *= dropout_keep(seed0, bh, row, k0 + half * (BK / 2) + i, drop_thr, keep_scale);
-      Ps[r * L::PP + half * (BK / 2) + i] = p;
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l_run = alpha * l_run + sum;
-    m_run = m_new;
-#pragma unroll
-    for (int d = 0; d < D / 2; ++d) Os[r * L::OP + half * (D / 2) + d] *= alpha;
-    __syncthreads();
-    accumulate_pv<D, L::TP, L::PP, L::OP>(Ps, Vs, Os);
+    __syncwarp();  // the warp's reads of the last tile's P are done
+    ft_store_x(Xs, mp, s);
+    __syncwarp();
+    ft_accumulate<D>(Xs, Vs, mp, acc);
   }
-  __syncthreads();
 
-  if (row < t_q) {
-    const float l = fmaxf(l_run, 1e-30f);
-    const float inv = 1.f / l;
-    float* ob = o + ((size_t)bh * t_q + row) * D + half * (D / 2);
 #pragma unroll
-    for (int d = 0; d < D / 2; ++d) ob[d] = Os[r * L::OP + half * (D / 2) + d] * inv;
-    if (half == 0) lse[(size_t)bh * t_q + row] = m_run + logf(l);
+  for (int i = 0; i < 4; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l += __shfl_xor_sync(0xffffffffu, l, 4);
+    const int row = q0 + mp.row(i);
+    if (row >= t_q) continue;
+    l = fmaxf(l, 1e-30f);
+    ft_store_row<D>(o + ((size_t)bh * t_q + row) * D, mp, acc[i], 1.f / l);
+    if (mp.cg == 0) lse[(size_t)bh * t_q + row] = m_run[i] * LN2 + logf(l);
   }
 }
 
@@ -459,18 +701,76 @@ cudaError_t launch_bf16(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_f32(const Args& a) {
-  constexpr int bytes = Layout<D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// The f32 launch plan of one call: the path (1 short, 0 tiled), shared
+// memory a block, resident blocks per SM, blocks launched, and query rows a
+// block computes at once (an item of the short path, a tile of the tiled).
+struct F32Plan {
+  int path, smem_bytes, blocks_per_sm, grid, query_rows;
+};
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 0;
+  }
+  return sms;
+}
+
+template <int D, int TKB>
+cudaError_t launch_f32_short(const Args& a, F32Plan* plan) {
+  auto kern = flash_fwd_f32_short_kernel<D, TKB>;
+  const ShortPlan sp = short_plan(D, a.bh, a.t_q, a.t_k);
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sp.smem_bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.t_q + BQ - 1) / BQ, a.bh);
-  flash_fwd_f32_kernel<D><<<grid, NTHREADS, bytes, a.stream>>>(
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, SK_NT, sp.smem_bytes);
+  if (err != cudaSuccess) return err;
+  const int sms = sm_count();
+  if (per_sm < 1 || sms < 1) return cudaErrorInvalidConfiguration;
+  const int grid = sp.n_items < per_sm * sms ? sp.n_items : per_sm * sms;  // persistent blocks
+  if (plan != nullptr) {
+    *plan = {1, sp.smem_bytes, per_sm, grid, sp.q_rows};
+    return cudaSuccess;
+  }
+  kern<<<grid, SK_NT, sp.smem_bytes, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.kv_len, a.slopes,
+      a.heads, a.t_q, a.t_k, a.causal, a.period, a.sm_scale, a.seed, a.drop_thr, a.keep_scale,
+      sp);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32_tiled(const Args& a, F32Plan* plan) {
+  constexpr int bytes = TiledFwd<D>::BYTES;
+  auto kern = flash_fwd_f32_tiled_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.t_q + FT_ROWS - 1) / FT_ROWS, a.bh);
+  if (plan != nullptr) {
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, FT_NT, bytes);
+    *plan = {0, bytes, per_sm, (int)(grid.x * grid.y), FT_ROWS};
+    return err;
+  }
+  kern<<<grid, FT_NT, bytes, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.kv_len, a.slopes,
       a.heads, a.t_q, a.t_k, a.causal, a.period, a.sm_scale, a.seed, a.drop_thr, a.keep_scale);
   return cudaGetLastError();
+}
+
+// f32: the short path for t_k <= 64, the tiled one above; with `plan`, the
+// plan is filled and nothing is launched
+template <int D>
+cudaError_t launch_f32(const Args& a, F32Plan* plan = nullptr) {
+  if (a.t_k <= 32) return launch_f32_short<D, 32>(a, plan);
+  if (a.t_k <= SK_MAX_TK) return launch_f32_short<D, SK_MAX_TK>(a, plan);
+  return launch_f32_tiled<D>(a, plan);
 }
 
 template <int D>
@@ -501,6 +801,33 @@ extern "C" int a2f_flash_attention_fwd_occupancy(int head_dim, int* info) {
     case 128: return occupancy<128>(info);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The f32 launch plan of a call at (head_dim, batch*heads, t_q, t_k),
+// launching nothing: info[0] the path (1: short keys, t_k <= 64; 0: tiled),
+// info[1] shared memory a block (bytes), info[2] resident blocks per SM,
+// info[3] blocks launched, info[4] query rows a block computes at once.
+extern "C" int a2f_flash_attention_fwd_f32_plan(int head_dim, int batch_heads, int t_q, int t_k,
+                                                int* info) {
+  Args a{};
+  a.bh = batch_heads;
+  a.t_q = t_q;
+  a.t_k = t_k;
+  F32Plan p{};
+  cudaError_t err;
+  switch (head_dim) {
+    case 16: err = launch_f32<16>(a, &p); break;
+    case 32: err = launch_f32<32>(a, &p); break;
+    case 64: err = launch_f32<64>(a, &p); break;
+    case 128: err = launch_f32<128>(a, &p); break;
+    default: return cudaErrorInvalidValue;
+  }
+  info[0] = p.path;
+  info[1] = p.smem_bytes;
+  info[2] = p.blocks_per_sm;
+  info[3] = p.grid;
+  info[4] = p.query_rows;
+  return err;
 }
 
 // head_dim must be 16, 32, 64 or 128; period 0 = no bias.

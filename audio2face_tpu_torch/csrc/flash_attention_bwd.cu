@@ -39,8 +39,14 @@
 // accumulating ones, as the forward does, was tried: at the training shape
 // it was no faster and took 40 more registers.)
 //
-// f32 (flash_bwd_*_f32_kernel): CUDA-core FMAs through shared memory, so
-// that f32 gradients keep f32 accuracy (the gradient checks' path).
+// f32 (flash_bwd_*_f32_kernel; f32 training and the gradient checks):
+// CUDA-core FMAs, so that f32 gradients keep f32 accuracy, register-tiled
+// over a cp.async ring (ffma_tile.cuh): 64 owned rows a block, walked tiles
+// of 32 rows, S and dP as 4 x 4 micro-tiles a thread, the accumulators in
+// registers, (m P) and dS through shared memory once a tile. At the f32
+// training shape the five products (<= 22 GFLOP) bound it by FMAs, not by
+// its 118 MB. There is no short-key path: no path takes the gradient of the
+// frame windows (the wav2vec2 extractor is detached).
 //
 // Layout: q, O, dO, dq (BH, Tq, D); k, v, dk, dv (BH, Tk, D) in the input
 // type; lse, delta (BH, Tq) f32; all contiguous, bf16 bases 16-byte aligned.
@@ -49,6 +55,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ffma_tile.cuh"
 #include "flash_common.cuh"
 #include "wgmma.cuh"
 
@@ -388,181 +395,33 @@ flash_bwd_dkdv_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bflo
   }
 }
 
-// ---- f32: CUDA-core FMAs through shared memory ----------------------------
-
-// Shared-memory map of one block. NQ query rows by NK key columns per score
-// tile; the dk/dv kernel keeps P and two accumulators, the dq kernel one.
-template <int D, int NQ, int NK, bool DKDV>
-struct Layout {
-  static constexpr int TP = D + 1;   // q/k/v/dO pitch (odd: conflict-free columns)
-  static constexpr int SP = NK + 4;  // score and dP pitch
-  static constexpr int PP = NK + 1;  // P and dS pitch
-  static constexpr int OP = D + 4;   // accumulator pitch
-  static constexpr int Q = 0;
-  static constexpr int DO = Q + align128(NQ * TP * sizeof(float));
-  static constexpr int K = DO + align128(NQ * TP * sizeof(float));
-  static constexpr int V = K + align128(NK * TP * sizeof(float));
-  static constexpr int S = V + align128(NK * TP * sizeof(float));
-  static constexpr int DP = S + align128(NQ * SP * sizeof(float));
-  static constexpr int DS = DP + align128(NQ * SP * sizeof(float));
-  static constexpr int P = DS + align128(NQ * PP * sizeof(float));
-  static constexpr int LSE = P + (DKDV ? align128(NQ * PP * sizeof(float)) : 0);
-  static constexpr int DELTA = LSE + align128(NQ * sizeof(float));
-  static constexpr int ACC0 = DELTA + align128(NQ * sizeof(float));
-  static constexpr int ACC1 = ACC0 + align128(BT * OP * sizeof(float));
-  static constexpr int BYTES = ACC1 + (DKDV ? align128(BT * OP * sizeof(float)) : 0);
-};
-
-// ROWS rows [row0, row0 + ROWS) of a (T, D) slab into a pitched tile; rows
-// past `valid` are zero
-template <int D, int TP, int ROWS>
-__device__ void load_tile(float* dst, const float* src, int row0, int valid) {
-  for (int idx = threadIdx.x; idx < ROWS * D; idx += NTHREADS) {
-    int r = idx / D, c = idx % D;
-    int g = row0 + r;
-    dst[r * TP + c] = g < valid ? src[(size_t)g * D + c] : 0.f;
-  }
-}
-
-// ROWS per-row scalars (lse, delta); rows past `valid` are zero
-template <int ROWS>
-__device__ void load_rows(float* dst, const float* src, int row0, int valid) {
-  for (int i = threadIdx.x; i < ROWS; i += NTHREADS) dst[i] = row0 + i < valid ? src[row0 + i] : 0.f;
-}
-
-// out[NQ x NK] = A[NQ x D] B[NK x D]^T: the scores q k^T and dP = dO v^T
-template <int D, int NQ, int NK, int TP, int SP>
-__device__ void abt_product(const float* As, const float* Bs, float* out) {
-  for (int idx = threadIdx.x; idx < NQ * NK; idx += NTHREADS) {
-    int r = idx / NK, c = idx % NK;
-    float s = 0.f;
-#pragma unroll 16
-    for (int d = 0; d < D; ++d) s = fmaf(As[r * TP + d], Bs[c * TP + d], s);
-    out[r * SP + c] = s;
-  }
-}
-
-// acc[NK x D] += A[NQ x NK]^T B[NQ x D]: dv += (m p)^T dO and dk += ds^T q
-template <int D, int NQ, int NK, int PP, int TP, int OP>
-__device__ void atb_accumulate(const float* As, const float* Bs, float* acc_s) {
-  for (int idx = threadIdx.x; idx < NK * D; idx += NTHREADS) {
-    int c = idx / D, d = idx % D;
-    float o = acc_s[c * OP + d];
-#pragma unroll 16
-    for (int r = 0; r < NQ; ++r) o = fmaf(As[r * PP + c], Bs[r * TP + d], o);
-    acc_s[c * OP + d] = o;
-  }
-}
-
-// acc[NQ x D] += A[NQ x NK] B[NK x D]: dq += ds k
-template <int D, int NQ, int NK, int PP, int TP, int OP>
-__device__ void ab_accumulate(const float* As, const float* Bs, float* acc_s) {
-  for (int idx = threadIdx.x; idx < NQ * D; idx += NTHREADS) {
-    int r = idx / D, d = idx % D;
-    float o = acc_s[r * OP + d];
-#pragma unroll 16
-    for (int c = 0; c < NK; ++c) o = fmaf(As[r * PP + c], Bs[c * TP + d], o);
-    acc_s[r * OP + d] = o;
-  }
-}
-
-// From the score tile and dP = dO v^T: P' = m p (only when Ps is given) and
-// dS = p (m dP - delta) scale. p is zeroed by the mask (see position_grad).
-template <int NQ, int NK, int SP, int PP>
-__device__ void probabilities_and_ds(const float* Ss, const float* dPs, float* Ps, float* dSs,
-                                     const float* lse_s, const float* delta_s,
-                                     int q0, int k0, const TileParams& tp) {
-  for (int idx = threadIdx.x; idx < NQ * NK; idx += NTHREADS) {
-    const int r = idx / NK, c = idx % NK;
-    const int row = q0 + r, col = k0 + c;
-    float x = Ss[r * SP + c] * tp.sm_scale;
-    if (tp.period > 0) x -= tp.slope * (float)floor_div(row - col, tp.period);
-    const bool ok = row < tp.t_q && col < tp.kvlen && (!tp.causal || col <= row);
-    const float p = ok ? expf(x - lse_s[r]) : 0.f;
-    float m = 1.f;
-    if (tp.drop_thr > 0) m = dropout_keep(tp.seed, tp.bh, row, col, tp.drop_thr, tp.keep_scale);
-    const float ds = p * (dPs[r * SP + c] * m - delta_s[r]) * tp.sm_scale;
-    if (Ps != nullptr) Ps[r * PP + c] = p * m;
-    dSs[r * PP + c] = ds;
-  }
-}
-
-template <int D, int NQ>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, const float* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          float* __restrict__ dk, float* __restrict__ dv,
-                          const int* __restrict__ kv_len, const float* __restrict__ slopes,
-                          int heads, int t_q, int t_k, int causal, int period,
-                          float sm_scale, const int* __restrict__ seed, uint32_t drop_thr,
-                          float keep_scale) {
-  using L = Layout<D, NQ, BT, true>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem + L::Q);
-  float* dOs = reinterpret_cast<float*>(smem + L::DO);
-  float* Ks = reinterpret_cast<float*>(smem + L::K);
-  float* Vs = reinterpret_cast<float*>(smem + L::V);
-  float* Ss = reinterpret_cast<float*>(smem + L::S);
-  float* dPs = reinterpret_cast<float*>(smem + L::DP);
-  float* dSs = reinterpret_cast<float*>(smem + L::DS);
-  float* Ps = reinterpret_cast<float*>(smem + L::P);
-  float* lse_s = reinterpret_cast<float*>(smem + L::LSE);
-  float* delta_s = reinterpret_cast<float*>(smem + L::DELTA);
-  float* dKs = reinterpret_cast<float*>(smem + L::ACC0);
-  float* dVs = reinterpret_cast<float*>(smem + L::ACC1);
-
-  const TileParams tp =
-      tile_params(kv_len, slopes, heads, t_q, causal, period, sm_scale, seed, drop_thr, keep_scale);
-  const int bh = tp.bh;
-  const int k0 = blockIdx.x * BT;
-  const float* qb = q + (size_t)bh * t_q * D;
-  const float* dob = dout + (size_t)bh * t_q * D;
-  const float* lseb = lse + (size_t)bh * t_q;
-  const float* deltab = delta + (size_t)bh * t_q;
-
-  for (int idx = threadIdx.x; idx < BT * L::OP; idx += NTHREADS) {
-    dKs[idx] = 0.f;
-    dVs[idx] = 0.f;
-  }
-  // keys at or past the KV length are masked everywhere: their dk, dv stay 0
-  if (k0 < tp.kvlen) {
-    load_tile<D, L::TP, BT>(Ks, k + (size_t)bh * t_k * D, k0, t_k);
-    load_tile<D, L::TP, BT>(Vs, v + (size_t)bh * t_k * D, k0, t_k);
-    const int n_q_tiles = (t_q + NQ - 1) / NQ;
-    // under causality, q tiles wholly above this k tile contribute nothing
-    for (int iq = causal ? k0 / NQ : 0; iq < n_q_tiles; ++iq) {
-      const int q0 = iq * NQ;
-      __syncthreads();  // the previous tile's products are done
-      load_tile<D, L::TP, NQ>(Qs, qb, q0, t_q);
-      load_tile<D, L::TP, NQ>(dOs, dob, q0, t_q);
-      load_rows<NQ>(lse_s, lseb, q0, t_q);
-      load_rows<NQ>(delta_s, deltab, q0, t_q);
-      __syncthreads();
-      abt_product<D, NQ, BT, L::TP, L::SP>(Qs, Ks, Ss);
-      abt_product<D, NQ, BT, L::TP, L::SP>(dOs, Vs, dPs);
-      __syncthreads();
-      probabilities_and_ds<NQ, BT, L::SP, L::PP>(Ss, dPs, Ps, dSs, lse_s, delta_s, q0, k0, tp);
-      __syncthreads();
-      atb_accumulate<D, NQ, BT, L::PP, L::TP, L::OP>(Ps, dOs, dVs);
-      atb_accumulate<D, NQ, BT, L::PP, L::TP, L::OP>(dSs, Qs, dKs);
-    }
-  }
-  __syncthreads();
-
-  float* dkb = dk + (size_t)bh * t_k * D;
-  float* dvb = dv + (size_t)bh * t_k * D;
-  for (int idx = threadIdx.x; idx < BT * D; idx += NTHREADS) {
-    const int r = idx / D, d = idx % D;
-    if (k0 + r < t_k) {
-      dkb[(size_t)(k0 + r) * D + d] = dKs[r * L::OP + d];
-      dvb[(size_t)(k0 + r) * D + d] = dVs[r * L::OP + d];
-    }
-  }
-}
+// ---- f32: register-tiled CUDA-core FMAs (ffma_tile.cuh) --------------------
+//
+// The same two kernels by output ownership, no atomics. Each block (128
+// threads) owns 64 rows and walks tiles of 32 rows of the other operand
+// through a two-stage cp.async ring, one block barrier a tile. Both score
+// products (S and dP, or their transposes) are 4 x 4 register micro-tiles a
+// thread; the gradient of each position is formed in registers
+// (position_grad, as in the bf16 kernels); the tile that feeds the
+// accumulating product (dS, or (m P)^T and dS^T) crosses shared memory once,
+// warp-locally; the accumulators (dQ, or dK and dV) stay in registers, 4 x
+// D/8 a thread, until the one write at the end.
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
+struct F32Bwd {
+  using T = FTile<D>;
+  static constexpr int ROWS = FT_ROWS * 4;  // a tile's per-row f32 values
+  // dq: Q and dO owned; ring of (K, V); dS; lse and delta of the owned rows
+  static constexpr int DQ_STAGE = 2 * T::WALKED_BYTES;
+  static constexpr int DQ_BYTES = 2 * T::OWNED_BYTES + 2 * DQ_STAGE + T::X_BYTES + 2 * ROWS;
+  // dk/dv: K and V owned; ring of (Q, dO, lse, delta) of 32 q rows; (m P)^T and dS^T
+  static constexpr int DKDV_STAGE = 2 * T::WALKED_BYTES + 2 * FT_COLS * 4;
+  static constexpr int DKDV_BYTES = 2 * T::OWNED_BYTES + 2 * DKDV_STAGE + 2 * T::X_BYTES;
+};
+
+// ---- dq (and delta): one block per (batch*head, 64-row q tile) ------------
+template <int D>
+__global__ void __launch_bounds__(FT_NT)
 flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ out,
                         const float* __restrict__ dout, const float* __restrict__ lse,
@@ -570,59 +429,187 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
                         const int* __restrict__ kv_len, const float* __restrict__ slopes,
                         int heads, int t_q, int t_k, int causal, int period, float sm_scale,
                         const int* __restrict__ seed, uint32_t drop_thr, float keep_scale) {
-  using L = Layout<D, BT, BT, false>;
+  using T = FTile<D>;
+  using C = F32Bwd<D>;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem + L::Q);
-  float* dOs = reinterpret_cast<float*>(smem + L::DO);
-  float* Ks = reinterpret_cast<float*>(smem + L::K);
-  float* Vs = reinterpret_cast<float*>(smem + L::V);
-  float* Ss = reinterpret_cast<float*>(smem + L::S);
-  float* dPs = reinterpret_cast<float*>(smem + L::DP);
-  float* dSs = reinterpret_cast<float*>(smem + L::DS);
-  float* lse_s = reinterpret_cast<float*>(smem + L::LSE);
-  float* delta_s = reinterpret_cast<float*>(smem + L::DELTA);
-  float* dQs = reinterpret_cast<float*>(smem + L::ACC0);
-
+  const float* Qs = reinterpret_cast<const float*>(smem);
+  const float* dOs = reinterpret_cast<const float*>(smem + T::OWNED_BYTES);
+  const int ring_off = 2 * T::OWNED_BYTES;
+  float* Xs = reinterpret_cast<float*>(smem + ring_off + 2 * C::DQ_STAGE);
+  float* lse_s = reinterpret_cast<float*>(smem + ring_off + 2 * C::DQ_STAGE + T::X_BYTES);
+  float* delta_s = lse_s + FT_ROWS;
+  const uint32_t s_q = smem_u32(smem), s_ring = s_q + ring_off;
   const TileParams tp =
       tile_params(kv_len, slopes, heads, t_q, causal, period, sm_scale, seed, drop_thr, keep_scale);
-  const int bh = tp.bh;
-  const int q0 = blockIdx.x * BT;
-
+  const int tid = threadIdx.x;
+  const FMap mp;
+  const int bh = tp.bh, q0 = blockIdx.x * FT_ROWS;
   const float* kb = k + (size_t)bh * t_k * D;
   const float* vb = v + (size_t)bh * t_k * D;
-  load_tile<D, L::TP, BT>(Qs, q + (size_t)bh * t_q * D, q0, t_q);
-  load_tile<D, L::TP, BT>(dOs, dout + (size_t)bh * t_q * D, q0, t_q);
-  load_rows<BT>(lse_s, lse + (size_t)bh * t_q, q0, t_q);
-  const float dsum = row_delta<float, D>(out, dout, delta, bh, q0, t_q);
-  if (threadIdx.x % 2 == 0) delta_s[threadIdx.x / 2] = dsum;
-  for (int idx = threadIdx.x; idx < BT * L::OP; idx += NTHREADS) dQs[idx] = 0.f;
 
   // the last k tile the KV length and causality can reach, as in the
   // forward; a zero-length item walks tile 0 fully masked and gets dq = 0
-  int last = (max(tp.kvlen - 1, 0)) / BT;
-  last = min(last, (t_k + BT - 1) / BT - 1);
-  if (causal) last = min(last, (q0 + BT - 1) / BT);
+  int last = max(tp.kvlen - 1, 0) / FT_COLS;
+  last = min(last, (t_k + FT_COLS - 1) / FT_COLS - 1);
+  if (causal) last = min(last, (q0 + FT_ROWS - 1) / FT_COLS);
+
+  auto load_kv = [&](int kt) {
+    if (kt <= last) {
+      const uint32_t stage = s_ring + (kt % 2) * C::DQ_STAGE;
+      ft_load_async<D, FT_COLS>(stage, kb, kt * FT_COLS, t_k, tid);
+      ft_load_async<D, FT_COLS>(stage + T::WALKED_BYTES, vb, kt * FT_COLS, t_k, tid);
+    }
+    cp_async_commit();
+  };
+  // group 0: Q, dO and the first K/V tile
+  ft_load_async<D, FT_ROWS>(s_q, q + (size_t)bh * t_q * D, q0, t_q, tid);
+  ft_load_async<D, FT_ROWS>(s_q + T::OWNED_BYTES, dout + (size_t)bh * t_q * D, q0, t_q, tid);
+  load_kv(0);
+  const float dsum = row_delta<float, D>(out, dout, delta, bh, q0, t_q);
+  if (tid % 2 == 0) delta_s[tid / 2] = dsum;
+  if (tid < FT_ROWS) lse_s[tid] = q0 + tid < t_q ? lse[(size_t)bh * t_q + q0 + tid] * LOG2E : 0.f;
+  __syncthreads();
+  float ll[4], dl[4];  // lse (log2 units) and delta of this thread's rows
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    ll[i] = lse_s[mp.row(i)];
+    dl[i] = delta_s[mp.row(i)];
+  }
+
+  float acc[4][T::NV];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < T::NV; ++e) acc[i][e] = 0.f;
 
   for (int kt = 0; kt <= last; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();  // the previous tile's K/V/dS reads are done
-    load_tile<D, L::TP, BT>(Ks, kb, k0, t_k);
-    load_tile<D, L::TP, BT>(Vs, vb, k0, t_k);
-    __syncthreads();
-    abt_product<D, BT, BT, L::TP, L::SP>(Qs, Ks, Ss);
-    abt_product<D, BT, BT, L::TP, L::SP>(dOs, Vs, dPs);
-    __syncthreads();
-    probabilities_and_ds<BT, BT, L::SP, L::PP>(Ss, dPs, static_cast<float*>(nullptr), dSs,
-                                              lse_s, delta_s, q0, k0, tp);
-    __syncthreads();
-    ab_accumulate<D, BT, BT, L::PP, L::TP, L::OP>(dSs, Ks, dQs);
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt is everyone's; the other stage is read by all
+    load_kv(kt + 1);
+    const float* Ks = reinterpret_cast<const float*>(smem + ring_off + (kt % 2) * C::DQ_STAGE);
+    const float* Vs = Ks + T::WALKED_BYTES / 4;
+    const int k0 = kt * FT_COLS;
+    float s[4][4], dp[4][4];
+    ft_scores<D>(Qs, Ks, mp, s);
+    ft_scores<D>(dOs, Vs, mp, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        s[i][j] = position_grad(s[i][j], dp[i][j], ll[i], dl[i], q0 + mp.row(i), k0 + mp.col(j), tp).ds;
+    __syncwarp();  // the warp's reads of the last tile's dS are done
+    ft_store_x(Xs, mp, s);
+    __syncwarp();
+    ft_accumulate<D>(Xs, Ks, mp, acc);  // dQ += dS K
   }
-  __syncthreads();
 
-  float* dqb = dq + (size_t)bh * t_q * D;
-  for (int idx = threadIdx.x; idx < BT * D; idx += NTHREADS) {
-    const int r = idx / D, d = idx % D;
-    if (q0 + r < t_q) dqb[(size_t)(q0 + r) * D + d] = dQs[r * L::OP + d];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + mp.row(i);
+    if (row < t_q) ft_store_row<D>(dq + ((size_t)bh * t_q + row) * D, mp, acc[i], 1.f);
+  }
+}
+
+// ---- dk, dv: one block per (batch*head, 64-key tile), loop over q tiles --
+template <int D>
+__global__ void __launch_bounds__(FT_NT)
+flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          const int* __restrict__ kv_len, const float* __restrict__ slopes,
+                          int heads, int t_q, int t_k, int causal, int period, float sm_scale,
+                          const int* __restrict__ seed, uint32_t drop_thr, float keep_scale) {
+  using T = FTile<D>;
+  using C = F32Bwd<D>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const float* Ks = reinterpret_cast<const float*>(smem);
+  const float* Vs = reinterpret_cast<const float*>(smem + T::OWNED_BYTES);
+  const int ring_off = 2 * T::OWNED_BYTES;
+  float* Xp = reinterpret_cast<float*>(smem + ring_off + 2 * C::DKDV_STAGE);
+  float* Xd = Xp + T::X_BYTES / 4;
+  const uint32_t s_k = smem_u32(smem), s_ring = s_k + ring_off;
+  const TileParams tp =
+      tile_params(kv_len, slopes, heads, t_q, causal, period, sm_scale, seed, drop_thr, keep_scale);
+  const int tid = threadIdx.x;
+  const FMap mp;
+  const int bh = tp.bh, k0 = blockIdx.x * FT_ROWS;
+  const float* qb = q + (size_t)bh * t_q * D;
+  const float* dob = dout + (size_t)bh * t_q * D;
+  const float* lseb = lse + (size_t)bh * t_q;
+  const float* deltab = delta + (size_t)bh * t_q;
+
+  float dk_acc[4][T::NV], dv_acc[4][T::NV];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < T::NV; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
+
+  // (Q, dO, lse, delta) of the 32-row q tile iq into a ring stage
+  auto load_q = [&](int iq, int n_q_tiles) {
+    if (iq < n_q_tiles) {
+      const uint32_t stage = s_ring + (iq % 2) * C::DKDV_STAGE;
+      const int q0 = iq * FT_COLS;
+      ft_load_async<D, FT_COLS>(stage, qb, q0, t_q, tid);
+      ft_load_async<D, FT_COLS>(stage + T::WALKED_BYTES, dob, q0, t_q, tid);
+      if (tid < 2 * FT_COLS) {
+        const int i = tid % FT_COLS;
+        const bool ok = q0 + i < t_q;
+        const float* src = (tid < FT_COLS ? lseb : deltab) + (ok ? q0 + i : 0);
+        cp_async4(stage + 2 * T::WALKED_BYTES + (tid < FT_COLS ? 0 : 4 * FT_COLS) + 4 * i, src, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // keys at or past the KV length are masked everywhere: their dk, dv stay 0;
+  // under causality, q tiles wholly above this k tile contribute nothing
+  const int n_q_tiles = (t_q + FT_COLS - 1) / FT_COLS;
+  const int iq0 = causal ? k0 / FT_COLS : 0;
+  if (k0 < tp.kvlen && iq0 < n_q_tiles) {
+    // group 0: K, V and the first q tile
+    ft_load_async<D, FT_ROWS>(s_k, k + (size_t)bh * t_k * D, k0, t_k, tid);
+    ft_load_async<D, FT_ROWS>(s_k + T::OWNED_BYTES, v + (size_t)bh * t_k * D, k0, t_k, tid);
+    load_q(iq0, n_q_tiles);
+    for (int iq = iq0; iq < n_q_tiles; ++iq) {
+      cp_async_wait<0>();
+      __syncthreads();  // q tile iq is everyone's; the other stage is read by all
+      load_q(iq + 1, n_q_tiles);
+      const unsigned char* stage = smem + ring_off + (iq % 2) * C::DKDV_STAGE;
+      const float* Qt = reinterpret_cast<const float*>(stage);
+      const float* dOt = Qt + T::WALKED_BYTES / 4;
+      const float* lse_t = dOt + T::WALKED_BYTES / 4;
+      const float* delta_t = lse_t + FT_COLS;
+      const int q0 = iq * FT_COLS;
+      // transposed tiles: rows are this block's keys, columns the q rows
+      float st[4][4], dpt[4][4];
+      ft_scores<D>(Ks, Qt, mp, st);
+      ft_scores<D>(Vs, dOt, mp, dpt);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float l2 = lse_t[mp.col(j)] * LOG2E, dl = delta_t[mp.col(j)];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const Grad gr = position_grad(st[i][j], dpt[i][j], l2, dl, q0 + mp.col(j), k0 + mp.row(i), tp);
+          st[i][j] = gr.pm;
+          dpt[i][j] = gr.ds;
+        }
+      }
+      __syncwarp();  // the warp's reads of the last tile's (m P)^T and dS^T are done
+      ft_store_x(Xp, mp, st);
+      ft_store_x(Xd, mp, dpt);
+      __syncwarp();
+      ft_accumulate<D>(Xp, dOt, mp, dv_acc);  // dV += (m P)^T dO
+      ft_accumulate<D>(Xd, Qt, mp, dk_acc);   // dK += dS^T Q
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + mp.row(i);
+    if (key >= t_k) continue;
+    ft_store_row<D>(dk + ((size_t)bh * t_k + key) * D, mp, dk_acc[i], 1.f);
+    ft_store_row<D>(dv + ((size_t)bh * t_k + key) * D, mp, dv_acc[i], 1.f);
   }
 }
 
@@ -670,28 +657,24 @@ cudaError_t launch_bf16(const Args& a) {
 
 template <int D>
 cudaError_t launch_f32(const Args& a) {
-  // D = 128 walks 32-row q tiles so that the dk/dv block's tiles and two
-  // accumulators fit one block's shared memory
-  constexpr int NQ = D == 128 ? 32 : BT;
-  constexpr int dkdv_bytes = Layout<D, NQ, BT, true>::BYTES;
-  constexpr int dq_bytes = Layout<D, BT, BT, false>::BYTES;
+  using C = F32Bwd<D>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_f32_kernel<D, NQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_bytes);
+      flash_bwd_dq_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::DQ_BYTES);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(
-      flash_bwd_dq_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
+      flash_bwd_dkdv_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::DKDV_BYTES);
   if (err != cudaSuccess) return err;
   const float *q = static_cast<const float*>(a.q), *k = static_cast<const float*>(a.k);
   const float *v = static_cast<const float*>(a.v), *dout = static_cast<const float*>(a.dout);
-  dim3 q_grid((a.t_q + BT - 1) / BT, a.bh);
-  flash_bwd_dq_f32_kernel<D><<<q_grid, NTHREADS, dq_bytes, a.stream>>>(
+  dim3 q_grid((a.t_q + FT_ROWS - 1) / FT_ROWS, a.bh);
+  flash_bwd_dq_f32_kernel<D><<<q_grid, FT_NT, C::DQ_BYTES, a.stream>>>(
       q, k, v, static_cast<const float*>(a.out), dout, a.lse, a.delta, static_cast<float*>(a.dq),
       a.kv_len, a.slopes, a.heads, a.t_q, a.t_k, a.causal, a.period, a.sm_scale, a.seed,
       a.drop_thr, a.keep_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dim3 k_grid((a.t_k + BT - 1) / BT, a.bh);
-  flash_bwd_dkdv_f32_kernel<D, NQ><<<k_grid, NTHREADS, dkdv_bytes, a.stream>>>(
+  dim3 k_grid((a.t_k + FT_ROWS - 1) / FT_ROWS, a.bh);
+  flash_bwd_dkdv_f32_kernel<D><<<k_grid, FT_NT, C::DKDV_BYTES, a.stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
       a.kv_len, a.slopes, a.heads, a.t_q, a.t_k, a.causal, a.period, a.sm_scale, a.seed,
       a.drop_thr, a.keep_scale);
@@ -721,6 +704,24 @@ cudaError_t occupancy(int* info) {
                                                        NTHREADS, C::DKDV_BYTES);
 }
 
+template <int D>
+cudaError_t occupancy_f32(int* info) {
+  using C = F32Bwd<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::DQ_BYTES);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      flash_bwd_dkdv_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::DKDV_BYTES);
+  if (err != cudaSuccess) return err;
+  info[0] = C::DQ_BYTES;
+  info[2] = C::DKDV_BYTES;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[1], flash_bwd_dq_f32_kernel<D>, FT_NT,
+                                                      C::DQ_BYTES);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[3], flash_bwd_dkdv_f32_kernel<D>,
+                                                       FT_NT, C::DKDV_BYTES);
+}
+
 }  // namespace
 
 // The bf16 kernels' shared memory per block and resident blocks per SM at
@@ -731,6 +732,18 @@ extern "C" int a2f_flash_attention_bwd_occupancy(int head_dim, int* info) {
     case 32: return occupancy<32>(info);
     case 64: return occupancy<64>(info);
     case 128: return occupancy<128>(info);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The f32 kernels' shared memory per block and resident blocks per SM at
+// head_dim: info[0], info[1] of the dq kernel, info[2], info[3] of dk/dv.
+extern "C" int a2f_flash_attention_bwd_f32_occupancy(int head_dim, int* info) {
+  switch (head_dim) {
+    case 16: return occupancy_f32<16>(info);
+    case 32: return occupancy_f32<32>(info);
+    case 64: return occupancy_f32<64>(info);
+    case 128: return occupancy_f32<128>(info);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -22,7 +22,13 @@ rowsum(dO * O)``, whose plain version is ``attention_delta_reference``),
 whatever the shape, and for CPU tensors ``flash_attention_bwd_reference``.
 
 bf16 launches multiply with Hopper's ``wgmma`` (register accumulators,
-tiles filled by ``cp.async``); f32 launches take CUDA-core FMAs.
+tiles filled by ``cp.async``). f32 launches take CUDA-core FMAs, so that f32
+keeps f32 accuracy: the forward on one of two paths chosen by ``t_k``
+(``f32_forward_path``): a short-key kernel for ``t_k <= 64`` (the wav2vec2
+frame windows) and a register-tiled one above; the backward on two
+register-tiled kernels. ``flash_attention.f32_launches`` and
+``flash_attention_bwd.f32_launches`` count the f32 launches among
+``launches``.
 """
 
 from __future__ import annotations
@@ -38,6 +44,16 @@ from audio2face_tpu_torch.ops import _build
 
 DEFAULT_MASK_VALUE = -1e30
 _HEAD_DIMS = (16, 32, 64, 128)
+# the longest key sequence the f32 forward's short-key kernel takes
+# (SK_MAX_TK in csrc/flash_attention.cu)
+F32_SHORT_MAX_TK = 64
+
+
+def f32_forward_path(t_k: int) -> str:
+    """The f32 forward kernel a call with ``t_k`` keys launches: ``"short"``
+    (one pass over each query row's scores in registers) for ``t_k <= 64``,
+    else ``"tiled"`` (register-tiled online softmax over 32-key tiles)."""
+    return "short" if t_k <= F32_SHORT_MAX_TK else "tiled"
 
 
 def alibi_slopes(n_heads: int) -> np.ndarray:
@@ -246,6 +262,8 @@ _FWD_ARGTYPES = [ctypes.c_void_p] * 7 + _TAIL_ARGTYPES
 _BWD_ARGTYPES = [ctypes.c_void_p] * 12 + _TAIL_ARGTYPES
 # head_dim, int info[4]
 _OCCUPANCY_ARGTYPES = [ctypes.c_int, ctypes.c_void_p]
+# head_dim, batch_heads, t_q, t_k, int info[5]
+_F32_PLAN_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def _check_kernel_inputs(what, q, k, v):
@@ -309,6 +327,7 @@ def _flash_attention_cuda(
     )
     _build.check(rc, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.f32_launches += int(q.dtype == torch.float32)
     return out, lse
 
 
@@ -344,6 +363,7 @@ def _flash_attention_bwd_cuda(
     )
     _build.check(rc, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.f32_launches += int(q.dtype == torch.float32)
     return dq, dk, dv, delta
 
 
@@ -362,6 +382,25 @@ def wgmma_occupancy(head_dim: int) -> dict[str, dict[str, int]]:
         for i, name in enumerate(names):
             out[name] = {"smem_bytes": info[2 * i], "blocks_per_sm": info[2 * i + 1]}
     return out
+
+
+def f32_kernel_plan(head_dim: int, batch_heads: int, t_q: int, t_k: int) -> dict:
+    """The f32 kernels' launch plan at a shape, as the CUDA runtime reports
+    it: the forward's path (``f32_forward_path``), shared memory a block,
+    resident blocks per SM, blocks launched and query rows a block computes
+    at once; the backward kernels' shared memory a block and resident
+    blocks per SM. Launches nothing."""
+    info = (ctypes.c_int * 5)()
+    fn = _build.function("flash_attention", "a2f_flash_attention_fwd_f32_plan", _F32_PLAN_ARGTYPES)
+    _build.check(fn(head_dim, batch_heads, t_q, t_k, info), "a2f_flash_attention_fwd_f32_plan")
+    fwd = {"path": "short" if info[0] == 1 else "tiled", "smem_bytes": info[1],
+           "blocks_per_sm": info[2], "grid": info[3], "query_rows": info[4]}
+    fn = _build.function("flash_attention_bwd", "a2f_flash_attention_bwd_f32_occupancy",
+                         _OCCUPANCY_ARGTYPES)
+    _build.check(fn(head_dim, info), "a2f_flash_attention_bwd_f32_occupancy")
+    return {"forward": fwd,
+            "flash_bwd_dq_f32_kernel": {"smem_bytes": info[0], "blocks_per_sm": info[1]},
+            "flash_bwd_dkdv_f32_kernel": {"smem_bytes": info[2], "blocks_per_sm": info[3]}}
 
 
 def flash_attention_bwd(
@@ -402,6 +441,7 @@ def flash_attention_bwd(
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.f32_launches = 0
 
 
 class _FlashAttentionFunction(torch.autograd.Function):
@@ -490,3 +530,4 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+flash_attention.f32_launches = 0

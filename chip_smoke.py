@@ -9,8 +9,11 @@ which raises (exit code != 0) on failure:
 2. build: compiles the port's CUDA sources (``build/torch_kernels/``) and
    prints the bf16 attention kernels' registers and spills (``-Xptxas -v``),
    shared memory per block and resident blocks per SM (CUDA runtime), and
-   the conv encoder's and decode loop's registers and spills, and the
-   rasterizer's registers, spills and shared memory a block;
+   the conv encoder's and decode loop's registers and spills, the
+   rasterizer's registers, spills and shared memory a block, and the f32
+   attention kernels' registers and spills and launch plans (path, shared
+   memory a block, blocks per SM) at the frame-window, training and
+   predictor shapes;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the shapes its main path gives it (the flagship request,
    60 s x batch 8; the BIWI request, 30 s x batch 8; a transfer batch of 64
@@ -23,7 +26,13 @@ which raises (exit code != 0) on failure:
    registers, spills and shared memory, and its work (box pixels, tile-chunk
    pairs, evaluated sub-tile pairs) under its bound; K1 and K4 also
    over head dims 16, 32, 64 and 128 in bf16 and f32 with their options at
-   small shapes, and K4's delta against its plain version; K2's launches
+   small shapes (f32 also at t_k = 1, 25, 33, 64 and 65, both sides of the
+   short-key path's bound), and K4's delta against its plain version; (3i)
+   K1 and K4 in f32 at the frame window (1024, 12, 25, 64), the f32
+   training shape (8, 12, 600, 64, dropout 0 and 0.1) and the f32
+   predictor's shape (8, 12, 3600, 64), against their plain versions and
+   timed beside their bounds, plain versions and SDPA's f32 forward and
+   backward (the profiler's device time); K2's launches
    split by the profiler; K3's cluster plan (cluster size, resident
    clusters, cache rows and shared memory a CTA) and us a step, and K3 (both
    variants) also at small f32 shapes, past the cluster's shared-memory
@@ -67,7 +76,9 @@ which raises (exit code != 0) on failure:
    same vertices as the predictor built from the same weights, through the
    forward kernels;
 10. prints the ``{"kernels": [...]}`` line (each kernel's launches on the
-   serving, training, frame and checkpoint paths), then, last,
+   serving, training, frame and checkpoint paths; K1 f32 and K4 f32 have
+   rows of their own, counted by the wrappers' ``f32_launches`` on the
+   wav2vec2 frame request and the f32 gradient check), then, last,
    ``{"ok": true, "device": {...}}``.
 
 Gradients are off process-wide (the inference phases build no autograd
@@ -350,9 +361,10 @@ def attention_variant_checks(torch, attn_ops, randn) -> dict:
     path's d = 64 bf16: head dims 16, 32, 64 and 128 in bf16 and in f32, each
     plain, with kv_lengths and dropout, and causal with period-60 ALiBi and
     dropout, with and without kv_lengths; then t_q != t_k, ALiBi without
-    causality, zero-length items and rate 0.5. Checks out, lse, dq/dk/dv
-    and the backward's delta; raises on the first miss. Returns the worst
-    err/tol of each check over the cases, per dtype."""
+    causality, zero-length items and rate 0.5; then f32 at t_k = 1, 25, 33,
+    64 and 65 (both sides of the short-key path's bound) with every option.
+    Checks out, lse, dq/dk/dv and the backward's delta; raises on the first
+    miss. Returns the worst err/tol of each check over the cases, per dtype."""
     bf, f32 = torch.bfloat16, torch.float32
     cases = []
     for dtype in (bf, f32):
@@ -373,6 +385,20 @@ def attention_variant_checks(torch, attn_ops, randn) -> dict:
         (bf, (3, 2, 77, 77, 32), dict(causal=True), 0.0),
         (bf, (3, 2, 77, 77, 32), dict(causal=True), 0.1),
         (bf, (2, 2, 77, 99, 16), dict(alibi_period=60, kv_lengths=[0, 99]), 0.0),
+    ]
+    # f32 at the forward's short-key boundary (t_k <= 64 takes the short
+    # kernel, 65 the tiled one), t_q != t_k, every option
+    cases += [
+        (f32, (2, 3, 25, 25, 64), {}, 0.0),
+        (f32, (2, 3, 25, 25, 64), dict(causal=True, alibi_period=25, kv_lengths=[25, 0]), 0.1),
+        (f32, (3, 2, 1, 1, 16), {}, 0.0),
+        (f32, (3, 2, 40, 1, 32), dict(kv_lengths=[1, 0, 1]), 0.1),
+        (f32, (2, 2, 7, 64, 32), dict(alibi_period=25, kv_lengths=[64, 40]), 0.1),  # negative i - j
+        (f32, (2, 2, 64, 64, 128), dict(causal=True, alibi_period=25), 0.1),
+        (f32, (1, 4, 300, 33, 64), dict(kv_lengths=[20]), 0.1),
+        (f32, (2, 2, 100, 65, 64), dict(causal=True, kv_lengths=[65, 1]), 0.1),
+        (f32, (2, 2, 65, 65, 128), dict(alibi_period=25), 0.0),
+        (f32, (2, 2, 30, 65, 16), dict(alibi_period=25, kv_lengths=[65, 0]), 0.1),
     ]
     worst = {}
     for dtype, (b, h, tq, tk, d), kw, rate in cases:
@@ -409,6 +435,121 @@ def attention_variant_checks(torch, attn_ops, randn) -> dict:
         require(all(err <= tol for err, tol in checks.values()) and finite and zero_ok,
                 f"K1/K4 {dtype} {(b, h, tq, tk, d)} {kw}: {checks}, finite {finite}, zero-length {zero_ok}")
     return {"cases": len(cases), "worst_err_over_tol": worst}
+
+
+def f32_attention_readings(torch, attn_ops, randn, smi) -> dict:
+    """K1 and K4 in f32 at the f32 training shape (8, 12, 600, 64) with
+    kv_lengths 30-600, dropout 0 and 0.1: each against its plain version
+    (K1: rtol 1e-4 / atol 1e-5 of tests/test_attention.py, out and lse; K4:
+    K4_F32_RTOL / K4_F32_ATOL), then by the profiler's device time beside the
+    bound of this call's work (the unmasked pairs), the plain version (CUDA
+    events) and SDPA's f32 forward and backward under the same boolean mask
+    (device time); K1 f32 at the frame window (1024, 12, 25, 64) by device
+    time beside SDPA; and K1 f32 at the f32 predictor's encoder shape (8, 12,
+    3600, 64, kv_lengths 180-3600) by CUDA events beside its bound, plain
+    version and SDPA. Raises on a miss."""
+    dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res = {"card": smi}
+    b, h, t, d = 8, 12, 600, 64
+    q, k, v, go = (randn(b, h, t, d) for _ in range(4))
+    kvl = torch.tensor([600, 600, 450, 300, 600, 150, 600, 30], dtype=torch.int32, device=dev)
+    seed = torch.tensor([20240607], dtype=torch.int32, device=dev)
+    mask = (torch.arange(t, device=dev)[None, :] < kvl[:, None])[:, None, None, :]
+    pairs = float(h * t * kvl.sum().item())  # unmasked (query, key) pairs
+    kv_bytes = 2 * h * kvl.sum().item() * d * 4  # k and v read up to each KV length
+    k1_bound = bound(2 * b * h * t * d * 4 + kv_bytes + b * h * t * 4 + b * 4,
+                     4.0 * d * pairs / PEAK_F32_FLOPS)
+    k4_bound = bound(6 * b * h * t * d * 4 + kv_bytes + 2 * b * h * t * 4 + b * 4,
+                     10.0 * d * pairs / PEAK_F32_FLOPS)
+    for rate in (0.0, 0.1):
+        kw = dict(kv_lengths=kvl, dropout_rate=rate, dropout_seed=seed)
+        out, lse = attn_ops.flash_attention(q, k, v, return_lse=True, **kw)
+        ref, ref_lse = attn_ops.mha_reference(q, k, v, return_lse=True, **kw)
+        got = attn_ops.flash_attention_bwd(q, k, v, out, lse, go, **kw)
+        want = attn_ops.flash_attention_bwd_reference(q, k, v, out, lse, go, **kw)
+        torch.cuda.synchronize()
+        fwd = ((out - ref).abs().max().item(), 1e-5 + 1e-4 * ref.abs().max().item())
+        lse_chk = ((lse - ref_lse).abs().max().item(), 1e-5 + 1e-4 * ref_lse.abs().max().item())
+        bwd = (max(((a - w).abs() - K4_F32_RTOL * w.abs()).max().item() for a, w in zip(got, want)),
+               K4_F32_ATOL)
+        require(fwd[0] <= fwd[1] and lse_chk[0] <= lse_chk[1] and bwd[0] <= bwd[1]
+                and all(bool(torch.isfinite(x).all()) for x in (out, *got)),
+                f"K1/K4 f32 at the training shape, rate {rate}: out {fwd} lse {lse_chk} grads {bwd}")
+        k1_dev, k1_names = profiled_ms(torch, lambda: attn_ops.flash_attention(q, k, v, **kw), 20)
+        k4_dev, k4_names = profiled_ms(
+            torch, lambda: attn_ops.flash_attention_bwd(q, k, v, out, lse, go, **kw), 20)
+        res[f"train_shape_rate{rate}"] = {
+            "shape": [b, h, t, d], "k1_out_err_and_tol": fwd, "k1_lse_err_and_tol": lse_chk,
+            "k4_err_less_rtol_and_atol": bwd, "k4_shape": [b, h, t, d],
+            "k4_max_abs_err": max((a - w).abs().max().item() for a, w in zip(got, want)),
+            "k1_device_ms": k1_dev, "k1_ms": sorted(k1_dev)[2], "k1_kernels": k1_names,
+            "k1_plain_ms": cuda_ms(torch, lambda: attn_ops.mha_reference(q, k, v, **kw), 3),
+            "k4_device_ms": k4_dev, "k4_ms": sorted(k4_dev)[2], "k4_kernels": k4_names,
+            "k4_plain_ms": cuda_ms(
+                torch, lambda: attn_ops.flash_attention_bwd_reference(q, k, v, out, lse, go, **kw), 3),
+        }
+    lib_fwd, fwd_names = profiled_ms(torch, lambda: sdpa(q, k, v, attn_mask=mask), 20)
+    with torch.enable_grad():
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        lib_out = sdpa(*leaves, attn_mask=mask)
+        lib_bwd, bwd_names = profiled_ms(
+            torch, lambda: torch.autograd.grad(lib_out, leaves, go, retain_graph=True), 20)
+    del leaves, lib_out
+    res["train_shape_sdpa"] = {
+        "forward_device_ms": lib_fwd, "forward_ms": sorted(lib_fwd)[2],
+        "forward_backend": sdpa_backend(fwd_names), "backward_device_ms": lib_bwd,
+        "backward_ms": sorted(lib_bwd)[2], "backward_backend": sdpa_backend(bwd_names),
+        "k1_bound_ms": k1_bound[0], "k1_bound_by": k1_bound[1],
+        "k4_bound_ms": k4_bound[0], "k4_bound_by": k4_bound[1],
+    }
+    del q, k, v, go, out, lse, ref, ref_lse, got, want
+    # the frame window by device time
+    g = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(1024, 12, 25, 64, generator=g).to(dev) for _ in range(3))
+    out = attn_ops.flash_attention(q, k, v)
+    ref = attn_ops.mha_reference(q, k, v)
+    torch.cuda.synchronize()
+    rel = row_scaled_err(out, ref)
+    require(rel <= K1_F32_ROW_TOL and bool(torch.isfinite(out).all()),
+            f"K1 f32 at the frame window: err {rel} of the row's largest |out| > {K1_F32_ROW_TOL}")
+    k1_dev, _ = profiled_ms(torch, lambda: attn_ops.flash_attention(q, k, v), 20)
+    lib_dev, names = profiled_ms(torch, lambda: sdpa(q, k, v), 20)
+    n_ = q.numel()
+    bms, bby = bound(4 * n_ * 4 + n_ // 64 * 4, 4.0 * n_ * 25 / PEAK_F32_FLOPS)
+    res["frame_window_device"] = {
+        "shape": [1024, 12, 25, 64], "max_abs_err": (out - ref).abs().max().item(),
+        "max_err_over_row_max": rel, "k1_device_ms": k1_dev, "k1_ms": sorted(k1_dev)[2],
+        "plain_ms": cuda_ms(torch, lambda: attn_ops.mha_reference(q, k, v), 10),
+        "sdpa_device_ms": lib_dev, "sdpa_ms": sorted(lib_dev)[2], "sdpa_backend": sdpa_backend(names),
+        "bound_ms": bms, "bound_by": bby}
+    del q, k, v, out, ref
+    # the f32 predictor's encoder attention
+    b, h, t, d = 8, 12, 3600, 64
+    q, k, v = (randn(b, h, t, d) for _ in range(3))
+    kvl = torch.tensor([3600, 3600, 2700, 1800, 3600, 900, 3600, 180], dtype=torch.int32, device=dev)
+    out = attn_ops.flash_attention(q, k, v, kv_lengths=kvl)
+    ref = attn_ops.mha_reference(q, k, v, kv_lengths=kvl)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    tol = 1e-5 + 1e-4 * ref.abs().max().item()
+    require(err <= tol and bool(torch.isfinite(out).all()), f"K1 f32 at (8, 12, 3600, 64): {err} > {tol}")
+    del ref
+    torch.cuda.empty_cache()
+    mask = (torch.arange(t, device=dev)[None, :] < kvl[:, None])[:, None, None, :]
+    pairs = float(h * t * kvl.sum().item())
+    bms, bby = bound(2 * b * h * t * d * 4 + 2 * h * kvl.sum().item() * d * 4 + b * h * t * 4 + b * 4,
+                     4.0 * d * pairs / PEAK_F32_FLOPS)
+    res["predictor_shape"] = {
+        "shape": [b, h, t, d], "max_abs_err": err, "tol": tol,
+        "k1_ms": cuda_ms(torch, lambda: attn_ops.flash_attention(q, k, v, kv_lengths=kvl), 3),
+        "k1_plain_ms": cuda_ms(torch, lambda: attn_ops.mha_reference(q, k, v, kv_lengths=kvl), 1),
+        "sdpa_ms": cuda_ms(torch, lambda: sdpa(q, k, v, attn_mask=mask), 3),
+        "bound_ms": bms, "bound_by": bby,
+    }
+    del q, k, v, out
+    torch.cuda.empty_cache()
+    return res
 
 
 # the bf16 frame predictors against their f32 runs on the same weights and
@@ -570,14 +711,15 @@ def frame_model_phases(torch, rows, by_name, smi, pred, biwi_state, n_verts_biwi
     tic = time.perf_counter()
     res = w2v(clips10, one_hot[:2], template)
     wall = time.perf_counter() - tic
-    k1 = by_name["flash_attention"]
-    k1_path = read_count(k1)
+    k1, k1f = by_name["flash_attention"], by_name["flash_attention_f32"]
+    k1_path, k1f["launches"] = read_count(k1), read_count(k1f)
     add_frame_launches()
     require(all(y.shape == (600, n_v // 3, 3) and bool(np.isfinite(y).all()) for y in res),
             "wav2vec frame request: shapes or values")
-    # 12 layers a chunk, 5 chunks of 2 x 128 frames
-    require(k1_path == 12 * 5, f"the wav2vec2 extractor launched K1 {k1_path} times")
-    require(all(read_count(r) == 0 for r in rows if r is not k1),
+    # 12 layers a chunk, 5 chunks of 2 x 128 frames, all in f32 (short-key path)
+    require(k1_path == k1f["launches"] == 12 * 5,
+            f"the wav2vec2 extractor launched K1 {k1_path} times, {k1f['launches']} in f32")
+    require(all(read_count(r) == 0 for r in rows if r is not k1 and r is not k1f),
             "the wav2vec2 frame path launched a kernel other than K1")
     print(json.dumps({"wav2vec_frame_request": {
         "clips": 2, "seconds_each": 10, "frames": 1200, "wall_s": wall,
@@ -750,6 +892,17 @@ def main() -> int:
     require(all(r_["spill_store_bytes"] == 0 and r_["spill_load_bytes"] == 0
                 for n_, r_ in resources.items() if n_.endswith("<64>")),
             "a bf16 attention kernel spills at head dim 64")
+    # the f32 attention kernels' registers and spills (-Xptxas -v) and their
+    # launch plans at the frame-window, training and predictor shapes
+    f32_resources = {}
+    for lib in ("flash_attention", "flash_attention_bwd"):
+        for name, rep_ in ptxas_report((_build.BUILD_DIR / f"{lib}.log").read_text()).items():
+            if "f32" in name:
+                f32_resources[name] = rep_
+    f32_plans = {f"{bh_}x{t_}": attn_ops.f32_kernel_plan(64, bh_, t_, t_)
+                 for bh_, t_ in ((1024 * 12, 25), (96, 600), (96, 3600))}
+    print(json.dumps({"f32_attention_kernel_resources": f32_resources, "f32_plans_d64": f32_plans}),
+          flush=True)
     # K2's and K3's registers and spills (-Xptxas -v)
     dc_resources = {}
     for lib in ("conv_encoder", "decode_loop"):
@@ -951,6 +1104,11 @@ def main() -> int:
     k1["dropout_max_abs_err"], k1["dropout_max_err_over_row_max"] = err_d, rel_d
     k1["dropout_ms"] = cuda_ms(torch, lambda: attn_ops.flash_attention(q, k, v, kv_lengths=kvl, **drop), 20)
     k1["train_shape_ms"] = cuda_ms(torch, lambda: attn_ops.flash_attention(q, k, v, kv_lengths=kvl), 20)
+    # q read and out written whole, k and v up to each KV length, lse; the
+    # unmasked pairs' products at the bf16 peak
+    k1["train_shape_bound_ms"], k1["train_shape_bound_by"] = bound(
+        2 * b * h * t * d * 2 + 2 * h * kvl.sum().item() * d * 2 + b * h * t * 4 + b * 4,
+        4.0 * d * h * t * kvl.sum().item() / PEAK_BF16_FLOPS)
     k1["dropout_plain_ms"] = cuda_ms(torch, lambda: attn_ops.mha_reference(q, k, v, kv_lengths=kvl, **drop), 3)
     sdpa_mask = (torch.arange(t, device=dev)[None, :] < kvl[:, None])[:, None, None, :]
     k1["train_shape_library_ms"] = cuda_ms(
@@ -1062,6 +1220,42 @@ def main() -> int:
     variants = attention_variant_checks(torch, attn_ops, randn)
     print(json.dumps({"check": "K1 + K4 variants (head dims 16/32/64/128, bf16 and f32)", **variants}),
           flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- 3i. the f32 attention kernels: frame window, training, predictor ----
+    f32r = f32_attention_readings(torch, attn_ops, randn, smi)
+    print(json.dumps({"f32_attention": f32r}), flush=True)
+    fw, tr, lib = f32r["frame_window_device"], f32r["train_shape_rate0.1"], f32r["train_shape_sdpa"]
+    rows.append({
+        "name": "flash_attention_f32", "route": "cuda",
+        "source": "audio2face_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "audio2face_tpu/ops/attention.py:342",
+        "wrapper": attn_ops.flash_attention, "counter": "f32_launches",
+        "shape": fw["shape"], "max_abs_err": fw["max_abs_err"],
+        "max_err_over_row_max": fw["max_err_over_row_max"], "tol_over_row_max": K1_F32_ROW_TOL,
+        "ms": fw["k1_ms"], "plain_ms": fw["plain_ms"], "bound_ms": fw["bound_ms"],
+        "bound_by": fw["bound_by"], "library_ms": fw["sdpa_ms"],
+        "path": attn_ops.f32_forward_path(25), "plan": f32_plans["12288x25"],
+        "train_shape_ms": f32r["train_shape_rate0.0"]["k1_ms"], "train_shape_dropout_ms": tr["k1_ms"],
+        "train_shape_bound_ms": lib["k1_bound_ms"], "train_shape_bound_by": lib["k1_bound_by"],
+        "train_shape_plain_ms": f32r["train_shape_rate0.0"]["k1_plain_ms"],
+        "train_shape_library_ms": lib["forward_ms"],
+        "predictor_shape": f32r["predictor_shape"],
+        "resources_d64": {n_: r_ for n_, r_ in f32_resources.items() if "fwd" in n_ and "<64" in n_},
+    })
+    rows.append({
+        "name": "flash_attention_bwd_f32", "route": "cuda",
+        "source": "audio2face_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "audio2face_tpu/ops/attention.py:662",
+        "wrapper": attn_ops.flash_attention_bwd, "counter": "f32_launches",
+        "shape": tr["k4_shape"], "max_abs_err": tr["k4_max_abs_err"],
+        "err_less_rtol_and_atol": tr["k4_err_less_rtol_and_atol"],
+        "ms": tr["k4_ms"], "no_dropout_ms": f32r["train_shape_rate0.0"]["k4_ms"],
+        "plain_ms": tr["k4_plain_ms"], "bound_ms": lib["k4_bound_ms"], "bound_by": lib["k4_bound_by"],
+        "library_ms": lib["backward_ms"], "library_backend": lib["backward_backend"],
+        "plan": {n_: p_ for n_, p_ in f32_plans["96x600"].items() if n_ != "forward"},
+        "resources_d64": {n_: r_ for n_, r_ in f32_resources.items() if "bwd" in n_ and "<64" in n_},
+    })
     torch.cuda.empty_cache()
 
     # ---- 3d. the variants off the main path, at small shapes ---------------
@@ -1606,6 +1800,12 @@ def main() -> int:
             e32.accumulate_gradients(small)
         require((attn_ops.flash_attention_bwd.launches > 0) == use_kernels,
                 f"use_kernels={use_kernels}: K4 launched {attn_ops.flash_attention_bwd.launches} times")
+        if use_kernels:  # the f32 kernels' path: every launch in f32
+            k4f = by_name["flash_attention_bwd_f32"]
+            k4f["launches"] = read_count(k4f)
+            k4f["f32_forward_launches"] = read_count(by_name["flash_attention_f32"])
+            require(k4f["launches"] == attn_ops.flash_attention_bwd.launches == k4f["f32_forward_launches"] > 0,
+                    f"the f32 gradient check launched K4 f32 {k4f['launches']} times")
         grads.append({k_: p_.grad.detach().clone() for k_, p_ in e32.model.named_parameters()
                       if p_.grad is not None})
         del e32

@@ -53,6 +53,8 @@ def kind_of_ctypes(t) -> str:
     ("flash_attention_bwd.cu", "a2f_flash_attention_bwd", attn._BWD_ARGTYPES),
     ("flash_attention.cu", "a2f_flash_attention_fwd_occupancy", attn._OCCUPANCY_ARGTYPES),
     ("flash_attention_bwd.cu", "a2f_flash_attention_bwd_occupancy", attn._OCCUPANCY_ARGTYPES),
+    ("flash_attention.cu", "a2f_flash_attention_fwd_f32_plan", attn._F32_PLAN_ARGTYPES),
+    ("flash_attention_bwd.cu", "a2f_flash_attention_bwd_f32_occupancy", attn._OCCUPANCY_ARGTYPES),
 ])
 def test_entry_point_matches_ctypes_binding(source, symbol, argtypes):
     params = c_parameters(source, symbol)
