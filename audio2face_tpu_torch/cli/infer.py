@@ -12,19 +12,18 @@ Example:
 
 ``--checkpoint`` takes a checkpoint of the port's trainer,
 ``--torch-checkpoint`` a reference PyTorch/Lightning ``.ckpt``; without
-either the weights are random (smoke mode). The streaming decoder is not
-ported yet: ``--streaming`` raises and names the ROADMAP.md item that
-brings it.
+either the weights are random (smoke mode). ``--streaming`` feeds each clip
+in 100 ms packets through the live path and prints the compute latency:
+FaceFormer (vocaset) through ``StreamingFaceFormerPredictor``, per emitted
+chunk; a frame model (``--config``) through a ``FrameStreamPool`` slot, per
+packet.
 """
 
 import argparse
 import os
+import time
 
 import numpy as np
-
-_NOT_PORTED = {
-    "streaming": "the streaming front ends: ROADMAP.md queue 1 item 2",
-}
 
 
 def main(argv=None) -> None:
@@ -39,7 +38,12 @@ def main(argv=None) -> None:
     parser.add_argument("--video", action="store_true", help="render mp4 per clip")
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--f32", action="store_true")
-    parser.add_argument("--streaming", action="store_true", help="not ported yet")
+    parser.add_argument("--streaming", action="store_true",
+                        help="decode incrementally with bounded lookahead "
+                             "(simulated live input; prints per-chunk latency)")
+    parser.add_argument("--chunk-seconds", type=float, default=1.0)
+    parser.add_argument("--left-seconds", type=float, default=2.0)
+    parser.add_argument("--lookahead-seconds", type=float, default=0.5)
     parser.add_argument("--config", default=None,
                         help="experiment YAML for a frame model "
                              "(audio2mesh/voca/song2face); omit for faceformer")
@@ -49,10 +53,6 @@ def main(argv=None) -> None:
                              "checkpoints: frames run at 25 fps)")
     parser.add_argument("--device", default="cuda", help="'cpu' runs the plain versions")
     args = parser.parse_args(argv)
-
-    for name, what in _NOT_PORTED.items():
-        if getattr(args, name):
-            raise NotImplementedError(f"--{name.replace('_', '-')} is not ported yet ({what})")
 
     from audio2face_tpu_torch.serving import FaceFormerPredictor, FramePredictor
     from audio2face_tpu_torch.utils.audio_io import read_wav
@@ -90,7 +90,18 @@ def main(argv=None) -> None:
     subjects = args.subject or [0] * len(audios)
     one_hot = np.eye(predictor.n_onehot, dtype=np.float32)[subjects]
     template = np.asarray(mesh.verts, np.float32)
-    results = predictor(audios, one_hot, template, sample_rate=rates.pop())
+    sr = rates.pop()
+    if args.streaming and args.config:
+        results = _stream_frames(predictor, audios, one_hot, template, sr)
+    elif args.streaming:
+        if predictor.dataset == "biwi":
+            raise SystemExit(
+                "--streaming supports only vocaset faceformer checkpoints "
+                "(the streaming windows assume the 60 fps adapter)"
+            )
+        results = _stream(predictor, audios, one_hot, template, sr, args)
+    else:
+        results = predictor(audios, one_hot, template, sample_rate=sr)
 
     os.makedirs(args.output, exist_ok=True)
     for path, verts in zip(args.audio, results):
@@ -104,6 +115,88 @@ def main(argv=None) -> None:
             renderer = Renderer(mesh, device=args.device)
             images = renderer.render(verts)
             images_to_video(images, os.path.join(args.output, stem), fps=predictor.fps)
+
+
+def _resampled(audio: np.ndarray, sr: int, target: int, device) -> np.ndarray:
+    if sr == target:
+        return audio
+    import torch
+
+    from audio2face_tpu_torch.ops.dsp import resample
+
+    return resample(torch.as_tensor(audio, device=device), sr, target).cpu().numpy()
+
+
+def _stream_frames(predictor, audios, one_hot, template, sr):
+    """Live frame-model path: each clip in 100 ms packets through a
+    FrameStreamPool slot, with the compute latency per packet."""
+    from audio2face_tpu_torch.frame_stream import FrameStreamPool
+
+    pool = FrameStreamPool(
+        predictor.config, state_dict=predictor.model.state_dict(),
+        n_streams=min(len(audios), 8), unit_scale=predictor.unit_scale,
+        device=predictor.device,
+    )
+    results = []
+    model_sr = predictor.config.sample_rate
+    feed = int(0.1 * model_sr)
+    for clip_i, audio in enumerate(audios):
+        audio = _resampled(audio, sr, model_sr, predictor.device)
+        slot = pool.open_stream(one_hot[clip_i], template)
+        outs, n_pk, lat = [], 0, 0.0
+        for off in range(0, len(audio), feed):
+            tic = time.perf_counter()
+            got = pool.push(slot, audio[off : off + feed], last=off + feed >= len(audio))
+            lat += time.perf_counter() - tic
+            n_pk += 1
+            outs.append(got)
+        outs.append(pool.poll(slot))
+        pool.close_stream(slot)
+        results.append(np.concatenate(outs))
+        if n_pk:
+            print(f"clip {clip_i}: {len(results[-1])} frames live, "
+                  f"{lat / n_pk * 1e3:.1f} ms compute/100 ms packet")
+    return results
+
+
+def _stream(predictor, audios, one_hot, template, sr, args):
+    """Each clip chunk by chunk through the streaming predictor (100 ms
+    packets), with the wall latency per emitted chunk."""
+    import torch
+
+    from audio2face_tpu_torch.models.faceformer import AUDIO_SR
+    from audio2face_tpu_torch.streaming import StreamingFaceFormerPredictor
+
+    stream = StreamingFaceFormerPredictor(
+        state_dict=predictor.model.state_dict(), n_verts=predictor.n_verts,
+        n_onehot=predictor.n_onehot,
+        chunk_seconds=args.chunk_seconds, left_seconds=args.left_seconds,
+        lookahead_seconds=args.lookahead_seconds,
+        dtype=None if args.f32 else torch.bfloat16,
+        unit_scale=predictor.unit_scale, device=predictor.device,
+    )
+    results = []
+    feed = int(0.1 * AUDIO_SR)  # simulated 100 ms microphone packets
+    for clip_i, audio in enumerate(audios):
+        audio = _resampled(audio, sr, AUDIO_SR, predictor.device)
+        stream.start_stream(one_hot[clip_i], template)
+        outs, n_chunks, lat = [], 0, 0.0
+        for off in range(0, len(audio), feed):
+            tic = time.perf_counter()
+            got = stream.push(audio[off : off + feed])
+            dt = time.perf_counter() - tic
+            if got.size:
+                n_chunks += 1
+                lat += dt
+            outs.append(got)
+        outs.append(stream.flush())
+        results.append(np.concatenate(outs))
+        if n_chunks:
+            print(f"clip {clip_i}: {n_chunks} chunks, "
+                  f"{lat / n_chunks * 1e3:.1f} ms compute/chunk "
+                  f"({args.chunk_seconds * 1e3:.0f} ms audio each, "
+                  f"lookahead {args.lookahead_seconds:.1f}s)")
+    return results
 
 
 if __name__ == "__main__":

@@ -1,12 +1,14 @@
-"""Synthetic demo assets: a renderable head mesh, a vertex animation and a
-speech-like clip.
+"""Synthetic stand-ins: a VOCASET-format dataset, a renderable head mesh, a
+vertex animation and a speech-like clip.
 
-Port of the asset generators of ``audio2face_tpu/data/synthetic.py``
-(``generate_synthetic_face_obj``, ``generate_demo_animation``,
-``generate_demo_assets`` and the ``synthesize_speech_like`` they need): FLAME
-and the reference's sample clip are licensed and cannot ship, so the
-renderer, the CLIs and the smoke test run on these stand-ins. Pure
-numpy/scipy. The synthetic dataset generators are not ported yet.
+Port of ``audio2face_tpu/data/synthetic.py`` (``generate_synthetic_vocaset``,
+``generate_synthetic_face_obj``, ``generate_demo_animation``,
+``generate_demo_assets``, ``synthesize_speech_like``): VOCASET, FLAME and
+the reference's sample clip are licensed and cannot ship, so the data
+pipeline, the renderer, the CLIs and the smoke test run on these stand-ins.
+Given the same arguments and seed, every generator writes the same arrays
+as the JAX package's. Pure numpy/scipy. The BIWI generator is
+``data/biwi.py generate_synthetic_biwi``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,87 @@ import os
 import numpy as np
 
 FPS = 60  # VOCASET's animation clock
+
+
+def generate_synthetic_vocaset(
+    out_dir: str,
+    *,
+    n_verts: int = 5023,
+    sentences_per_subject: int = 2,
+    seconds_per_sentence: float = 0.8,
+    sample_rate: int = 22000,
+    subjects: list[str] | None = None,
+    val_sentences: bool = True,
+    seed: int = 0,
+) -> str:
+    """Write a miniature VOCASET into ``out_dir`` and return it.
+
+    The reference's four artifacts: ``templates.pkl`` (subject -> (V, 3)
+    f64), ``raw_audio_fixed.pkl`` (subject -> sentence -> {"audio": int16,
+    "sample_rate"}), ``data_verts.npy`` ((N, V, 3) f32) and
+    ``subj_seq_to_idx.pkl`` (subject -> sentence -> {frame: verts row}).
+    Audio is a per-subject harmonic tone whose amplitude envelope also
+    drives the vertex offsets, so models can fit it. With ``val_sentences``
+    each subject also gets sentences 21.. (the validation range)."""
+    import pickle
+
+    from audio2face_tpu_torch.data.vocaset import ALL_SUBJECTS
+
+    rng = np.random.default_rng(seed)
+    subjects = subjects if subjects is not None else ALL_SUBJECTS
+    os.makedirs(out_dir, exist_ok=True)
+
+    templates = {
+        s: (rng.normal(0.0, 0.01, (n_verts, 3)) + [0.0, 0.0, 0.05]).astype(np.float64)
+        for s in subjects
+    }
+
+    raw_audio: dict = {}
+    subj_seq_to_idx: dict = {}
+    verts_rows = []
+    row = 0
+    for si, subject in enumerate(subjects):
+        raw_audio[subject] = {}
+        subj_seq_to_idx[subject] = {}
+        sentence_ids = [f"sentence{i:02d}" for i in range(1, sentences_per_subject + 1)]
+        if val_sentences and sentences_per_subject < 21:
+            sentence_ids += [f"sentence{20 + i:02d}" for i in range(1, sentences_per_subject + 1)]
+        for sentence_id in sentence_ids:
+            n_samples = int(seconds_per_sentence * sample_rate)
+            t = np.arange(n_samples) / sample_rate
+            f0 = 110.0 * (1 + si * 0.1)
+            envelope = 0.4 + 0.3 * np.sin(2 * np.pi * 1.7 * t + si)
+            wav = envelope * (
+                np.sin(2 * np.pi * f0 * t) + 0.3 * np.sin(2 * np.pi * 2 * f0 * t)
+            )
+            audio_i16 = (wav * 16384).astype(np.int16)
+            raw_audio[subject][sentence_id] = {
+                "audio": audio_i16,
+                "sample_rate": sample_rate,
+            }
+
+            n_frames = int(n_samples * FPS / sample_rate)
+            frame_env = envelope[
+                np.minimum((np.arange(n_frames) * sample_rate // FPS), n_samples - 1)
+            ]
+            base = templates[subject]
+            direction = rng.normal(0.0, 1.0, (1, n_verts, 3)) * 0.002
+            seq = base[None] + frame_env[:, None, None] * direction
+            idx_map = {}
+            for fi in range(n_frames):
+                verts_rows.append(seq[fi].astype(np.float32))
+                idx_map[fi] = row
+                row += 1
+            subj_seq_to_idx[subject][sentence_id] = idx_map
+
+    with open(os.path.join(out_dir, "templates.pkl"), "wb") as f:
+        pickle.dump(templates, f)
+    with open(os.path.join(out_dir, "raw_audio_fixed.pkl"), "wb") as f:
+        pickle.dump(raw_audio, f)
+    np.save(os.path.join(out_dir, "data_verts.npy"), np.stack(verts_rows))
+    with open(os.path.join(out_dir, "subj_seq_to_idx.pkl"), "wb") as f:
+        pickle.dump(subj_seq_to_idx, f)
+    return out_dir
 
 
 def synthesize_speech_like(

@@ -29,6 +29,9 @@ frame windows) and a register-tiled one above; the backward on two
 register-tiled kernels. ``flash_attention.f32_launches`` and
 ``flash_attention_bwd.f32_launches`` count the f32 launches among
 ``launches``.
+
+``decode_step_attention`` (one KV-cached decode step of the live decoders)
+is plain torch operations, as the JAX package's is XLA einsums.
 """
 
 from __future__ import annotations
@@ -531,3 +534,48 @@ def flash_attention(
 
 flash_attention.launches = 0
 flash_attention.f32_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# KV-cached single-step decode attention
+# ---------------------------------------------------------------------------
+
+
+def decode_step_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    step,
+    *,
+    alibi_period: Optional[int] = None,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """One autoregressive decode step against a padded KV cache.
+
+    q: (B, H, D), the query at position ``step``; k_cache, v_cache:
+    (B, H, Tmax, D), valid on [0, step]; step: an int or 0-d tensor (one
+    position for the batch), or a (B,) tensor of per-item positions (pooled
+    streams sit at different frames of their own caches).
+
+    The attention the reference's per-frame recompute loop performs for its
+    newest position: causal over the prefix, with the period-bucketed ALiBi
+    bias ``-slope_h * floor((step - j) / period)`` (floored division, as
+    everywhere in the port), and rows past the step at
+    ``DEFAULT_MASK_VALUE``. Plain torch operations (the JAX package runs it
+    as XLA einsums, not a kernel); scores and softmax in f32."""
+    b, hh, t_max, d = k_cache.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    acc = _acc_dtype(q)
+    s = torch.einsum("bhd,bhkd->bhk", q.to(acc), k_cache.to(acc)) * sm_scale
+    j = torch.arange(t_max, device=q.device)[None, None, :]
+    step = torch.as_tensor(step, device=q.device)
+    if step.ndim == 1:  # per-item positions, broadcast over (B, H, Tmax)
+        step = step[:, None, None]
+    if alibi_period is not None:
+        slopes = device_alibi_slopes(hh, q.device).to(acc)
+        dist = torch.div(step - j, alibi_period, rounding_mode="floor").to(acc)
+        s = s - slopes[None, :, None] * dist
+    s = torch.where(j <= step, s, torch.full_like(s, DEFAULT_MASK_VALUE))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhk,bhkd->bhd", p.to(v_cache.dtype).to(acc), v_cache.to(acc)).to(q.dtype)

@@ -28,8 +28,12 @@ optimizer, step count); the data module is duck-typed:
 ``train_batches(np_rng)`` and ``val_batches()`` yield dicts of numpy arrays
 ``audio`` (B, S), ``one_hot`` (B, n), ``verts`` (B, T, V*3) or (B, T, V, 3)
 (frame models: (B, V*3) or (B, V, 3), one frame an item), ``template_vert``
-(B, V, 3) and, for padded FaceFormer batches, ``audio_lengths`` (B,). Runs
-on the GPU unless the caller passes ``device="cpu"``. Checkpoints are the
+(B, V, 3) and, for padded FaceFormer batches, ``audio_lengths`` (B,)
+(``data/vocaset.py``, ``data/biwi.py``). ``fit`` takes the training batches
+through ``runtime.Prefetcher``: the next batches are assembled on a worker
+thread and uploaded from pinned memory on a CUDA stream of their own while
+the current step runs. Runs on the GPU unless the caller passes
+``device="cpu"``. Checkpoints are the
 port's own ``torch.save`` files; ``load_torch_checkpoint`` takes a reference
 PyTorch/Lightning checkpoint. Not ported yet: ``evaluate``, tensorboard,
 profiler traces, meshes, and the JAX trainer's orbax checkpoints (orbax
@@ -56,6 +60,7 @@ from audio2face_tpu_torch.losses import (
     mse_error,
 )
 from audio2face_tpu_torch.registry import get_extractor, get_loss_fn, get_model
+from audio2face_tpu_torch.runtime import Prefetcher
 from audio2face_tpu_torch.utils.device import resolve_device
 
 
@@ -206,7 +211,13 @@ class Audio2FaceExperiment:
         return torch.Generator(device=self.device).manual_seed(stream_seed(*key))
 
     def _to_device(self, batch: dict) -> dict:
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in batch.items()}
+        """Each value as a tensor on the experiment's device; tensors already
+        there (the ``Prefetcher``'s uploads) pass through untouched."""
+        return {
+            k: v.to(self.device) if isinstance(v, torch.Tensor)
+            else torch.as_tensor(np.asarray(v)).to(self.device)
+            for k, v in batch.items()
+        }
 
     def _unpack(self, batch: dict):
         """x100 scaling + field split."""
@@ -359,15 +370,18 @@ class Audio2FaceExperiment:
                 epoch_step0 = skip_steps if epoch == start_epoch else 0
                 for _ in range(epoch_step0):  # already trained before resume
                     next(batches, None)
-                for batch in batches:
-                    metrics = self.train_step(batch)
-                    n_steps += 1
-                    if checkpoint_every_steps and self.step % checkpoint_every_steps == 0:
-                        self.save_checkpoint(epoch, periodic=True, epoch_step=epoch_step0 + n_steps)
-                    if n_steps % log_every == 0:
-                        row = {k: float(v) for k, v in metrics.items()}
-                        logf.write(json.dumps({"epoch": epoch, "step": self.step, **row}) + "\n")
-                    train_errs.append(metrics["err"])
+                # the next batches are assembled, and uploaded from pinned
+                # memory on a side stream, while this step runs
+                with Prefetcher(batches, device=self.device) as prefetcher:
+                    for batch in prefetcher:
+                        metrics = self.train_step(batch)
+                        n_steps += 1
+                        if checkpoint_every_steps and self.step % checkpoint_every_steps == 0:
+                            self.save_checkpoint(epoch, periodic=True, epoch_step=epoch_step0 + n_steps)
+                        if n_steps % log_every == 0:
+                            row = {k: float(v) for k, v in metrics.items()}
+                            logf.write(json.dumps({"epoch": epoch, "step": self.step, **row}) + "\n")
+                        train_errs.append(metrics["err"])
                 # one device-to-host read for the whole epoch's metrics
                 train_err = float(torch.stack(train_errs).mean()) if train_errs else float("nan")
                 val_errs = [self.eval_step(batch)["err"] for batch in datamodule.val_batches()]

@@ -75,10 +75,30 @@ which raises (exit code != 0) on failure:
    ``FaceFormerPredictor.from_checkpoint`` (dataset detected) giving the
    same vertices as the predictor built from the same weights, through the
    forward kernels;
-10. prints the ``{"kernels": [...]}`` line (each kernel's launches on the
-   serving, training, frame and checkpoint paths; K1 f32 and K4 f32 have
-   rows of their own, counted by the wrappers' ``f32_launches`` on the
-   wav2vec2 frame request and the f32 gradient check), then, last,
+10. the data pipeline: the native loader (``g++``) against its numpy
+   reference at the default configuration's shapes (128 fragments x 11,440
+   samples, rows of 5,023 x 3); a synthetic VOCASET (5,023 vertices, 4
+   sentences of 2 s a subject) through one epoch of ``fit`` for FaceFormer
+   (full width, bf16, clip batches of 8: K1 with dropout and K4) and
+   Audio2Mesh (``config.yaml``, frame batches of 128), every training batch
+   a CUDA tensor copied from pinned memory by the ``Prefetcher`` (step wall,
+   bytes, side-stream copy ms); one ``BiwiDataModule`` batch through a BIWI
+   training step;
+11. live serving with phase 4's weights: (a) ``StreamingFaceFormerPredictor``
+   (default windows, a 10 s clip in 0.25 s pieces: chunk latency, one
+   chunk's launches and idle share by the profiler, against its
+   plain-version run; one window against the offline predictor); K2 at
+   (1, 56,000) and K1 at (1, 12, 210, 64) against their plain versions,
+   timed; (b) an 8-slot ``MultiStreamFaceFormerPredictor`` (8 streams of
+   4-12 s, one late joiner) against solo streams; K2 and K1 at batch 8;
+   (c) ``FrameStreamPool`` on ``config.yaml`` (8 streams) against the
+   offline ``FramePredictor``; (d) ``ServingDaemon`` (8 concurrent 5 s WAV
+   requests, coalesced) and ``LiveStreamingDaemon`` (2 ``LiveClient`` s)
+   over loopback, ``/healthz`` naming ``cuda``;
+12. prints the ``{"kernels": [...]}`` line (each kernel's launches on the
+   serving, training, frame, checkpoint, data and live paths; K1 f32 and K4
+   f32 have rows of their own, counted by the wrappers' ``f32_launches`` on
+   the wav2vec2 frame request and the f32 gradient check), then, last,
    ``{"ok": true, "device": {...}}``.
 
 Gradients are off process-wide (the inference phases build no autograd
@@ -89,6 +109,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -839,6 +860,655 @@ def frame_model_phases(torch, rows, by_name, smi, pred, biwi_state, n_verts_biwi
                  "faceformer_decode_loop_biwi"):
         require(by_name[name]["checkpoint_launches"] > 0,
                 f"{name} did not launch on the checkpoint-loaded predictors")
+
+
+
+# the live paths on the card: a pooled stream (batch 8) against its solo run
+# (batch 1), a stream against its plain-version run and the single window
+# against the offline predictor, all with the bf16 encoder. cuBLAS and cuDNN
+# may pick other algorithms at another batch, the kernels round at other
+# places than the plain versions, and the offline predictor decodes with
+# bf16 weights (K3) where the stream's decoder step runs in f32; the decoder
+# feeds each frame back into the next. The vertex offsets from the template
+# are ~disp, so allow 5% of them: the bf16 predictor's bar of phase 4.
+LIVE_BF16_SHARE = 0.05
+
+
+def max_l2_and_bar(got: list, want: list, template) -> tuple[float, float, float]:
+    """(max per-vertex L2 of got - want, max offset of want from the
+    template, the bar LIVE_BF16_SHARE x that offset)."""
+    l2 = max(float(np.linalg.norm(a - b, axis=-1).max()) for a, b in zip(got, want))
+    disp = max(float(np.abs(b - template).max()) for b in want)
+    return l2, disp, LIVE_BF16_SHARE * disp
+
+
+# a pooled stream's tail against its solo run's: the pool pads its last
+# window to the full width (zeros where the lookahead was) and masks it,
+# the solo stream encodes the remainder without lookahead, so the last
+# chunk's encoder windows differ (the bidirectional encoder's
+# bounded-context approximation); tests/test_multistream.py's bar for the
+# masked tail: 30% of the offsets
+LIVE_TAIL_SHARE = 0.3
+
+
+def pooled_vs_solo(got: list, want: list, clips: list, template, chunk: int, lookahead: int,
+                   chunk_frames: int) -> dict:
+    """Pooled streams against their solo runs: the frames of the chunks both
+    emit from the same windows (every chunk emitted while chunk + lookahead
+    samples were buffered) at LIVE_BF16_SHARE of the offsets, the tail at
+    LIVE_TAIL_SHARE."""
+    n_same = [max(0, (len(c) - lookahead) // chunk) * chunk_frames for c in clips]
+    l2, disp, tol = max_l2_and_bar([g[:n] for g, n in zip(got, n_same)],
+                                   [w[:n] for w, n in zip(want, n_same)], template)
+    tail = max(float(np.linalg.norm(g[n:] - w[n:], axis=-1).max(initial=0.0))
+               for g, w, n in zip(got, want, n_same))
+    return {"same_window_frames": n_same, "max_vertex_l2": l2, "max_offset": disp, "tol": tol,
+            "tail_max_vertex_l2": tail, "tail_tol": LIVE_TAIL_SHARE * disp}
+
+
+def fit_through_prefetcher(torch, rows, exp, dm, label: str, smi: str) -> dict:
+    """One epoch of ``exp.fit(dm)``, each training step timed (synchronized)
+    and checked to receive its batch as CUDA tensors; the Prefetcher's
+    copies (bytes, pinned sources, side-stream ms by CUDA events). Returns
+    each kernel's launches in the training steps; adds the whole fit's
+    (validation included) to ``data_launches``."""
+    walls, on_card, train_counts = [], [], {r["name"]: 0 for r in rows}
+    train_step = exp.train_step
+
+    def timed(batch):
+        on_card.append(all(isinstance(v, torch.Tensor) and v.is_cuda for v in batch.values()))
+        before = {r["name"]: read_count(r) for r in rows}
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        metrics = train_step(batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - tic)
+        for r in rows:
+            train_counts[r["name"]] += read_count(r) - before[r["name"]]
+        return metrics
+
+    exp.train_step = timed
+    # the fit's own Prefetcher, with its copies' timing events recorded
+    from audio2face_tpu_torch.training import trainer as trainer_module
+
+    made, plain_prefetcher = [], trainer_module.Prefetcher
+
+    class Recorded(plain_prefetcher):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, record=True, **kwargs)
+            made.append(self)
+
+    trainer_module.Prefetcher = Recorded
+    reset_counts(rows)
+    tic = time.perf_counter()
+    try:
+        with torch.enable_grad():
+            _, result = exp.fit(dm, max_epochs=1, checkpoint=False)
+        torch.cuda.synchronize()
+    finally:
+        trainer_module.Prefetcher = plain_prefetcher
+    wall = time.perf_counter() - tic
+    for r in rows:
+        r["data_launches"] += read_count(r)
+    require(len(made) == 1, f"{label}: fit made {len(made)} Prefetchers for one epoch")
+    uploads = made[0].uploads
+    copy_ms = made[0].upload_ms()
+    hist = result.history[0]
+    require(len(walls) == len(uploads) == hist["steps"] > 0 and all(on_card),
+            f"{label}: {len(walls)} steps, {len(uploads)} uploads, {hist['steps']} in the history, "
+            f"CUDA batches {on_card}")
+    require(all(u["pinned"] for u in uploads), f"{label}: a batch was not copied from pinned memory")
+    require(math.isfinite(hist["train/err"]) and math.isfinite(hist["val/err"]), f"{label}: {hist}")
+    print(json.dumps({label: {
+        "steps": hist["steps"], "step_wall_s": walls, "bytes_uploaded": [u["bytes"] for u in uploads],
+        "copy_ms_side_stream": copy_ms, "fit_wall_s": wall, "train_err": hist["train/err"],
+        "val_err": hist["val/err"], "train_launches": {k_: v_ for k_, v_ in train_counts.items() if v_},
+        "card": smi,
+    }}), flush=True)
+    return train_counts
+
+
+def data_phases(torch, rows, smi, pred, biwi_state, n_verts_biwi) -> None:
+    """10: the native loader against its numpy reference at the default
+    configuration's shapes; one epoch of fit on a synthetic VOCASET for
+    FaceFormer (clip batches) and Audio2Mesh (frame batches), every training
+    batch through the Prefetcher; one BiwiDataModule batch through a BIWI
+    training step. Records each kernel's launches as ``data_launches``."""
+    import shutil
+    import tempfile
+
+    from audio2face_tpu_torch.config import ExpConfig
+    from audio2face_tpu_torch.data.biwi import DEFAULT_TRAIN_SUBJECTS, BiwiDataModule, generate_synthetic_biwi
+    from audio2face_tpu_torch.data.synthetic import generate_synthetic_vocaset
+    from audio2face_tpu_torch.data.vocaset import VocaDataModule
+    from audio2face_tpu_torch.runtime import (
+        Prefetcher,
+        build_native,
+        fragment_batch_i16,
+        fragment_batch_i16_reference,
+        gather_rows_f32,
+        gather_rows_f32_reference,
+    )
+    from audio2face_tpu_torch.training.trainer import Audio2FaceExperiment
+
+    dev = torch.device("cuda")
+    for r in rows:
+        r["data_launches"] = 0
+
+    # ---- 10a. the native loader: g++ build, native == numpy reference ------
+    tic = time.perf_counter()
+    build_native()
+    build_s = time.perf_counter() - tic
+    rng = np.random.default_rng(10)
+    sr, window, n_pad = 22000, 11440, 5720  # config.yaml: 0.52 s windows at 22 kHz
+    clip = rng.integers(-32768, 32768, 60 * sr).astype(np.int16)
+    frames = np.concatenate([[0, 3599], rng.integers(0, 3600, 126)])
+    shifts = np.concatenate([[500, -500], rng.integers(-500, 501, 126)])
+    starts = frames * sr // 60 - n_pad - shifts  # the first starts before the clip, the second runs past it
+    native = fragment_batch_i16(clip, starts, window)
+    ref = fragment_batch_i16_reference(clip, starts, window)
+    require(native.shape == (128, window) and np.array_equal(native, ref),
+            "the native fragmenter differs from its numpy reference")
+    verts = rng.normal(size=(2000, 5023, 3)).astype(np.float32)
+    idx = rng.integers(0, 2000, 128)
+    rows_native = gather_rows_f32(verts, idx)
+    require(np.array_equal(rows_native, gather_rows_f32_reference(verts, idx)),
+            "the native row gather differs from its numpy reference")
+
+    def host_ms(fn, reps=20):
+        fn()
+        tic_ = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return 1e3 * (time.perf_counter() - tic_) / reps
+
+    print(json.dumps({"native_loader": {
+        "build_s": build_s, "fragments": [128, window], "rows": [128, 5023, 3],
+        "fragment_ms": host_ms(lambda: fragment_batch_i16(clip, starts, window)),
+        "fragment_reference_ms": host_ms(lambda: fragment_batch_i16_reference(clip, starts, window)),
+        "gather_ms": host_ms(lambda: gather_rows_f32(verts, idx)),
+        "gather_reference_ms": host_ms(lambda: gather_rows_f32_reference(verts, idx)),
+        "equal_to_reference": True, "host_cpus": os.cpu_count(), "card": smi,
+    }}), flush=True)
+    del clip, native, ref, verts, rows_native
+
+    tmp = tempfile.mkdtemp(prefix="a2f_smoke_data_")
+    try:
+        # ---- 10b. a synthetic VOCASET: 12 subjects x 4 sentences x 2.0 s ----
+        tic = time.perf_counter()
+        vdir = generate_synthetic_vocaset(os.path.join(tmp, "vocaset"), n_verts=5023,
+                                          sentences_per_subject=2, seconds_per_sentence=2.0)
+        print(json.dumps({"synthetic_vocaset": {
+            "n_verts": 5023, "sentences_per_subject": "2 + 2 in the validation range",
+            "seconds_each": 2.0, "generate_s": time.perf_counter() - tic,
+            "data_verts_bytes": os.path.getsize(os.path.join(vdir, "data_verts.npy")), "card": smi,
+        }}), flush=True)
+
+        # FaceFormer at full width, bf16, clip batches of 8
+        cfg_ff = ExpConfig(
+            batch_size=8, modelname="faceformer", one_hot_size=12, feature_extractor=None,
+            sample_rate=16000, vertex_count=pred.n_verts, split_frame=False, n_feature=32,
+            out_dim=52, win_length=440, percision="16-mixed", lr=1e-4, seed=0,
+        )
+        dm = VocaDataModule(vdir, batch_size=8, split_frame=False)
+        dm.setup()
+        exp = Audio2FaceExperiment(cfg_ff, log_dir=os.path.join(tmp, "logs_faceformer"))
+        exp.model.load_state_dict(pred.model.state_dict())
+        require(exp.model.audio_encoder.config.attention_dropout > 0, "the training encoder has no attention dropout")
+        counts = fit_through_prefetcher(torch, rows, exp, dm, "fit_faceformer_vocaset", smi)
+        n_fwd, n_bwd = counts["flash_attention"], counts["flash_attention_bwd"]
+        require(n_fwd > 0 and n_bwd == n_fwd, f"FaceFormer fit: K1 (dropout) {n_fwd}, K4 {n_bwd} launches")
+        require(all(counts[n_] == 0 for n_ in ("fused_conv_encoder", "faceformer_decode_loop",
+                                                "faceformer_decode_loop_biwi", "rasterize_keys")),
+                f"an inference-only kernel was launched in a training step: {counts}")
+        del exp, dm
+        torch.cuda.empty_cache()
+
+        # Audio2Mesh from config.yaml (MFCC, bf16), frame batches of 128
+        cfg_a2m = ExpConfig.from_yaml("config.yaml")
+        require(cfg_a2m.batch_size == 128 and cfg_a2m.split_frame, f"config.yaml: {cfg_a2m}")
+        dm = VocaDataModule(vdir, batch_size=cfg_a2m.batch_size, split_frame=True)
+        dm.setup()
+        exp = Audio2FaceExperiment(cfg_a2m, log_dir=os.path.join(tmp, "logs_audio2mesh"))
+        fit_through_prefetcher(torch, rows, exp, dm, "fit_audio2mesh_vocaset", smi)
+        del exp, dm
+        torch.cuda.empty_cache()
+
+        # ---- 10c. one BiwiDataModule batch through a BIWI training step ------
+        bdir = generate_synthetic_biwi(
+            os.path.join(tmp, "biwi"), n_verts=n_verts_biwi // 3, subjects=("F2", "M3", "F1"),
+            sentences=(1, 2, 33, 37), seconds_per_sentence=2.0,
+        )
+        # the phase-6 model takes a 12-wide one-hot: 12 of the corpus's subjects
+        subjects = DEFAULT_TRAIN_SUBJECTS + ("F1", "F5", "F6", "F7", "F8", "M1")
+        bdm = BiwiDataModule(bdir, batch_size=2, train_subjects=subjects)
+        bdm.setup()
+        cfg_biwi = ExpConfig(
+            batch_size=2, modelname="faceformer", one_hot_size=12, feature_extractor=None,
+            sample_rate=16000, vertex_count=n_verts_biwi, split_frame=False, n_feature=32,
+            out_dim=52, win_length=440, percision="16-mixed", lr=1e-4, seed=0, dataset="biwi",
+        )
+        exp = Audio2FaceExperiment(cfg_biwi, log_dir=os.path.join(tmp, "logs_biwi"))
+        exp.model.load_state_dict(biwi_state)
+        with Prefetcher(bdm.train_batches(np.random.default_rng(0)), device=dev, record=True) as pf:
+            batch = next(pf)
+        require(all(v.is_cuda for v in batch.values()) and pf.uploads[0]["pinned"],
+                "the BIWI batch did not arrive on the card from pinned memory")
+        reset_counts(rows)
+        tic = time.perf_counter()
+        with torch.enable_grad():
+            metrics = exp.train_step(batch)
+            torch.cuda.synchronize()
+        step_s = time.perf_counter() - tic
+        for r in rows:
+            r["data_launches"] += read_count(r)
+        require(all(math.isfinite(float(v_)) for v_ in metrics.values()), f"BIWI data step: {metrics}")
+        from audio2face_tpu_torch.ops import attention as attn_ops
+        from audio2face_tpu_torch.ops import decode_kernel as dk
+
+        require(attn_ops.flash_attention.launches > 0
+                and attn_ops.flash_attention_bwd.launches == attn_ops.flash_attention.launches
+                and dk.faceformer_decode_loop.biwi_launches == 0,
+                "the BIWI data step did not run K1 and K4 alone")
+        print(json.dumps({"biwi_data_step": {
+            "batch": list(batch["audio"].shape), "frames": int(batch["verts"].shape[1]),
+            "bytes_uploaded": pf.uploads[0]["bytes"], "step_wall_s": step_s,
+            "loss": float(metrics["loss"]), "card": smi,
+        }}), flush=True)
+        del exp, batch
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def window_kernel_readings(torch, rows, by_name, smi, stream, batch: int) -> dict:
+    """K2 at (batch, window) and K1 at (batch, 12, T, 64), the shapes a
+    streaming window gives them (no lengths, no kv_lengths), each against
+    its plain version and timed beside its bound (and SDPA for K1): device
+    time by the profiler (median of 5 windows of 20 calls), and CUDA events
+    around back-to-back calls (``events_ms``, which the host's launch rate
+    sets at these sizes)."""
+    from audio2face_tpu_torch.models.faceformer import frame_count
+    from audio2face_tpu_torch.ops import attention as attn_ops
+    from audio2face_tpu_torch.ops import conv_encoder as ce
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(100 + batch)
+    n = stream.left + stream.chunk + stream.lookahead
+    x = (torch.randn(batch, n, generator=g)).to(dev)
+    fe = stream.model.audio_encoder.feature_encoder
+    kernels = [conv.weight.permute(2, 1, 0) for conv in fe.conv_layers]
+    gscale, gbias = fe.group_norm.weight, fe.group_norm.bias
+    out = ce.fused_conv_encoder(x, kernels, gscale, gbias)
+    ref = ce.conv_encoder_reference(x, kernels, gscale, gbias)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = 0.05 * ref.float().abs().max().item()  # phase 3b's bar
+    require(out.shape == ref.shape and err <= tol and bool(torch.isfinite(out.float()).all()),
+            f"K2 at ({batch}, {n}): err {err} > {tol}")
+    t_l = (n - 10) // 5 + 1
+    flops = 2.0 * batch * t_l * 10 * ce.C
+    for kk, ss in zip(ce.CONV_KERNEL[1:], ce.CONV_STRIDE[1:]):
+        t_l = (t_l - kk) // ss + 1
+        flops += 2.0 * batch * t_l * kk * ce.C * ce.C
+    w_bytes = 10 * ce.C * 4 + sum(kk * ce.C * ce.C * 2 for kk in ce.CONV_KERNEL[1:]) + 2 * ce.C * 4
+    bms, bby = bound(batch * n * 4 + w_bytes + batch * t_l * ce.C * 2, flops / PEAK_BF16_FLOPS)
+    # a call this short is timed by the profiler's device time (CUDA events
+    # around back-to-back calls would time the host's launches)
+    dev_ms, _ = profiled_ms(torch, lambda: ce.fused_conv_encoder(x, kernels, gscale, gbias), 20)
+    k2 = {"shape": [batch, n], "rows_out": t_l, "max_abs_err": err, "tol": tol,
+          "ms": float(np.median(dev_ms)),
+          "events_ms": cuda_ms(torch, lambda: ce.fused_conv_encoder(x, kernels, gscale, gbias), 20),
+          "plain_ms": float(np.median(profiled_ms(
+              torch, lambda: ce.conv_encoder_reference(x, kernels, gscale, gbias), 5)[0])),
+          "bound_ms": bms, "bound_by": bby, "library_ms": None, "card": smi}
+    del x, out, ref
+
+    t, h, d = frame_count(n), 12, 64
+    q, k, v = (torch.randn(batch, h, t, d, generator=g).to(dev, torch.bfloat16) for _ in range(3))
+    out = attn_ops.flash_attention(q, k, v)
+    ref = attn_ops.mha_reference(q, k, v)
+    torch.cuda.synchronize()
+    rel = row_scaled_err(out, ref)
+    require(rel <= K1_BF16_ROW_TOL and bool(torch.isfinite(out.float()).all()),
+            f"K1 at ({batch}, {h}, {t}, {d}): err {rel} of the row's largest |out| > {K1_BF16_ROW_TOL}")
+    # q, k, v read and out written once; every pair's two products at the bf16 peak
+    bms, bby = bound(4 * batch * h * t * d * 2, 4.0 * batch * h * t * t * d / PEAK_BF16_FLOPS)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_ms, sdpa_names = profiled_ms(torch, lambda: sdpa(q, k, v), 20)
+    k1 = {"shape": [batch, h, t, d], "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+          "max_err_over_row_max": rel, "tol_over_row_max": K1_BF16_ROW_TOL,
+          "ms": float(np.median(profiled_ms(torch, lambda: attn_ops.flash_attention(q, k, v), 20)[0])),
+          "events_ms": cuda_ms(torch, lambda: attn_ops.flash_attention(q, k, v), 50),
+          "plain_ms": float(np.median(profiled_ms(torch, lambda: attn_ops.mha_reference(q, k, v), 20)[0])),
+          "bound_ms": bms, "bound_by": bby, "library_ms": float(np.median(sdpa_ms)),
+          "library_events_ms": cuda_ms(torch, lambda: sdpa(q, k, v), 50),
+          "library_backend": sdpa_backend(sdpa_names), "card": smi}
+    print(json.dumps({f"window_kernels_batch_{batch}": {"K2": k2, "K1": k1}}), flush=True)
+    by_name["fused_conv_encoder"].setdefault("window_readings", []).append(k2)
+    by_name["flash_attention"].setdefault("window_readings", []).append(k1)
+    return {"K2": k2, "K1": k1}
+
+
+def chunk_profile(torch, push) -> dict:
+    """One chunk's push under the profiler: its device launches (kernels,
+    copies and memsets), their summed device time and the device's idle
+    share of the push's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tic = time.perf_counter()
+        got = push()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tic
+    events = [e for e in prof.events() if getattr(e, "device_type", None) == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    kernels = [e for e in events if "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+    return {"frames": int(got.shape[0]), "device_launches": len(events), "kernel_launches": len(kernels),
+            "device_busy_ms": busy, "wall_ms_profiled": 1e3 * wall,
+            "idle_share": max(0.0, 1.0 - busy / (1e3 * wall))}
+
+
+def live_phases(torch, rows, by_name, smi, pred) -> None:
+    """11: the live serving front ends at full width (phase 4's bf16
+    weights): (a) one stream, (b) an 8-slot pool, (c) the frame-model pool
+    on config.yaml, (d) the HTTP and live daemons over loopback. Records
+    each kernel's launches on the live paths as ``streaming_launches``."""
+    import http.client
+    import io
+    import threading
+
+    import scipy.io.wavfile as wavfile
+
+    from audio2face_tpu_torch.config import ExpConfig
+    from audio2face_tpu_torch.data.synthetic import synthesize_speech_like
+    from audio2face_tpu_torch.frame_stream import FrameStreamPool
+    from audio2face_tpu_torch.http_server import ServingDaemon, decode_audio_body
+    from audio2face_tpu_torch.live_server import LiveClient, LiveStreamingDaemon
+    from audio2face_tpu_torch.models.faceformer import frame_count
+    from audio2face_tpu_torch.multistream import MultiStreamFaceFormerPredictor, StreamingServer
+    from audio2face_tpu_torch.serving import FramePredictor
+    from audio2face_tpu_torch.streaming import StreamingFaceFormerPredictor
+
+    bf = torch.bfloat16
+    n_verts, state = pred.n_verts, pred.model.state_dict()
+    for r in rows:
+        r["streaming_launches"] = 0
+
+    def add_streaming_launches():
+        for r in rows:
+            r["streaming_launches"] += read_count(r)
+
+    rng = np.random.default_rng(11)
+    template = (rng.normal(size=(n_verts // 3, 3)) * 0.1).astype(np.float32)
+    eye = np.eye(12, dtype=np.float32)
+    speech = [synthesize_speech_like(12.0, 16000, seed=30 + i) for i in range(8)]
+
+    def run_stream(stream, clip, one_hot, piece=4000, latencies=None):
+        stream.start_stream(one_hot, template)
+        outs = []
+        for off in range(0, len(clip), piece):
+            tic = time.perf_counter()
+            got = stream.push(clip[off : off + piece])
+            if got.size and latencies is not None:
+                latencies.append(time.perf_counter() - tic)
+            outs.append(got)
+        outs.append(stream.flush())
+        return np.concatenate(outs)
+
+    # ---- 11a. one stream, default windows, 10 s in 0.25 s pieces -----------
+    stream = StreamingFaceFormerPredictor(state_dict=state, n_verts=n_verts, dtype=bf)
+    clip10 = speech[0][: 10 * 16000]
+    run_stream(stream, clip10[: 4 * 16000], eye[0])  # warm: the window and tail shapes
+    torch.cuda.synchronize()
+    reset_counts(rows)
+    lat = []
+    tic = time.perf_counter()
+    out = run_stream(stream, clip10, eye[0], latencies=lat)
+    wall = time.perf_counter() - tic
+    add_streaming_launches()
+    require(out.shape == (600, n_verts // 3, 3) and bool(np.isfinite(out).all()),
+            f"stream: shape {out.shape} or not finite")
+    k1_c, k2_c = by_name["flash_attention"]["streaming_launches"], by_name["fused_conv_encoder"]["streaming_launches"]
+    require(k1_c > 0 and k2_c > 0, f"the stream launched K1 {k1_c} and K2 {k2_c} times")
+    # one chunk's launches and the device's idle share, by the profiler
+    stream.start_stream(eye[0], template)
+    stream.push(clip10[: stream.chunk + stream.lookahead - 4000])
+    prof = chunk_profile(torch, lambda: stream.push(clip10[stream.chunk + stream.lookahead - 4000 :][:4000]))
+    require(prof["frames"] == 60, f"the profiled push gave {prof['frames']} frames")
+    plain = StreamingFaceFormerPredictor(state_dict=state, n_verts=n_verts, dtype=bf, use_kernels=False)
+    want = run_stream(plain, clip10, eye[0])
+    l2, disp, tol = max_l2_and_bar([out], [want], template)
+    print(json.dumps({"stream": {
+        "clip_s": 10.0, "piece_s": 0.25, "chunk_s": 1.0, "left_s": 2.0, "lookahead_s": 0.5,
+        "window_samples": stream.left + stream.chunk + stream.lookahead,
+        "chunks": len(lat), "chunk_latency_ms_median": 1e3 * float(np.median(lat)),
+        "chunk_latency_ms_max": 1e3 * max(lat), "wall_s": wall, "realtime_factor": 10.0 / wall,
+        "k1_launches": k1_c, "k2_launches": k2_c, "one_chunk_profiled": prof,
+        # the profiler's own host cost lengthens the profiled push: the same
+        # device time over the median unprofiled chunk as well
+        "idle_share_unprofiled": max(0.0, 1.0 - prof["device_busy_ms"] / (1e3 * float(np.median(lat)))),
+        "vs_plain_max_vertex_l2": l2, "max_offset": disp, "tol": tol, "card": smi,
+    }}), flush=True)
+    require(l2 <= tol, f"stream vs its plain-version run: max per-vertex L2 {l2} > {tol}")
+    del plain
+    # the single window over a grain-aligned clip against the offline predictor
+    single = StreamingFaceFormerPredictor(state_dict=state, n_verts=n_verts, dtype=bf,
+                                          chunk_seconds=5.0, left_seconds=0.0, lookahead_seconds=0.0)
+    clip5 = speech[1][: 5 * 16000]
+    single.start_stream(eye[3], template)
+    got = single.push(clip5, last=True)
+    want = pred([clip5], eye[[3]], template)[0]
+    l2, disp, tol = max_l2_and_bar([got], [want], template)
+    print(json.dumps({"check": "single-window stream vs the offline predictor, 5 s, bf16",
+                      "max_vertex_l2": l2, "max_offset": disp, "tol": tol, "card": smi}), flush=True)
+    require(got.shape == want.shape and l2 <= tol, f"single window vs offline: {l2} > {tol}")
+    del single
+    window_kernel_readings(torch, rows, by_name, smi, stream, 1)
+    del stream
+    torch.cuda.empty_cache()
+
+    # ---- 11b. an 8-slot pool: 8 streams of 4-12 s, one late joiner ---------
+    secs = [4.0, 5.0, 6.0, 7.0, 8.0, 9.0, 10.0, 12.0]
+    clips = [speech[i][: int(s_ * 16000)] for i, s_ in enumerate(secs)]
+    pool = MultiStreamFaceFormerPredictor(state_dict=state, n_verts=n_verts, n_streams=8, dtype=bf)
+    warm = pool.open_stream(eye[0], template)  # warm: the pool's one step shape
+    pool.push(warm, clips[0][: 4 * 16000], last=True)
+    pool.close_stream(warm)
+    torch.cuda.synchronize()
+    step_s = []
+    step = pool._step
+
+    def timed_step():
+        tic_ = time.perf_counter()
+        step()
+        step_s.append(time.perf_counter() - tic_)
+
+    pool._step = timed_step
+    reset_counts(rows)
+    tic = time.perf_counter()
+    slots = {i: pool.open_stream(eye[i], template) for i in range(7)}
+    got = {i: [] for i in range(8)}
+    offs = [0] * 8
+    piece = 4000
+    while any(offs[i] < len(c) for i, c in enumerate(clips)):
+        for i, c in enumerate(clips):
+            if i == 7 and 7 not in slots:
+                if offs[0] < 3 * 16000:
+                    continue
+                slots[7] = pool.open_stream(eye[7], template)  # joins 3 s late
+            if offs[i] < len(c):
+                j = min(offs[i] + piece, len(c))
+                got[i].append(pool.push(slots[i], c[offs[i]:j], last=j == len(c)))
+                offs[i] = j
+    for i in range(8):
+        got[i].append(pool.poll(slots[i]))
+        pool.close_stream(slots[i])
+    wall = time.perf_counter() - tic
+    add_streaming_launches()
+    outs = [np.concatenate(got[i]) for i in range(8)]
+    for c, o in zip(clips, outs):
+        require(o.shape == (frame_count(len(c)), n_verts // 3, 3) and bool(np.isfinite(o).all()),
+                f"pool: shape {o.shape} or not finite")
+    solo_pred = StreamingFaceFormerPredictor(state_dict=state, n_verts=n_verts, dtype=bf)
+    solos = [run_stream(solo_pred, c, eye[i]) for i, c in enumerate(clips)]
+    vs_solo = pooled_vs_solo(outs, solos, clips, template, pool.chunk, pool.lookahead, pool.chunk_frames)
+    frames = sum(o.shape[0] for o in outs)
+    print(json.dumps({"pool": {
+        "streams": 8, "seconds": secs, "late_joiner_after_s": 3.0, "piece_s": 0.25,
+        "steps": len(step_s), "step_latency_ms_median": 1e3 * float(np.median(step_s)),
+        "step_latency_ms_max": 1e3 * max(step_s), "wall_s": wall, "frames": frames,
+        "mesh_frames_per_s": frames / wall, "realtime_factor_per_stream": 1.0 / float(np.median(step_s)),
+        "realtime_factor_all_streams": sum(secs) / wall, "vs_solo": vs_solo, "card": smi,
+    }}), flush=True)
+    require(vs_solo["max_vertex_l2"] <= vs_solo["tol"] and vs_solo["tail_max_vertex_l2"] <= vs_solo["tail_tol"],
+            f"pool vs solo streams: {vs_solo}")
+    window_kernel_readings(torch, rows, by_name, smi, solo_pred, 8)
+    del pool, solo_pred
+    torch.cuda.empty_cache()
+
+    # ---- 11c. the frame-model pool: config.yaml (Audio2Mesh, MFCC), 8 streams
+    cfg = ExpConfig.from_yaml("config.yaml")
+    sr = cfg.sample_rate
+    offline = FramePredictor(cfg, max_batch=8, frame_batch=128, seed=0)
+    fpool = FrameStreamPool(cfg, state_dict=offline.model.state_dict(), n_streams=8)
+    fclips = [synthesize_speech_like(s_, sr, seed=50 + i) for i, s_ in enumerate(secs)]
+    reset_counts(rows)
+    tic = time.perf_counter()
+    fslots = [fpool.open_stream(eye[i], template) for i in range(8)]
+    fgot = [[] for _ in range(8)]
+    offs = [0] * 8
+    piece = int(0.1 * sr)
+    while any(offs[i] < len(c) for i, c in enumerate(fclips)):
+        for i, c in enumerate(fclips):
+            if offs[i] < len(c):
+                j = min(offs[i] + piece, len(c))
+                fgot[i].append(fpool.push(fslots[i], c[offs[i]:j], last=j == len(c)))
+                offs[i] = j
+    fouts = [np.concatenate(g_ + [fpool.poll(s_)]) for g_, s_ in zip(fgot, fslots)]
+    wall = time.perf_counter() - tic
+    add_streaming_launches()
+    fwant = offline(fclips, eye[:8], template)
+    l2, disp, tol = max_l2_and_bar(fouts, fwant, template)
+    frames = sum(o.shape[0] for o in fouts)
+    print(json.dumps({"frame_pool": {
+        "model": "audio2mesh", "streams": 8, "seconds": secs, "piece_s": 0.1, "frame_batch": fpool.fb,
+        "steps": fpool.steps, "wall_s": wall, "frames": frames, "mesh_frames_per_s": frames / wall,
+        "vs_offline_max_vertex_l2": l2, "max_offset": disp, "tol": tol, "card": smi,
+    }}), flush=True)
+    require(all(o.shape == w.shape for o, w in zip(fouts, fwant)) and l2 <= tol,
+            f"frame pool vs offline: max per-vertex L2 {l2} > {tol}")
+    del fpool, offline
+    torch.cuda.empty_cache()
+
+    # ---- 11d. the daemons over loopback -------------------------------------
+    daemon = ServingDaemon(pred, template, port=0, max_wait_ms=50.0, max_queue=64)
+    daemon.start()
+    live = None
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", daemon.port, timeout=300)
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        conn.close()
+        require(health["backend"] == "cuda", f"/healthz: {health}")
+        bodies = []
+        for i in range(8):
+            buf = io.BytesIO()
+            wavfile.write(buf, 16000, (speech[i][: 5 * 16000] * 32767).astype(np.int16))
+            bodies.append(buf.getvalue())
+
+        def post(body, subject):
+            c = http.client.HTTPConnection("127.0.0.1", daemon.port, timeout=300)
+            c.request("POST", f"/v1/infer?subject={subject}", body=body,
+                      headers={"Content-Type": "audio/wav"})
+            r = c.getresponse()
+            data = r.read()
+            c.close()
+            return r.status, data
+
+        post(bodies[0], 0)  # warm
+        before = daemon.stats()
+        results, lat = [None] * 8, [0.0] * 8
+
+        def client(i):
+            tic_ = time.perf_counter()
+            results[i] = post(bodies[i], i)
+            lat[i] = time.perf_counter() - tic_
+
+        reset_counts(rows)
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+        tic = time.perf_counter()
+        for t_ in threads:
+            t_.start()
+        for t_ in threads:
+            t_.join(timeout=600)
+        wall = time.perf_counter() - tic
+        add_streaming_launches()
+        after = daemon.stats()
+        batches = after["batches"] - before["batches"]
+        require(all(r_ is not None and r_[0] == 200 for r_ in results), "an HTTP request failed")
+        require(after["ok"] - before["ok"] == 8 and 0 < batches < 8,
+                f"/stats: {after['ok'] - before['ok']} answered in {batches} batches")
+        got = [np.load(io.BytesIO(r_[1])) for r_ in results]
+        want = []
+        for i in range(8):
+            wav, wsr = decode_audio_body(bodies[i], "audio/wav", None)
+            want.append(pred([wav], eye[[i]], template, sample_rate=wsr)[0])
+        l2, disp, tol = max_l2_and_bar(got, want, template)
+        print(json.dumps({"http_daemon": {
+            "requests": 8, "seconds_each": 5.0, "batches": batches, "wall_s": wall,
+            "requests_per_s": 8 / wall, "latency_ms_p50": 1e3 * float(np.percentile(lat, 50)),
+            "latency_ms_p90": 1e3 * float(np.percentile(lat, 90)), "healthz": health,
+            "vs_direct_max_vertex_l2": l2, "max_offset": disp, "tol": tol, "card": smi,
+        }}), flush=True)
+        require(l2 <= tol, f"HTTP results vs direct calls: max per-vertex L2 {l2} > {tol}")
+
+        live = LiveStreamingDaemon(
+            server=StreamingServer(state_dict=state, n_verts=n_verts, n_streams=2, dtype=bf),
+            template=template, idle_poll_ms=20.0,
+        )
+        live.start()
+        lclips = [speech[2][: 5 * 16000], speech[3][: 5 * 16000]]
+        lout, lerr = [None, None], []
+
+        def live_client(i):
+            try:
+                with LiveClient(live.port, subject=i, sample_rate=16000, timeout=30.0) as c:
+                    parts = [c.send(lclips[i][off : off + 4000]) for off in range(0, len(lclips[i]), 4000)]
+                    lout[i] = np.concatenate(parts + [c.finish()])
+            except Exception as e:  # reported below
+                lerr.append(repr(e))
+
+        reset_counts(rows)
+        threads = [threading.Thread(target=live_client, args=(i,)) for i in range(2)]
+        tic = time.perf_counter()
+        for t_ in threads:
+            t_.start()
+        for t_ in threads:
+            t_.join(timeout=600)
+        wall = time.perf_counter() - tic
+        add_streaming_launches()
+        require(not lerr and all(o is not None for o in lout), f"live clients: {lerr}")
+        solo_pred = StreamingFaceFormerPredictor(state_dict=state, n_verts=n_verts, dtype=bf)
+        lwant = [run_stream(solo_pred, c, eye[i]) for i, c in enumerate(lclips)]
+        require(all(o.shape == w.shape for o, w in zip(lout, lwant)),
+                f"live daemon: {[o.shape for o in lout]} frames against {[w.shape for w in lwant]}")
+        vs_solo = pooled_vs_solo(lout, lwant, lclips, template, solo_pred.chunk, solo_pred.lookahead, 60)
+        print(json.dumps({"live_daemon": {
+            "clients": 2, "seconds_each": 5.0, "wall_s": wall, "frames": [o.shape[0] for o in lout],
+            "stats": live.stats(), "vs_solo": vs_solo, "card": smi,
+        }}), flush=True)
+        require(vs_solo["max_vertex_l2"] <= vs_solo["tol"] and vs_solo["tail_max_vertex_l2"] <= vs_solo["tail_tol"],
+                f"live daemon vs solo streams: {vs_solo}")
+    finally:
+        if live is not None:
+            live.stop()
+        daemon.stop()
+    for name in ("flash_attention", "fused_conv_encoder"):
+        require(by_name[name]["streaming_launches"] > 0, f"{name} did not launch on the live paths")
+    require(by_name["flash_attention_bwd"]["streaming_launches"] == 0, "a backward kernel ran while serving live")
 
 
 def main() -> int:
@@ -1824,10 +2494,18 @@ def main() -> int:
 
     # ---- 9. the frame models and checkpoint I/O ------------------------------
     frame_model_phases(torch, rows, by_name, smi, pred, biwi_state, n_verts_biwi)
+    torch.cuda.empty_cache()
+
+    # ---- 10. the data pipeline: native loader, fit through the Prefetcher --
+    data_phases(torch, rows, smi, pred, biwi_state, n_verts_biwi)
     del biwi_state
     torch.cuda.empty_cache()
 
-    # ---- 10. results ----------------------------------------------------
+    # ---- 11. live serving: stream, pool, frame pool, daemons ----------------
+    live_phases(torch, rows, by_name, smi, pred)
+    torch.cuda.empty_cache()
+
+    # ---- 12. results ----------------------------------------------------
     for r in rows:
         del r["wrapper"]
         r.pop("counter", None)

@@ -164,10 +164,11 @@ def test_infer_cli_on_the_cpu(tmp_path):
     verts = np.load(tmp_path / "out" / "clip_verts.npy")
     n16 = -(-8800 * 8 // 11)  # 0.4 s at 22 kHz, resampled to 16 kHz
     assert verts.shape == (n16 * 25 // 16000, 60, 3) and np.isfinite(verts).all()
-    # --checkpoint, --torch-checkpoint and --config work now
-    # (test_infer_cli_frame_models_and_checkpoints); streaming is still to come
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 2"):
-        infer.main(base + ["--streaming"])
+    # --checkpoint, --torch-checkpoint and --config work
+    # (test_infer_cli_frame_models_and_checkpoints), --streaming too
+    # (test_infer_cli_streaming_on_the_cpu), for vocaset weights only
+    with pytest.raises(SystemExit, match="only vocaset"):
+        infer.main(base + ["--dataset", "biwi", "--streaming"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if torch.cuda.is_available():
             raise RuntimeError("CUDA is not available (skipped: a GPU is present)")
@@ -219,3 +220,48 @@ def test_infer_cli_frame_models_and_checkpoints(tmp_path):
         faceformer = tmp_path / "ff.yaml"
         faceformer.write_text(open(configs["voca"]).read().replace('"voca"', '"faceformer"'))
         infer.main(base + ["--config", str(faceformer)])
+
+
+def test_infer_cli_streaming_on_the_cpu(tmp_path, capsys):
+    """--streaming decodes FaceFormer through StreamingFaceFormerPredictor and
+    a frame model (--config) through a FrameStreamPool slot, end to end on
+    the CPU, and prints the per-chunk (per-packet) latency."""
+    from audio2face_tpu_torch.config import ExpConfig
+    from audio2face_tpu_torch.serving import FramePredictor
+    from audio2face_tpu_torch.streaming import StreamingFaceFormerPredictor
+
+    template = syn.generate_synthetic_face_obj(str(tmp_path / "face.obj"), 60)
+    wav = str(tmp_path / "clip.wav")
+    wavfile.write(wav, 22000, (syn.synthesize_speech_like(0.5, seed=3) * 32767).astype(np.int16))
+    out = tmp_path / "out"
+    base = ["--audio", wav, "--template", template, "--output", str(out), "--device", "cpu",
+            "--batch", "1", "--streaming"]
+    infer.main(base + ["--f32", "--chunk-seconds", "0.2", "--left-seconds", "0.2",
+                       "--lookahead-seconds", "0.1"])
+    verts = np.load(out / "clip_verts.npy")
+    clip, sr = audio_io.read_wav(wav)
+    n16 = -(-len(clip) * 8 // 11)  # resampled to 16 kHz
+    assert verts.shape == (n16 * 60 // 16000, 60, 3) and np.isfinite(verts).all()
+    assert "ms compute/chunk" in capsys.readouterr().out
+    # the same stream, run directly on the CLI's (seed 0) weights
+    stream = StreamingFaceFormerPredictor(n_verts=180, chunk_seconds=0.2, left_seconds=0.2,
+                                          lookahead_seconds=0.1, device="cpu")
+    mesh = facemesh.FaceMesh.load(template)
+    stream.start_stream(np.eye(12, dtype=np.float32)[0], np.asarray(mesh.verts, np.float32))
+    from audio2face_tpu_torch.ops.dsp import resample
+
+    audio16 = resample(torch.as_tensor(clip), sr, 16000).numpy()
+    want = np.concatenate([stream.push(audio16[i : i + 1600]) for i in range(0, len(audio16), 1600)]
+                          + [stream.flush()])
+    np.testing.assert_array_equal(verts, want)
+
+    cfg_path = tmp_path / "audio2mesh.yaml"
+    cfg_path.write_text('modelname: "audio2mesh"\nbatch_size: 2\nvertex_count: 180\none_hot_size: 12\n'
+                        'split_frame: True\npercision: "32"\nlr: 1e-4\nfeature_extractor: "mfcc"\n'
+                        'sample_rate: 22000\nn_feature: 32\nout_dim: 52\nwin_length: 440\n')
+    infer.main(base + ["--config", str(cfg_path)])
+    got = np.load(out / "clip_verts.npy")
+    assert "ms compute/100 ms packet" in capsys.readouterr().out
+    want = FramePredictor(ExpConfig.from_yaml(str(cfg_path)), max_batch=1, device="cpu")(
+        [clip], np.eye(12, dtype=np.float32)[[0]], np.asarray(mesh.verts, np.float32))[0]
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
