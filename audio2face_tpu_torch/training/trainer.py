@@ -35,9 +35,11 @@ thread and uploaded from pinned memory on a CUDA stream of their own while
 the current step runs. Runs on the GPU unless the caller passes
 ``device="cpu"``. Checkpoints are the
 port's own ``torch.save`` files; ``load_torch_checkpoint`` takes a reference
-PyTorch/Lightning checkpoint. Not ported yet: ``evaluate``, tensorboard,
-profiler traces, meshes, and the JAX trainer's orbax checkpoints (orbax
-imports JAX).
+PyTorch/Lightning checkpoint. ``evaluate`` scores the test split with the
+metrics of ``evaluation.py``. ``fit`` writes tensorboard scalars when
+``torch.utils.tensorboard`` is installed and, with ``profile_epoch``, a
+``torch.profiler`` Chrome trace of that epoch's first steps. Not ported
+yet: meshes, and the JAX trainer's orbax checkpoints (orbax imports JAX).
 """
 
 from __future__ import annotations
@@ -86,12 +88,18 @@ class Audio2FaceExperiment:
         self,
         config: ExpConfig,
         log_dir: Optional[str] = None,
+        tensorboard: bool = True,
         accumulate_grad_batches: Optional[int] = None,
         device="cuda",
         model_kwargs: Optional[dict] = None,
         use_kernels: bool = True,
     ):
-        """accumulate_grad_batches: split each batch into this many
+        """tensorboard: also write ``fit``'s scalars as tensorboard events
+        into ``log_dir`` (``metrics.jsonl`` is always written); without the
+        ``tensorboard`` package no events are written. The writer and its
+        import are made at ``fit``'s first write.
+
+        accumulate_grad_batches: split each batch into this many
         microbatches, average their gradients, and apply ONE optimizer
         update; the batch size must divide evenly. Defaults to the config's
         key. ``model_kwargs`` go to the model's constructor (a narrow
@@ -124,6 +132,8 @@ class Audio2FaceExperiment:
         self.use_kernels = use_kernels
         self.log_dir = log_dir or os.path.join("logs", config.name())
         self.is_faceformer = config.modelname == "faceformer"
+        self.tensorboard = tensorboard
+        self._tb = None
 
         model_cls = get_model(config.modelname)
         self.feature_extractor = get_extractor(config.feature_extractor)(
@@ -316,6 +326,60 @@ class Audio2FaceExperiment:
         pred, fmask, verts = self._apply(self._to_device(batch), train=False)
         return pred / 100.0, mse_error(pred, verts, self.config.vertex_count // 3, fmask)
 
+    def evaluate(
+        self,
+        datamodule,
+        regions=None,
+        sentences: Optional[list] = None,
+        max_sentences: Optional[int] = None,
+    ) -> dict:
+        """Domain evaluation over the test split: LVE / FDD / MVE / max-L2
+        (``evaluation.py``). Runs :meth:`predict` on each test (subject,
+        sentence), computes that sentence's metrics in dataset units on the
+        device, and returns their means plus the mean ``err`` and
+        ``n_sentences``. The per-sentence numbers stay on the device until
+        one read at the end.
+
+        ``regions=None`` derives the geometric stand-in masks from the first
+        sentence's template (``evaluation.infer_regions``); pass a
+        ``VertexRegions`` built from the licensed FLAME masks for numbers
+        comparable with published results. ``sentences`` restricts to an
+        explicit [(subject, sentence), ...] list."""
+        from audio2face_tpu_torch import evaluation as E
+
+        ds = datamodule.test_dataset
+        pairs = sentences or list(dict.fromkeys((r[0], r[1]) for r in ds.datalist))
+        if max_sentences is not None:
+            pairs = pairs[:max_sentences]
+        if not pairs:
+            raise ValueError("test split has no sentences to evaluate")
+
+        rows = []
+        for human, sentence in pairs:
+            batch = datamodule.predict_batch(human, sentence)
+            pred, err = self.predict(batch)
+            gt = np.asarray(batch["verts"], np.float32)
+            template = np.asarray(batch["template_vert"], np.float32)
+            frame_mask = None
+            if pred.ndim == 4:  # clip mode: (1, T_pad, V, 3) + valid lengths
+                n_frames = pred.shape[1]
+                frame_mask = (
+                    np.arange(n_frames)[None, :] < np.asarray(batch["frame_lengths"])[:, None]
+                ).astype(np.float32)
+                gt = gt.reshape(pred.shape)
+                template = template[:, None]  # (1, 1, V, 3) broadcast over T
+            if regions is None:
+                tmpl0 = np.asarray(batch["template_vert"]).reshape(-1, pred.shape[-2], 3)[0]
+                regions = E.infer_regions(tmpl0)
+            metrics = E.animation_metrics(pred, gt, template, regions, frame_mask)
+            rows.append(torch.cat([metrics, err.float().reshape(1)]))
+        # one device-to-host read; means in float64 over the sentences
+        per_sentence = torch.stack(rows).cpu().numpy().astype(np.float64)
+        out = dict(zip(E.METRICS, per_sentence[:, :4].mean(axis=0).tolist()))
+        out["err"] = float(per_sentence[:, 4].mean())
+        out["n_sentences"] = len(pairs)
+        return out
+
     # ------------------------------------------------------------------
     # fit loop
     # ------------------------------------------------------------------
@@ -326,12 +390,19 @@ class Audio2FaceExperiment:
         max_epochs: Optional[int] = None,
         log_every: int = 10,
         checkpoint: bool = True,
+        profile_epoch: Optional[int] = None,
         resume: bool = False,
         checkpoint_every_steps: Optional[int] = None,
     ) -> tuple[dict, FitResult]:
         """Fit loop. Returns the best epoch's state (``state_dict()`` form, on
         the CPU) and a ``FitResult``; the experiment itself holds the last
         state.
+
+        ``profile_epoch=E`` runs ``torch.profiler`` (the CPU, and CUDA on
+        the GPU) over epoch E's first 5 steps, or all of them if the epoch
+        is shorter, each step marked ``train``, and writes a Chrome trace to
+        ``{log_dir}/trace-epoch=E.json`` (open it in Perfetto or
+        ``chrome://tracing``).
 
         ``resume=True`` continues from the newest checkpoint: optimizer
         state, step and epoch counter included. ``checkpoint_every_steps=N``
@@ -370,18 +441,30 @@ class Audio2FaceExperiment:
                 epoch_step0 = skip_steps if epoch == start_epoch else 0
                 for _ in range(epoch_step0):  # already trained before resume
                     next(batches, None)
-                # the next batches are assembled, and uploaded from pinned
-                # memory on a side stream, while this step runs
-                with Prefetcher(batches, device=self.device) as prefetcher:
-                    for batch in prefetcher:
-                        metrics = self.train_step(batch)
-                        n_steps += 1
-                        if checkpoint_every_steps and self.step % checkpoint_every_steps == 0:
-                            self.save_checkpoint(epoch, periodic=True, epoch_step=epoch_step0 + n_steps)
-                        if n_steps % log_every == 0:
-                            row = {k: float(v) for k, v in metrics.items()}
-                            logf.write(json.dumps({"epoch": epoch, "step": self.step, **row}) + "\n")
-                        train_errs.append(metrics["err"])
+                profiler = self._start_profiler() if epoch == profile_epoch else None
+                try:
+                    # the next batches are assembled, and uploaded from
+                    # pinned memory on a side stream, while this step runs
+                    with Prefetcher(batches, device=self.device) as prefetcher:
+                        for batch in prefetcher:
+                            with torch.profiler.record_function("train"):
+                                metrics = self.train_step(batch)
+                            n_steps += 1
+                            if profiler is not None and n_steps >= 5:
+                                self._stop_profiler(profiler, epoch)
+                                profiler = None
+                            if checkpoint_every_steps and self.step % checkpoint_every_steps == 0:
+                                self.save_checkpoint(epoch, periodic=True,
+                                                     epoch_step=epoch_step0 + n_steps)
+                            if n_steps % log_every == 0:
+                                row = {k: float(v) for k, v in metrics.items()}
+                                logf.write(json.dumps({"epoch": epoch, "step": self.step, **row}) + "\n")
+                                for k, v in row.items():
+                                    self._scalar(f"train_step/{k}", v, self.step)
+                            train_errs.append(metrics["err"])
+                finally:
+                    if profiler is not None:  # fewer than 5 steps, or a step failed
+                        self._stop_profiler(profiler, epoch)
                 # one device-to-host read for the whole epoch's metrics
                 train_err = float(torch.stack(train_errs).mean()) if train_errs else float("nan")
                 val_errs = [self.eval_step(batch)["err"] for batch in datamodule.val_batches()]
@@ -394,6 +477,9 @@ class Audio2FaceExperiment:
                 history.append(row)
                 logf.write(json.dumps(row) + "\n")
                 logf.flush()
+                # scalar names mirror the reference's logger
+                self._scalar("train/err", train_err, epoch)
+                self._scalar("val/err", val_err, epoch)
                 print(f"Epoch {epoch} train err: {train_err}")
                 print(f"Epoch {epoch} val error: {val_err}")
 
@@ -407,7 +493,38 @@ class Audio2FaceExperiment:
                     if bad_epochs >= cfg.early_stop_patience:
                         break
 
+        if self._tb is not None:
+            self._tb.flush()
         return best_state, FitResult(best_val, best_epoch, len(history), history)
+
+    def _scalar(self, tag: str, value: float, step: int) -> None:
+        """One tensorboard scalar; the writer (and its import) is made at
+        the first call. Without the ``tensorboard`` package nothing is
+        written."""
+        if not self.tensorboard:
+            return
+        if self._tb is None:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                self.tensorboard = False  # tensorboard logging is optional
+                return
+            self._tb = SummaryWriter(self.log_dir)
+        self._tb.add_scalar(tag, value, step)
+
+    def _start_profiler(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler, epoch: int) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        profiler.export_chrome_trace(os.path.join(self.log_dir, f"trace-epoch={epoch}.json"))
 
     # ------------------------------------------------------------------
     # checkpointing (torch.save)

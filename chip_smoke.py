@@ -95,11 +95,25 @@ which raises (exit code != 0) on failure:
    offline ``FramePredictor``; (d) ``ServingDaemon`` (8 concurrent 5 s WAV
    requests, coalesced) and ``LiveStreamingDaemon`` (2 ``LiveClient`` s)
    over loopback, ``/healthz`` naming ``cuda``;
-12. prints the ``{"kernels": [...]}`` line (each kernel's launches on the
-   serving, training, frame, checkpoint, data and live paths; K1 f32 and K4
-   f32 have rows of their own, counted by the wrappers' ``f32_launches`` on
-   the wav2vec2 frame request and the f32 gradient check), then, last,
-   ``{"ok": true, "device": {...}}``.
+12. the command lines at full width on 10b's synthetic VOCASET (FaceFormer,
+   ``configs/faceformer.yaml``, bf16): (a) ``cli.train`` in process, one
+   epoch at batch 8 with ``--skip-render`` (K1 with dropout and K4 in the
+   steps), predicting and scoring one test sentence into
+   ``pred_verts.npy``; (b) the ``cli.evaluate`` sweep of its checkpoint
+   over the test split (seconds and frames/s a sentence; K1-K3), the same
+   sweep through the plain versions on the card, and ``evaluate_animation``
+   on the card against a float64 numpy evaluation; (c) ``cli.evaluate``'s
+   diff of ``pred_verts.npy`` against the sentence's ground truth; (d)
+   ``cli.export`` reloaded by ``FaceFormerPredictor.from_torch_checkpoint``
+   against ``from_checkpoint`` (weights, f32 predictions); (e) ``cli.serve``
+   as a subprocess with ``--warmup-seconds 10`` and ``--live-port``: two
+   concurrent 5 s POSTs against direct calls, ``/stats``, one 5 s live
+   session, then terminated;
+13. prints the ``{"kernels": [...]}`` line (each kernel's launches on the
+   serving, training, frame, checkpoint, data, live and CLI paths; K1 f32
+   and K4 f32 have rows of their own, counted by the wrappers'
+   ``f32_launches`` on the wav2vec2 frame request and the f32 gradient
+   check), then, last, ``{"ok": true, "device": {...}}``.
 
 Gradients are off process-wide (the inference phases build no autograd
 graph); the training phases turn them on in their own scope.
@@ -110,8 +124,10 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -968,18 +984,31 @@ def fit_through_prefetcher(torch, rows, exp, dm, label: str, smi: str) -> dict:
     return train_counts
 
 
-def data_phases(torch, rows, smi, pred, biwi_state, n_verts_biwi) -> None:
-    """10: the native loader against its numpy reference at the default
-    configuration's shapes; one epoch of fit on a synthetic VOCASET for
-    FaceFormer (clip batches) and Audio2Mesh (frame batches), every training
-    batch through the Prefetcher; one BiwiDataModule batch through a BIWI
-    training step. Records each kernel's launches as ``data_launches``."""
-    import shutil
-    import tempfile
+def synthetic_vocaset(root: str, smi: str) -> str:
+    """10b's synthetic VOCASET, 12 subjects x 4 sentences x 2.0 s at 5,023
+    vertices, written under ``root``; phases 10 and 12 share it."""
+    from audio2face_tpu_torch.data.synthetic import generate_synthetic_vocaset
 
+    tic = time.perf_counter()
+    vdir = generate_synthetic_vocaset(os.path.join(root, "vocaset"), n_verts=5023,
+                                      sentences_per_subject=2, seconds_per_sentence=2.0)
+    print(json.dumps({"synthetic_vocaset": {
+        "n_verts": 5023, "sentences_per_subject": "2 + 2 in the validation range",
+        "seconds_each": 2.0, "generate_s": time.perf_counter() - tic,
+        "data_verts_bytes": os.path.getsize(os.path.join(vdir, "data_verts.npy")), "card": smi,
+    }}), flush=True)
+    return vdir
+
+
+def data_phases(torch, rows, smi, pred, biwi_state, n_verts_biwi, vdir: str) -> None:
+    """10: the native loader against its numpy reference at the default
+    configuration's shapes; one epoch of fit on the synthetic VOCASET at
+    ``vdir`` for FaceFormer (clip batches) and Audio2Mesh (frame batches),
+    every training batch through the Prefetcher; one BiwiDataModule batch
+    through a BIWI training step. Records each kernel's launches as
+    ``data_launches``."""
     from audio2face_tpu_torch.config import ExpConfig
     from audio2face_tpu_torch.data.biwi import DEFAULT_TRAIN_SUBJECTS, BiwiDataModule, generate_synthetic_biwi
-    from audio2face_tpu_torch.data.synthetic import generate_synthetic_vocaset
     from audio2face_tpu_torch.data.vocaset import VocaDataModule
     from audio2face_tpu_torch.runtime import (
         Prefetcher,
@@ -1034,16 +1063,7 @@ def data_phases(torch, rows, smi, pred, biwi_state, n_verts_biwi) -> None:
 
     tmp = tempfile.mkdtemp(prefix="a2f_smoke_data_")
     try:
-        # ---- 10b. a synthetic VOCASET: 12 subjects x 4 sentences x 2.0 s ----
-        tic = time.perf_counter()
-        vdir = generate_synthetic_vocaset(os.path.join(tmp, "vocaset"), n_verts=5023,
-                                          sentences_per_subject=2, seconds_per_sentence=2.0)
-        print(json.dumps({"synthetic_vocaset": {
-            "n_verts": 5023, "sentences_per_subject": "2 + 2 in the validation range",
-            "seconds_each": 2.0, "generate_s": time.perf_counter() - tic,
-            "data_verts_bytes": os.path.getsize(os.path.join(vdir, "data_verts.npy")), "card": smi,
-        }}), flush=True)
-
+        # ---- 10b. the synthetic VOCASET: 12 subjects x 4 sentences x 2.0 s ----
         # FaceFormer at full width, bf16, clip batches of 8
         cfg_ff = ExpConfig(
             batch_size=8, modelname="faceformer", one_hot_size=12, feature_extractor=None,
@@ -1509,6 +1529,407 @@ def live_phases(torch, rows, by_name, smi, pred) -> None:
     for name in ("flash_attention", "fused_conv_encoder"):
         require(by_name[name]["streaming_launches"] > 0, f"{name} did not launch on the live paths")
     require(by_name["flash_attention_bwd"]["streaming_launches"] == 0, "a backward kernel ran while serving live")
+
+
+# the checkpoint sweep through the kernels against the same sweep through the
+# plain versions (same checkpoint, same sentences): per sentence, the
+# predictions within phase 4's bf16 bar (LIVE_BF16_SHARE of the vertex
+# offsets from the template, delta); each mean metric within what delta
+# moves it by: MVE and max-L2 are distances (delta), LVE a squared distance
+# (delta (2 M + delta), M the largest distance), FDD a std of squared
+# offsets (delta (2 R + delta), R the largest offset)
+# evaluate_animation on the card (f32) against the float64 numpy formulas on
+# the same arrays: relative error of each metric; FDD, a difference of two
+# means, is taken relative to the size of the terms (mean dyn(pred) + dyn(gt))
+METRIC_F64_RTOL = 1e-5
+# the exported checkpoint reloaded against the trainer's: each weight within
+# 1e-6 of its tensor's largest |value| (the positional conv's weight norm is
+# re-derived and folded again); f32 predictions within 1e-5 per-vertex L2
+EXPORT_WEIGHT_RTOL = 1e-6
+EXPORT_VERTEX_L2 = 1e-5
+
+
+def metrics_f64(pred, gt, template, lip, upper, mask) -> tuple[dict, float]:
+    """LVE, FDD, MVE and max-L2 of one masked clip in float64 numpy, from the
+    formulas of ``evaluation.py``'s docstring (pred, gt (T, V, 3), template
+    (V, 3), mask (T,)); and FDD's scale, mean dyn(pred) + dyn(gt)."""
+    p, g, t = (np.asarray(a, np.float64) for a in (pred, gt, template))
+    m = np.asarray(mask, np.float64)
+    n = m.sum()
+    d2 = ((p - g) ** 2).sum(-1)  # (T, V)
+    d = np.sqrt(d2)
+
+    def dyn(z):
+        a = ((z[:, upper] - t[upper]) ** 2).sum(-1)  # (T, Vu)
+        mu = (a * m[:, None]).sum(0) / n
+        return np.sqrt((((a - mu) ** 2) * m[:, None]).sum(0) / n)
+
+    dp, dg = dyn(p), dyn(g)
+    return {
+        "lve": float((d2[:, lip].max(1) * m).sum() / n),
+        "fdd": float((dp - dg).mean()),
+        "mve": float((d * m[:, None]).sum() / (n * d.shape[1])),
+        "max_l2": float((d * m[:, None]).max()),
+    }, float((dp + dg).mean())
+
+
+def run_cli(main_fn, argv: list) -> str:
+    """A CLI's ``main(argv)`` in this process; its standard output, echoed."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        main_fn(argv)
+    text = out.getvalue()
+    sys.stdout.write(text)
+    sys.stdout.flush()
+    return text
+
+
+def cli_phases(torch, rows, by_name, smi, vdir: str) -> None:
+    """12: the command lines at full width on the card, on 10b's synthetic
+    VOCASET: (a) ``cli.train`` (configs/faceformer.yaml, batch 8, one epoch,
+    --skip-render), (b) the ``cli.evaluate`` sweep over the test split, and
+    the same sweep through the plain versions, (c) ``cli.evaluate`` diff of
+    the saved prediction, (d) ``cli.export`` reloaded by
+    ``from_torch_checkpoint``, (e) ``cli.serve`` as a subprocess with
+    ``--live-port``. Records each kernel's in-process launches as
+    ``cli_launches``."""
+    import http.client
+    import io
+    import socket
+    import threading
+
+    import scipy.io.wavfile as wavfile
+
+    from audio2face_tpu_torch import evaluation as E
+    from audio2face_tpu_torch.cli import evaluate as cli_evaluate
+    from audio2face_tpu_torch.cli import export as cli_export
+    from audio2face_tpu_torch.cli import train as cli_train
+    from audio2face_tpu_torch.config import ExpConfig
+    from audio2face_tpu_torch.data.synthetic import generate_synthetic_face_obj, synthesize_speech_like
+    from audio2face_tpu_torch.data.vocaset import VocaDataModule
+    from audio2face_tpu_torch.http_server import decode_audio_body
+    from audio2face_tpu_torch.live_server import LiveClient
+    from audio2face_tpu_torch.serving import FaceFormerPredictor
+    from audio2face_tpu_torch.training.trainer import Audio2FaceExperiment
+    from audio2face_tpu_torch.utils.facemesh import FaceMesh, save_obj
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cfg_path = os.path.join(repo, "configs", "faceformer.yaml")
+    config = ExpConfig.from_yaml(cfg_path).apply_faceformer_overrides()
+    n_verts = config.vertex_count
+    for r in rows:
+        r["cli_launches"] = 0
+
+    def add_cli_launches() -> dict:
+        counts = {r["name"]: read_count(r) for r in rows}
+        for r in rows:
+            r["cli_launches"] += counts[r["name"]]
+        return {k_: v_ for k_, v_ in counts.items() if v_}
+
+    work = tempfile.mkdtemp(prefix="a2f_smoke_cli_")
+    cwd = os.getcwd()
+    os.chdir(work)  # the CLIs' default log dir: logs/<config name> under the working directory
+    try:
+        # ---- 12a. cli.train: one epoch at batch 8, then predict and score ----
+        step_counts = {r["name"]: 0 for r in rows}
+        plain_step = Audio2FaceExperiment.train_step
+
+        def counted_step(self, batch):
+            before = {r["name"]: read_count(r) for r in rows}
+            out = plain_step(self, batch)
+            for r in rows:
+                step_counts[r["name"]] += read_count(r) - before[r["name"]]
+            return out
+
+        Audio2FaceExperiment.train_step = counted_step
+        reset_counts(rows)
+        tic = time.perf_counter()
+        try:
+            with torch.enable_grad():
+                out = run_cli(cli_train.main, [
+                    "--config", cfg_path, "--dataset-path", vdir, "--max-epochs", "1",
+                    "--batch-size", "8", "--skip-render", "--device", "cuda"])
+            torch.cuda.synchronize()
+        finally:
+            Audio2FaceExperiment.train_step = plain_step
+        wall = time.perf_counter() - tic
+        launches = add_cli_launches()
+        log_dir = os.path.join(work, "logs", config.name())
+        epoch_rows = [json.loads(l_) for l_ in open(os.path.join(log_dir, "metrics.jsonl"))
+                      if "val/err" in l_]
+        lines = out.splitlines()
+        printed = [l_ for l_ in lines if l_.startswith("predict metrics: ")]
+        require(len(printed) == 1 and len(epoch_rows) == 1, "cli.train printed no metrics")
+        metrics = {k_: float(v_) for k_, v_ in
+                   (kv.split("=") for kv in printed[0][len("predict metrics: "):].split())}
+        rec = [float(l_.split(": ")[1]) for l_ in lines if l_.startswith("predict_rec_loss: ")]
+        pred_verts = np.load(os.path.join(log_dir, "pred_verts.npy"))
+        n_fwd, n_bwd = step_counts["flash_attention"], step_counts["flash_attention_bwd"]
+        steps = epoch_rows[0]["steps"]
+        print(json.dumps({"cli_train": {
+            "config": "configs/faceformer.yaml", "batch": 8, "wall_s": wall, "steps": steps,
+            "k1_step_launches": n_fwd, "k4_step_launches": n_bwd, "launches": launches,
+            "predict_rec_loss": rec, "metrics": metrics, "pred_verts": list(pred_verts.shape),
+            "card": smi,
+        }}), flush=True)
+        require(steps > 0 and n_fwd > 0 and n_bwd == n_fwd,
+                f"cli.train: {steps} steps, K1 {n_fwd} and K4 {n_bwd} launches in the steps")
+        require(len(rec) == 1 and math.isfinite(rec[0]) and all(math.isfinite(v_) for v_ in metrics.values()),
+                f"cli.train: predict_rec_loss {rec}, metrics {metrics}")
+        require(pred_verts.ndim == 3 and pred_verts.shape[1:] == (n_verts // 3, 3)
+                and bool(np.isfinite(pred_verts).all()), f"pred_verts.npy {pred_verts.shape}")
+        ckpt_names = sorted((c for c in os.listdir(os.path.join(log_dir, "checkpoints"))
+                             if not c.endswith(".tmp")), key=lambda x: int(x.split("=")[-1]))
+        trainer_ckpt = os.path.join(log_dir, "checkpoints", ckpt_names[-1])
+
+        # ---- 12b. cli.evaluate: the checkpoint sweep over the test split ------
+        recorded: list = []
+        plain_predict = Audio2FaceExperiment.predict
+
+        def timed_predict(self, batch):
+            torch.cuda.synchronize()
+            tic_ = time.perf_counter()
+            pred_, err_ = plain_predict(self, batch)
+            torch.cuda.synchronize()
+            recorded.append({"s": time.perf_counter() - tic_, "batch": batch, "pred": pred_,
+                             "frames": int(batch["frame_lengths"][0])})
+            return pred_, err_
+
+        Audio2FaceExperiment.predict = timed_predict
+        try:
+            reset_counts(rows)
+            out = run_cli(cli_evaluate.main, ["--config", cfg_path, "--dataset-path", vdir,
+                                              "--device", "cuda"])
+            torch.cuda.synchronize()
+            launches = add_cli_launches()
+            swept = recorded[:]
+            sweep = json.loads(out.strip().splitlines()[-1])["metrics"]
+            # the same sweep through the plain versions on the card
+            recorded.clear()
+            dm = VocaDataModule(vdir, batch_size=1, split_frame=False)
+            dm.setup()
+            plain_exp = Audio2FaceExperiment(config, log_dir=log_dir, use_kernels=False)
+            plain_exp.load_checkpoint(trainer_ckpt)
+            reset_counts(rows)
+            plain_sweep = plain_exp.evaluate(dm)
+            require(all(read_count(r) == 0 for r in rows), "the plain sweep launched a kernel")
+            plain_recorded = recorded[:]
+        finally:
+            Audio2FaceExperiment.predict = plain_predict
+        del plain_exp
+        n_sent = sweep["n_sentences"]
+        print(json.dumps({"cli_evaluate_sweep": {
+            "metrics": sweep, "sentence_s": [r_["s"] for r_ in swept],
+            "frames": [r_["frames"] for r_ in swept],
+            "frames_per_s": [r_["frames"] / r_["s"] for r_ in swept], "launches": launches,
+            "card": smi,
+        }}), flush=True)
+        require(n_sent == len(swept) == len(plain_recorded) > 0
+                and all(math.isfinite(sweep[k_]) for k_ in E.METRICS + ("err",)),
+                f"cli.evaluate sweep: {sweep}")
+        for name in ("flash_attention", "fused_conv_encoder", "faceformer_decode_loop"):
+            require(launches.get(name, 0) > 0, f"the sweep did not launch {name}")
+        l2s, disps, largest, offset = [], [], 0.0, 0.0
+        for k_run, p_run in zip(swept, plain_recorded):
+            n = k_run["frames"]
+            got = k_run["pred"][0, :n].float().cpu().numpy()
+            want = p_run["pred"][0, :n].float().cpu().numpy()
+            tmpl = np.asarray(k_run["batch"]["template_vert"], np.float32)[0]
+            gt = np.asarray(k_run["batch"]["verts"], np.float32).reshape(-1, n_verts // 3, 3)[:n]
+            l2s.append(float(np.linalg.norm(got - want, axis=-1).max()))
+            disps.append(float(np.abs(want - tmpl).max()))
+            largest = max(largest, float(np.linalg.norm(got - gt, axis=-1).max()),
+                          float(np.linalg.norm(want - gt, axis=-1).max()))
+            offset = max(offset, float(np.linalg.norm(got - tmpl, axis=-1).max()),
+                         float(np.linalg.norm(want - tmpl, axis=-1).max()))
+        delta = LIVE_BF16_SHARE * max(disps)
+        bars = {"mve": delta, "max_l2": delta, "lve": delta * (2 * largest + delta),
+                "fdd": delta * (2 * offset + delta)}
+        diffs = {k_: abs(sweep[k_] - plain_sweep[k_]) for k_ in bars}
+        print(json.dumps({"check": "cli.evaluate sweep, kernels vs plain",
+                          "max_vertex_l2": max(l2s), "vertex_tol": delta, "metric_diff": diffs,
+                          "metric_tol": bars, "plain_metrics": plain_sweep}), flush=True)
+        require(max(l2s) <= delta and all(diffs[k_] <= bars[k_] for k_ in bars),
+                f"sweep kernels vs plain: L2 {max(l2s)} (bar {delta}), metrics {diffs} (bars {bars})")
+
+        # evaluate_animation on the card against float64 numpy, one sentence
+        first = swept[0]
+        b0 = first["batch"]
+        t_pad = first["pred"].shape[1]
+        gt0 = np.asarray(b0["verts"], np.float32).reshape(1, t_pad, n_verts // 3, 3)
+        tmpl0 = np.asarray(b0["template_vert"], np.float32)
+        mask0 = (np.arange(t_pad)[None] < first["frames"]).astype(np.float32)
+        regions = E.infer_regions(tmpl0[0])
+        got = E.evaluate_animation(first["pred"], gt0, tmpl0[:, None], regions, frame_mask=mask0)
+        want, fdd_scale = metrics_f64(first["pred"][0].float().cpu().numpy(), gt0[0], tmpl0[0],
+                                      regions.lip, regions.upper, mask0[0])
+        rel = {k_: abs(got[k_] - want[k_]) / (fdd_scale if k_ == "fdd" else abs(want[k_]))
+               for k_ in want}
+        print(json.dumps({"check": "evaluate_animation on the card vs float64 numpy",
+                          "frames": first["frames"], "rel_err": rel, "tol": METRIC_F64_RTOL}),
+              flush=True)
+        require(max(rel.values()) <= METRIC_F64_RTOL, f"evaluate_animation vs float64: {rel}")
+
+        # ---- 12c. cli.evaluate: diff of the saved prediction -------------------
+        pred_pair = [l_ for l_ in lines if l_.startswith("predict subject not in test split; using ")]
+        subject, sentence = ("FaceTalk_170908_03277_TA", "sentence02") if not pred_pair else \
+            pred_pair[0].rsplit(" ", 1)[1].split("/")
+        batch = dm.predict_batch(subject, sentence)
+        n = int(batch["frame_lengths"][0])
+        gt_path, obj_path = os.path.join(work, "gt_verts.npy"), os.path.join(work, "template.obj")
+        np.save(gt_path, np.asarray(batch["verts"], np.float32).reshape(-1, n_verts // 3, 3)[:n])
+        faces = FaceMesh.load(generate_synthetic_face_obj(os.path.join(work, "face.obj"),
+                                                          n_verts=n_verts // 3)).faces
+        save_obj(obj_path, np.asarray(batch["template_vert"])[0], faces)
+        reset_counts(rows)
+        out = run_cli(cli_evaluate.main, ["--pred", os.path.join(log_dir, "pred_verts.npy"),
+                                          "--gt", gt_path, "--template", obj_path, "--device", "cuda"])
+        diff = json.loads(out.strip().splitlines()[-1])["metrics"]
+        pair = list(dict.fromkeys((r_[0], r_[1]) for r_ in dm.test_dataset.datalist))
+        k_run = swept[pair.index((subject, sentence))]
+        t_pad = k_run["pred"].shape[1]
+        mask = (np.arange(t_pad)[None] < n).astype(np.float32)
+        sweep_l2 = E.evaluate_animation(
+            k_run["pred"], np.asarray(batch["verts"], np.float32).reshape(1, t_pad, n_verts // 3, 3),
+            np.asarray(batch["template_vert"], np.float32)[:, None], regions, frame_mask=mask)["max_l2"]
+        print(json.dumps({"cli_evaluate_diff": {
+            "sentence": f"{subject}/{sentence}", "metrics": diff, "sweep_max_l2": sweep_l2,
+            "card": smi}}), flush=True)
+        require(diff["n_frames"] == n and abs(diff["max_l2"] - sweep_l2) <= 1e-6 * sweep_l2,
+                f"diff mode max_l2 {diff['max_l2']} vs the sweep's {sweep_l2} ({diff['n_frames']} frames)")
+        del swept, plain_recorded, recorded[:]
+
+        # ---- 12d. cli.export, reloaded by from_torch_checkpoint ----------------
+        out_ckpt = os.path.join(work, "faceformer.ckpt")
+        out = run_cli(cli_export.main, ["--config", cfg_path, "--out", out_ckpt])
+        require(out.startswith("exported faceformer step "), f"cli.export: {out}")
+        reset_counts(rows)
+        exported = FaceFormerPredictor.from_torch_checkpoint(out_ckpt, n_verts=n_verts, bf16=False)
+        trained = FaceFormerPredictor.from_checkpoint(trainer_ckpt, n_verts=n_verts, bf16=False)
+        sd_e, sd_t = exported.model.state_dict(), trained.model.state_dict()
+        require(set(sd_e) == set(sd_t), "the exported checkpoint loads other tensors")
+        w_err = max(float((sd_e[k_] - v_).abs().max()) / max(float(v_.abs().max()), 1e-30)
+                    for k_, v_ in sd_t.items())
+        clips = [synthesize_speech_like(3.0, 16000, seed=40), synthesize_speech_like(4.5, 16000, seed=41)]
+        one_hot = np.eye(12, dtype=np.float32)[[2, 9]]
+        tmpl = np.asarray(FaceMesh.load(obj_path).verts, np.float32)
+        got, want = exported(clips, one_hot, tmpl), trained(clips, one_hot, tmpl)
+        torch.cuda.synchronize()
+        launches = add_cli_launches()
+        l2 = max(float(np.linalg.norm(a - b, axis=-1).max()) for a, b in zip(got, want))
+        print(json.dumps({"cli_export": {
+            "bytes": os.path.getsize(out_ckpt), "weight_rel_err": w_err, "weight_tol": EXPORT_WEIGHT_RTOL,
+            "f32_max_vertex_l2": l2, "vertex_tol": EXPORT_VERTEX_L2, "launches": launches, "card": smi,
+        }}), flush=True)
+        require(w_err <= EXPORT_WEIGHT_RTOL and l2 <= EXPORT_VERTEX_L2,
+                f"exported checkpoint: weights {w_err}, predictions {l2}")
+        del exported, trained, sd_e, sd_t
+        torch.cuda.empty_cache()
+
+        # ---- 12e. cli.serve as a subprocess: two POSTs, /stats, a live session --
+        def free_port() -> int:
+            with socket.socket() as s_:
+                s_.bind(("127.0.0.1", 0))
+                return s_.getsockname()[1]
+
+        port, live_port = free_port(), free_port()
+        env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        serve_log = os.path.join(work, "serve.log")
+        log_f = open(serve_log, "w")
+        tic = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "audio2face_tpu_torch.cli.serve", "--template", obj_path,
+             "--checkpoint", trainer_ckpt, "--port", str(port), "--warmup-seconds", "10",
+             "--live-port", str(live_port), "--device", "cuda"],
+            cwd=repo, env=env, stdout=log_f, stderr=subprocess.STDOUT)
+        try:
+            health = None
+            while health is None:
+                require(proc.poll() is None and time.perf_counter() - tic < 300,
+                        "cli.serve exited or did not bind in 300 s:\n" + open(serve_log).read()[-3000:])
+                try:
+                    c = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+                    c.request("GET", "/healthz")
+                    health = json.loads(c.getresponse().read())
+                    c.close()
+                except OSError:
+                    time.sleep(0.5)
+            ready_s = time.perf_counter() - tic
+            require(health["backend"] == "cuda", f"/healthz: {health}")
+            bodies = []
+            for i in range(2):
+                buf = io.BytesIO()
+                wav = synthesize_speech_like(5.0, 16000, seed=50 + i)
+                wavfile.write(buf, 16000, (wav * 32767).astype(np.int16))
+                bodies.append(buf.getvalue())
+            results, lat = [None, None], [0.0, 0.0]
+
+            def post(i):
+                tic_ = time.perf_counter()
+                c_ = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+                c_.request("POST", f"/v1/infer?subject={i}", body=bodies[i],
+                           headers={"Content-Type": "audio/wav"})
+                r_ = c_.getresponse()
+                results[i] = (r_.status, r_.read())
+                c_.close()
+                lat[i] = time.perf_counter() - tic_
+
+            threads = [threading.Thread(target=post, args=(i,)) for i in range(2)]
+            for t_ in threads:
+                t_.start()
+            for t_ in threads:
+                t_.join(timeout=300)
+            require(all(r_ is not None and r_[0] == 200 for r_ in results), "a POST to cli.serve failed")
+            c = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+            c.request("GET", "/stats")
+            stats = json.loads(c.getresponse().read())
+            c.close()
+            require(stats["ok"] == 2 and "live" in stats, f"/stats: {stats}")
+            got = [np.load(io.BytesIO(r_[1])) for r_ in results]
+            direct = FaceFormerPredictor.from_checkpoint(trainer_ckpt, n_verts=n_verts)
+            eye = np.eye(12, dtype=np.float32)
+            want = []
+            for i in range(2):
+                wav, wsr = decode_audio_body(bodies[i], "audio/wav", None)
+                want.append(direct([wav], eye[[i]], tmpl, sample_rate=wsr)[0])
+            l2, disp, tol = max_l2_and_bar(got, want, tmpl)
+            del direct
+
+            clip = synthesize_speech_like(5.0, 16000, seed=52)
+            tic_live = time.perf_counter()
+            with LiveClient(live_port, subject=0, sample_rate=16000, timeout=60.0) as lc:
+                parts = [lc.send(clip[off : off + 4000]) for off in range(0, len(clip), 4000)]
+                live = np.concatenate(parts + [lc.finish()])
+            live_s = time.perf_counter() - tic_live
+            print(json.dumps({"cli_serve": {
+                "ready_s": ready_s, "warmup_seconds": 10, "posts": 2, "seconds_each": 5.0,
+                "latency_s": lat, "stats": stats, "vs_direct_max_vertex_l2": l2, "max_offset": disp,
+                "tol": tol, "live_frames": live.shape[0], "live_wall_s": live_s, "card": smi,
+            }}), flush=True)
+            require(l2 <= tol, f"cli.serve vs direct calls: max per-vertex L2 {l2} > {tol}")
+            require(live.shape == (300, n_verts // 3, 3) and bool(np.isfinite(live).all()),
+                    f"live session: {live.shape}")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=60)
+            log_f.close()
+        with socket.socket() as s_:
+            refused = s_.connect_ex(("127.0.0.1", port)) != 0
+        require(proc.returncode is not None and refused,
+                f"cli.serve still running after terminate (rc {proc.returncode}, port open {not refused})")
+        print(json.dumps({"cli_serve_stopped": {"returncode": proc.returncode}}), flush=True)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    for name in ("flash_attention", "flash_attention_bwd", "fused_conv_encoder", "faceformer_decode_loop"):
+        require(by_name[name]["cli_launches"] > 0, f"{name} did not launch on the CLIs' path")
 
 
 def main() -> int:
@@ -2496,16 +2917,25 @@ def main() -> int:
     frame_model_phases(torch, rows, by_name, smi, pred, biwi_state, n_verts_biwi)
     torch.cuda.empty_cache()
 
-    # ---- 10. the data pipeline: native loader, fit through the Prefetcher --
-    data_phases(torch, rows, smi, pred, biwi_state, n_verts_biwi)
-    del biwi_state
-    torch.cuda.empty_cache()
+    shared = tempfile.mkdtemp(prefix="a2f_smoke_vocaset_")
+    try:
+        # ---- 10. the data pipeline: native loader, fit through the Prefetcher --
+        vdir = synthetic_vocaset(shared, smi)  # 10b's dataset, which phase 12 reuses
+        data_phases(torch, rows, smi, pred, biwi_state, n_verts_biwi, vdir)
+        del biwi_state
+        torch.cuda.empty_cache()
 
-    # ---- 11. live serving: stream, pool, frame pool, daemons ----------------
-    live_phases(torch, rows, by_name, smi, pred)
-    torch.cuda.empty_cache()
+        # ---- 11. live serving: stream, pool, frame pool, daemons ----------------
+        live_phases(torch, rows, by_name, smi, pred)
+        torch.cuda.empty_cache()
 
-    # ---- 12. results ----------------------------------------------------
+        # ---- 12. the CLIs: train, evaluate, export, serve -----------------------
+        cli_phases(torch, rows, by_name, smi, vdir)
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(shared, ignore_errors=True)
+
+    # ---- 13. results ----------------------------------------------------
     for r in rows:
         del r["wrapper"]
         r.pop("counter", None)
