@@ -14,7 +14,11 @@ checkpoints load through ``compat/``, and ``compat/torch_export.py`` writes
 the port's weights back under the reference's names. Command lines
 (``python -m audio2face_tpu_torch.cli.<name>``): ``train``, ``evaluate``,
 ``export``, ``serve``, ``infer``, ``render_offline`` and ``render_frames``.
-Hand-written CUDA kernels carry the hot paths: flash attention forward with
+Parallelism on ``torch.distributed`` (``parallel/``): data, Megatron tensor,
+FSDP (ZeRO-3), sequence and pipeline parallelism, one process a device,
+through ``make_mesh`` and the ``mesh=`` arguments of the trainer and every
+predictor (``sp_mesh=`` for a time-sharded encoder); ``dryrun_multichip``
+exercises them all. Hand-written CUDA kernels carry the hot paths: flash attention forward with
 in-kernel dropout and its two backward kernels (``ops/attention.py``), the
 wav2vec2 conv feature encoder (``ops/conv_encoder.py``), the whole decode
 loop (``ops/decode_kernel.py``) and the tile rasterizer
@@ -69,4 +73,12 @@ def __getattr__(name):
         from audio2face_tpu_torch.data.biwi import BiwiDataModule
 
         return BiwiDataModule
+    if name == "make_mesh":
+        from audio2face_tpu_torch.parallel import make_mesh
+
+        return make_mesh
+    if name == "dryrun_multichip":
+        from audio2face_tpu_torch.parallel.dryrun import dryrun_multichip
+
+        return dryrun_multichip
     raise AttributeError(name)

@@ -14,6 +14,12 @@ LVE / FDD / MVE / max-L2), saves ``pred_verts.npy`` and, unless
 VOCASET or BIWI artifacts at ``--dataset-path`` it trains on the
 format-identical synthetic stand-in, generated in the working directory.
 Runs on the GPU unless ``--device cpu`` is given.
+
+Under ``torchrun --nproc-per-node N -m audio2face_tpu_torch.cli.train ...``
+every process trains its share on the config's ``mesh_shape`` (default
+``(-1, 1)``: data parallelism over the N ranks; ``fsdp: true`` adds
+ZeRO-3), one GPU a rank; rank 0 alone generates missing data, writes the
+logs, checkpoints and prediction, prints and renders.
 """
 
 import argparse
@@ -53,7 +59,6 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
 
     from audio2face_tpu_torch.config import ExpConfig
-    from audio2face_tpu_torch.data.vocaset import VocaDataModule
     from audio2face_tpu_torch.evaluation import evaluate_animation
     from audio2face_tpu_torch.training.trainer import Audio2FaceExperiment
 
@@ -61,42 +66,28 @@ def main(argv=None) -> None:
     config = ExpConfig.from_yaml(args.config).apply_faceformer_overrides()
     if args.batch_size:
         config = config.model_copy(update={"batch_size": args.batch_size})
-
-    if not args.skip_render and not os.path.exists(args.template):
-        from audio2face_tpu_torch.data.synthetic import generate_synthetic_face_obj
-
-        print(f"{args.template} missing; writing a synthetic stand-in template")
-        generate_synthetic_face_obj(args.template, n_verts=config.vertex_count // 3)
-
-    # fresh-clone path: both corpora are licensed, so when no artifacts
-    # exist we train on the format-identical synthetic stand-in
-    if config.dataset == "biwi":
-        from audio2face_tpu_torch.data.biwi import BiwiDataModule, generate_synthetic_biwi
-
-        if not os.path.exists(os.path.join(dataset_path, "templates.pkl")):
-            dataset_path = os.path.join(os.getcwd(), "synthetic_biwi")
-            if not os.path.exists(os.path.join(dataset_path, "templates.pkl")):
-                print(f"no BIWI artifacts found; generating synthetic data in {dataset_path}")
-                generate_synthetic_biwi(dataset_path, n_verts=config.vertex_count // 3)
-        datamodule = BiwiDataModule(dataset_path, batch_size=config.batch_size)
-    else:
-        if not os.path.exists(os.path.join(dataset_path, "data_verts.npy")):
-            from audio2face_tpu_torch.data.synthetic import generate_synthetic_vocaset
-
-            dataset_path = os.path.join(os.getcwd(), "synthetic_vocaset")
-            if not os.path.exists(os.path.join(dataset_path, "data_verts.npy")):
-                print(f"no VOCASET artifacts found; generating synthetic data in {dataset_path}")
-                generate_synthetic_vocaset(dataset_path, n_verts=config.vertex_count // 3)
-        datamodule = VocaDataModule(
-            dataset_path, batch_size=config.batch_size, num_workers=8,
-            split_frame=config.split_frame,
-        )
-    datamodule.setup()
-
+    # the experiment first: under torchrun it joins the process group, and
+    # only its writer (rank 0) makes files
     experiment = Audio2FaceExperiment(
         config, accumulate_grad_batches=args.accumulate_grad_batches, device=args.device)
+    if not experiment.writer:
+        args.skip_render = True
+
+    def say(*a):
+        if experiment.writer:
+            print(*a)
+
+    if experiment.writer:
+        _write_inputs(args, config, dataset_path)
+    if experiment.mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier()  # the data exist for every rank
+    datamodule = _datamodule(config, dataset_path)
+    datamodule.setup()
+
     _, result = experiment.fit(datamodule, max_epochs=args.max_epochs)
-    print(f"Best val/err {result.best_val_err} at epoch {result.best_epoch}")
+    say(f"Best val/err {result.best_val_err} at epoch {result.best_epoch}")
 
     # reload the newest checkpoint (the reference sorts by the trailing step)
     experiment.load_checkpoint()
@@ -107,7 +98,7 @@ def main(argv=None) -> None:
         # the CLI defaults name a VOCASET subject; on BIWI (or a custom
         # corpus) fall back to the first test pair
         pred_subject, pred_sentence = test_list[0][0], test_list[0][1]
-        print(f"predict subject not in test split; using {pred_subject}/{pred_sentence}")
+        say(f"predict subject not in test split; using {pred_subject}/{pred_sentence}")
     batch = datamodule.predict_batch(pred_subject, pred_sentence)
     pred, err = experiment.predict(batch)
     n_verts = config.vertex_count // 3
@@ -115,17 +106,18 @@ def main(argv=None) -> None:
     if experiment.is_faceformer:
         # trim the bucket padding to the clip's valid frames
         pred = pred[: int(batch["frame_lengths"][0])]
-    print(f"predict_rec_loss: {float(err)}")
+    say(f"predict_rec_loss: {float(err)}")
 
     # domain metrics on the predicted sentence (evaluation.py)
     gt = np.asarray(batch["verts"], np.float32).reshape(-1, n_verts, 3)[: pred.shape[0]]
     template_vert = np.asarray(batch["template_vert"], np.float32).reshape(-1, n_verts, 3)[0]
     metrics = evaluate_animation(pred, gt, template_vert)
-    print("predict metrics: " + " ".join(f"{k}={v:.6g}" for k, v in metrics.items()))
+    say("predict metrics: " + " ".join(f"{k}={v:.6g}" for k, v in metrics.items()))
 
     pred = pred.cpu().numpy()
     log_dir = experiment.log_dir
-    np.save(os.path.join(log_dir, "pred_verts.npy"), pred)
+    if experiment.writer:
+        np.save(os.path.join(log_dir, "pred_verts.npy"), pred)
     if not args.skip_render and os.path.exists(args.template):
         from audio2face_tpu_torch.utils.facemesh import FaceMesh
         from audio2face_tpu_torch.utils.renderer import Renderer, images_to_video, save_audio
@@ -134,6 +126,52 @@ def main(argv=None) -> None:
         images = renderer.render(pred)
         save_audio(batch["audio"].reshape(-1), log_dir)
         images_to_video(images, log_dir, fps=25 if config.dataset == "biwi" else 60)
+
+
+def _write_inputs(args, config, dataset_path: str) -> None:
+    """The synthetic template and corpus, where they are missing."""
+    if not args.skip_render and not os.path.exists(args.template):
+        from audio2face_tpu_torch.data.synthetic import generate_synthetic_face_obj
+
+        print(f"{args.template} missing; writing a synthetic stand-in template")
+        generate_synthetic_face_obj(args.template, n_verts=config.vertex_count // 3)
+
+    # fresh-clone path: both corpora are licensed, so when no artifacts
+    # exist we train on the format-identical synthetic stand-in
+    if config.dataset == "biwi":
+        from audio2face_tpu_torch.data.biwi import generate_synthetic_biwi
+
+        if not os.path.exists(os.path.join(dataset_path, "templates.pkl")):
+            dataset_path = os.path.join(os.getcwd(), "synthetic_biwi")
+            if not os.path.exists(os.path.join(dataset_path, "templates.pkl")):
+                print(f"no BIWI artifacts found; generating synthetic data in {dataset_path}")
+                generate_synthetic_biwi(dataset_path, n_verts=config.vertex_count // 3)
+    elif not os.path.exists(os.path.join(dataset_path, "data_verts.npy")):
+        from audio2face_tpu_torch.data.synthetic import generate_synthetic_vocaset
+
+        dataset_path = os.path.join(os.getcwd(), "synthetic_vocaset")
+        if not os.path.exists(os.path.join(dataset_path, "data_verts.npy")):
+            print(f"no VOCASET artifacts found; generating synthetic data in {dataset_path}")
+            generate_synthetic_vocaset(dataset_path, n_verts=config.vertex_count // 3)
+
+
+def _datamodule(config, dataset_path: str):
+    """The corpus at ``dataset_path``, else the synthetic stand-in in the
+    working directory."""
+    from audio2face_tpu_torch.data.vocaset import VocaDataModule
+
+    if config.dataset == "biwi":
+        from audio2face_tpu_torch.data.biwi import BiwiDataModule
+
+        if not os.path.exists(os.path.join(dataset_path, "templates.pkl")):
+            dataset_path = os.path.join(os.getcwd(), "synthetic_biwi")
+        return BiwiDataModule(dataset_path, batch_size=config.batch_size)
+    if not os.path.exists(os.path.join(dataset_path, "data_verts.npy")):
+        dataset_path = os.path.join(os.getcwd(), "synthetic_vocaset")
+    return VocaDataModule(
+        dataset_path, batch_size=config.batch_size, num_workers=8,
+        split_frame=config.split_frame,
+    )
 
 
 if __name__ == "__main__":

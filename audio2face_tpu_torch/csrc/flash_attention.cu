@@ -151,7 +151,7 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
                        float* __restrict__ lse, const int* __restrict__ kv_len,
                        const float* __restrict__ slopes, int heads, int t_q, int t_k,
                        int causal, int period, float sm_scale, const int* __restrict__ seed,
-                       uint32_t drop_thr, float keep_scale) {
+                       uint32_t drop_thr, float keep_scale, HashIndex hix) {
   using C = WgmmaFwd<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t s_q = smem_u32(smem);
@@ -168,7 +168,7 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   sa.kvlen = kv_len[bh / heads];
   sa.causal = causal;
   sa.period = period;
-  sa.bh = bh;
+  sa.bh = hix.of(bh, heads);
   sa.c = sm_scale * LOG2E;
   sa.slope2 = slopes[bh % heads] * LOG2E;
   sa.fused = period == 0 && sm_scale > 0.f;
@@ -396,7 +396,8 @@ flash_fwd_f32_short_kernel(const float* __restrict__ q, const float* __restrict_
                            float* __restrict__ lse, const int* __restrict__ kv_len,
                            const float* __restrict__ slopes, int heads, int t_q, int t_k,
                            int causal, int period, float sm_scale, const int* __restrict__ seed,
-                           uint32_t drop_thr, float keep_scale, ShortPlan plan) {
+                           uint32_t drop_thr, float keep_scale, HashIndex hix,
+                           ShortPlan plan) {
   using S = ShortFwd<D>;
   constexpr int R = S::R, NV = S::NV, NC = TKB / SK_G;  // NC: key chunks of eight
   extern __shared__ __align__(128) unsigned char smem[];
@@ -438,6 +439,7 @@ flash_fwd_f32_short_kernel(const float* __restrict__ q, const float* __restrict_
     if (grp >= plan.groups_per_slice || rl0 >= nr) continue;  // an idle group (whole groups only)
     const int kvlen = kv_len[bh / heads];
     const float slope2 = slopes[bh % heads] * LOG2E;
+    const uint32_t hbh = hix.of(bh, heads);
     const float* Kb = ring + st * stage;
     const float* Vb = Kb + t_k * D;
     int row[R];
@@ -503,7 +505,7 @@ flash_fwd_f32_short_kernel(const float* __restrict__ q, const float* __restrict_
       for (int ch = 0; ch < NC; ++ch) {
         float p = fast_exp2(s[r][ch] - mx[r]);
         l[r] += p;
-        if (drop_thr > 0) p *= dropout_keep(seed0, bh, row[r], SK_G * ch + g, drop_thr, keep_scale);
+        if (drop_thr > 0) p *= dropout_keep(seed0, hbh, row[r], SK_G * ch + g, drop_thr, keep_scale);
         s[r][ch] = p;
       }
     }
@@ -571,7 +573,7 @@ flash_fwd_f32_tiled_kernel(const float* __restrict__ q, const float* __restrict_
                            float* __restrict__ lse, const int* __restrict__ kv_len,
                            const float* __restrict__ slopes, int heads, int t_q, int t_k,
                            int causal, int period, float sm_scale, const int* __restrict__ seed,
-                           uint32_t drop_thr, float keep_scale) {
+                           uint32_t drop_thr, float keep_scale, HashIndex hix) {
   using T = FTile<D>;
   using C = TiledFwd<D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -584,6 +586,7 @@ flash_fwd_f32_tiled_kernel(const float* __restrict__ q, const float* __restrict_
   const int kvlen = kv_len[bh / heads];
   const float c = sm_scale * LOG2E, slope2 = slopes[bh % heads] * LOG2E;
   const uint32_t seed0 = drop_thr > 0 ? (uint32_t)seed[0] : 0u;
+  const uint32_t hbh = hix.of(bh, heads);
   const float* kb = k + (size_t)bh * t_k * D;
   const float* vb = v + (size_t)bh * t_k * D;
 
@@ -645,7 +648,7 @@ flash_fwd_f32_tiled_kernel(const float* __restrict__ q, const float* __restrict_
       for (int j = 0; j < 4; ++j) {
         float p = fast_exp2(s[i][j] - m_new);
         sum += p;
-        if (drop_thr > 0) p *= dropout_keep(seed0, bh, row, k0 + mp.col(j), drop_thr, keep_scale);
+        if (drop_thr > 0) p *= dropout_keep(seed0, hbh, row, k0 + mp.col(j), drop_thr, keep_scale);
         s[i][j] = p;
       }
       l_run[i] = alpha * l_run[i] + sum;  // this thread's share of the row sum
@@ -683,6 +686,7 @@ struct Args {
   const int* seed;
   uint32_t drop_thr;
   float keep_scale;
+  HashIndex hix;
   cudaStream_t stream;
 };
 
@@ -697,7 +701,7 @@ cudaError_t launch_bf16(const Args& a) {
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.o), a.lse, a.kv_len,
       a.slopes, a.heads, a.t_q, a.t_k, a.causal, a.period, a.sm_scale, a.seed, a.drop_thr,
-      a.keep_scale);
+      a.keep_scale, a.hix);
   return cudaGetLastError();
 }
 
@@ -740,7 +744,7 @@ cudaError_t launch_f32_short(const Args& a, F32Plan* plan) {
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.kv_len, a.slopes,
       a.heads, a.t_q, a.t_k, a.causal, a.period, a.sm_scale, a.seed, a.drop_thr, a.keep_scale,
-      sp);
+      a.hix, sp);
   return cudaGetLastError();
 }
 
@@ -760,7 +764,7 @@ cudaError_t launch_f32_tiled(const Args& a, F32Plan* plan) {
   kern<<<grid, FT_NT, bytes, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.kv_len, a.slopes,
-      a.heads, a.t_q, a.t_k, a.causal, a.period, a.sm_scale, a.seed, a.drop_thr, a.keep_scale);
+      a.heads, a.t_q, a.t_k, a.causal, a.period, a.sm_scale, a.seed, a.drop_thr, a.keep_scale, a.hix);
   return cudaGetLastError();
 }
 
@@ -836,6 +840,8 @@ extern "C" int a2f_flash_attention_fwd_f32_plan(int head_dim, int batch_heads, i
 // min(int(rate * 2^31), 2^31 - 1) is computed by the caller in double;
 // kept probabilities are scaled by keep_scale = 1 / (1 - rate). drop_thr 0
 // turns dropout off (seed is then not read). seed: (1,) int32 on the device.
+// The hash takes slice (b, h) of this launch as batch hash_b0 + b and head
+// hash_h0 + h of hash_heads (HashIndex); 0, 0, heads for a whole call.
 extern "C" int a2f_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, float* lse,
                                        const int* kv_len, const float* slopes,
@@ -843,10 +849,11 @@ extern "C" int a2f_flash_attention_fwd(const void* q, const void* k,
                                        int head_dim, int is_bf16, int causal,
                                        int period, float sm_scale,
                                        const int* seed, unsigned int drop_thr,
-                                       float keep_scale, void* stream) {
+                                       float keep_scale, int hash_b0, int hash_h0,
+                                       int hash_heads, void* stream) {
   Args a{q,      k,       v,     o,      lse,      kv_len,   slopes,   batch * heads,
          heads,  t_q,     t_k,   causal, period,   sm_scale, seed,     drop_thr,
-         keep_scale, static_cast<cudaStream_t>(stream)};
+         keep_scale, {hash_b0, hash_h0, hash_heads}, static_cast<cudaStream_t>(stream)};
   const bool bf16 = is_bf16 != 0;
   switch (head_dim) {
     case 16: return launch<16>(bf16, a);

@@ -67,6 +67,7 @@ constexpr int NTHREADS = 128;  // 4 warps: one warpgroup
 // what every tile needs to rebuild the forward's probabilities
 struct TileParams {
   int t_q, kvlen, causal, period, bh;
+  uint32_t hbh;  // the dropout hash's index of bh (HashIndex)
   float slope, sm_scale, keep_scale;
   float c, slope2;  // sm_scale and slope times log2 e (the bf16 kernels' exponent)
   uint32_t seed, drop_thr;
@@ -74,9 +75,10 @@ struct TileParams {
 
 __device__ TileParams tile_params(const int* kv_len, const float* slopes, int heads, int t_q,
                                   int causal, int period, float sm_scale, const int* seed,
-                                  uint32_t drop_thr, float keep_scale) {
+                                  uint32_t drop_thr, float keep_scale, HashIndex hix) {
   TileParams tp;
   tp.bh = blockIdx.y;
+  tp.hbh = hix.of(tp.bh, heads);
   tp.t_q = t_q;
   tp.kvlen = kv_len[tp.bh / heads];
   tp.causal = causal;
@@ -105,7 +107,7 @@ __device__ __forceinline__ Grad position_grad(float s, float dp, float lse2, flo
   const bool ok = row < tp.t_q && col < tp.kvlen && (!tp.causal || col <= row);
   const float p = ok ? fast_exp2(x) : 0.f;
   float m = 1.f;
-  if (tp.drop_thr > 0) m = dropout_keep(tp.seed, tp.bh, row, col, tp.drop_thr, tp.keep_scale);
+  if (tp.drop_thr > 0) m = dropout_keep(tp.seed, tp.hbh, row, col, tp.drop_thr, tp.keep_scale);
   return {p * m, p * (dp * m - delta) * tp.sm_scale};
 }
 
@@ -168,12 +170,14 @@ flash_bwd_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
                           float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
                           const int* __restrict__ kv_len, const float* __restrict__ slopes,
                           int heads, int t_q, int t_k, int causal, int period, float sm_scale,
-                          const int* __restrict__ seed, uint32_t drop_thr, float keep_scale) {
+                          const int* __restrict__ seed, uint32_t drop_thr, float keep_scale,
+                          HashIndex hix) {
   using C = WgmmaBwd<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t s_q = smem_u32(smem), s_do = s_q + C::TILE, s_ring = s_do + C::TILE;
   const TileParams tp =
-      tile_params(kv_len, slopes, heads, t_q, causal, period, sm_scale, seed, drop_thr, keep_scale);
+      tile_params(kv_len, slopes, heads, t_q, causal, period, sm_scale, seed, drop_thr,
+                  keep_scale, hix);
   const int tid = threadIdx.x, w = tid / 32, l = tid % 32;
   const int bh = tp.bh, q0 = blockIdx.x * BT;
   const __nv_bfloat16* kb = k + (size_t)bh * t_k * D;
@@ -288,12 +292,14 @@ flash_bwd_dkdv_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bflo
                             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                             const int* __restrict__ kv_len, const float* __restrict__ slopes,
                             int heads, int t_q, int t_k, int causal, int period, float sm_scale,
-                            const int* __restrict__ seed, uint32_t drop_thr, float keep_scale) {
+                            const int* __restrict__ seed, uint32_t drop_thr, float keep_scale,
+                            HashIndex hix) {
   using C = WgmmaBwd<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t s_k = smem_u32(smem), s_v = s_k + C::TILE, s_ring = s_v + C::TILE;
   const TileParams tp =
-      tile_params(kv_len, slopes, heads, t_q, causal, period, sm_scale, seed, drop_thr, keep_scale);
+      tile_params(kv_len, slopes, heads, t_q, causal, period, sm_scale, seed, drop_thr,
+                  keep_scale, hix);
   const int tid = threadIdx.x, w = tid / 32, l = tid % 32;
   const int bh = tp.bh, k0 = blockIdx.x * BT;
   const __nv_bfloat16* qb = q + (size_t)bh * t_q * D;
@@ -428,7 +434,8 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
                         float* __restrict__ delta, float* __restrict__ dq,
                         const int* __restrict__ kv_len, const float* __restrict__ slopes,
                         int heads, int t_q, int t_k, int causal, int period, float sm_scale,
-                        const int* __restrict__ seed, uint32_t drop_thr, float keep_scale) {
+                        const int* __restrict__ seed, uint32_t drop_thr, float keep_scale,
+                        HashIndex hix) {
   using T = FTile<D>;
   using C = F32Bwd<D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -440,7 +447,8 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   float* delta_s = lse_s + FT_ROWS;
   const uint32_t s_q = smem_u32(smem), s_ring = s_q + ring_off;
   const TileParams tp =
-      tile_params(kv_len, slopes, heads, t_q, causal, period, sm_scale, seed, drop_thr, keep_scale);
+      tile_params(kv_len, slopes, heads, t_q, causal, period, sm_scale, seed, drop_thr,
+                  keep_scale, hix);
   const int tid = threadIdx.x;
   const FMap mp;
   const int bh = tp.bh, q0 = blockIdx.x * FT_ROWS;
@@ -519,7 +527,8 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__
                           float* __restrict__ dk, float* __restrict__ dv,
                           const int* __restrict__ kv_len, const float* __restrict__ slopes,
                           int heads, int t_q, int t_k, int causal, int period, float sm_scale,
-                          const int* __restrict__ seed, uint32_t drop_thr, float keep_scale) {
+                          const int* __restrict__ seed, uint32_t drop_thr, float keep_scale,
+                          HashIndex hix) {
   using T = FTile<D>;
   using C = F32Bwd<D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -530,7 +539,8 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__
   float* Xd = Xp + T::X_BYTES / 4;
   const uint32_t s_k = smem_u32(smem), s_ring = s_k + ring_off;
   const TileParams tp =
-      tile_params(kv_len, slopes, heads, t_q, causal, period, sm_scale, seed, drop_thr, keep_scale);
+      tile_params(kv_len, slopes, heads, t_q, causal, period, sm_scale, seed, drop_thr,
+                  keep_scale, hix);
   const int tid = threadIdx.x;
   const FMap mp;
   const int bh = tp.bh, k0 = blockIdx.x * FT_ROWS;
@@ -625,6 +635,7 @@ struct Args {
   const int* seed;
   uint32_t drop_thr;
   float keep_scale;
+  HashIndex hix;
   cudaStream_t stream;
 };
 
@@ -644,14 +655,14 @@ cudaError_t launch_bf16(const Args& a) {
   flash_bwd_dq_wgmma_kernel<D><<<q_grid, NTHREADS, C::DQ_BYTES, a.stream>>>(
       q, k, v, static_cast<const bf*>(a.out), dout, a.lse, a.delta, static_cast<bf*>(a.dq),
       a.kv_len, a.slopes, a.heads, a.t_q, a.t_k, a.causal, a.period, a.sm_scale, a.seed,
-      a.drop_thr, a.keep_scale);
+      a.drop_thr, a.keep_scale, a.hix);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dim3 k_grid((a.t_k + BT - 1) / BT, a.bh);
   flash_bwd_dkdv_wgmma_kernel<D><<<k_grid, NTHREADS, C::DKDV_BYTES, a.stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<bf*>(a.dk), static_cast<bf*>(a.dv), a.kv_len,
       a.slopes, a.heads, a.t_q, a.t_k, a.causal, a.period, a.sm_scale, a.seed, a.drop_thr,
-      a.keep_scale);
+      a.keep_scale, a.hix);
   return cudaGetLastError();
 }
 
@@ -670,14 +681,14 @@ cudaError_t launch_f32(const Args& a) {
   flash_bwd_dq_f32_kernel<D><<<q_grid, FT_NT, C::DQ_BYTES, a.stream>>>(
       q, k, v, static_cast<const float*>(a.out), dout, a.lse, a.delta, static_cast<float*>(a.dq),
       a.kv_len, a.slopes, a.heads, a.t_q, a.t_k, a.causal, a.period, a.sm_scale, a.seed,
-      a.drop_thr, a.keep_scale);
+      a.drop_thr, a.keep_scale, a.hix);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dim3 k_grid((a.t_k + FT_ROWS - 1) / FT_ROWS, a.bh);
   flash_bwd_dkdv_f32_kernel<D><<<k_grid, FT_NT, C::DKDV_BYTES, a.stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
       a.kv_len, a.slopes, a.heads, a.t_q, a.t_k, a.causal, a.period, a.sm_scale, a.seed,
-      a.drop_thr, a.keep_scale);
+      a.drop_thr, a.keep_scale, a.hix);
   return cudaGetLastError();
 }
 
@@ -754,7 +765,8 @@ extern "C" int a2f_flash_attention_bwd_f32_occupancy(int head_dim, int* info) {
 // [0, t_k]; slopes: (H,) f32; lse: (B*H, t_q) f32, the forward's; delta:
 // (B*H, t_q) f32 scratch, written. Dropout as in a2f_flash_attention_fwd:
 // kept iff hash >= drop_thr, kept values scaled by keep_scale, drop_thr 0 =
-// off; seed: (1,) int32 on the device, the forward's.
+// off; seed: (1,) int32 on the device, the forward's; hash_b0, hash_h0 and
+// hash_heads as in a2f_flash_attention_fwd, the forward's.
 extern "C" int a2f_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* out, const void* dout, const float* lse,
                                        float* delta, void* dq, void* dk, void* dv,
@@ -762,11 +774,12 @@ extern "C" int a2f_flash_attention_bwd(const void* q, const void* k, const void*
                                        int heads, int t_q, int t_k, int head_dim, int is_bf16,
                                        int causal, int period, float sm_scale,
                                        const int* seed, unsigned int drop_thr,
-                                       float keep_scale, void* stream) {
+                                       float keep_scale, int hash_b0, int hash_h0,
+                                       int hash_heads, void* stream) {
   Args a{q,      k,      v,      out,    dout,   lse,      delta,    dq,
          dk,     dv,     kv_len, slopes, batch * heads,    heads,    t_q,
          t_k,    causal, period, sm_scale, seed, drop_thr, keep_scale,
-         static_cast<cudaStream_t>(stream)};
+         {hash_b0, hash_h0, hash_heads}, static_cast<cudaStream_t>(stream)};
   const bool bf16 = is_bf16 != 0;
   switch (head_dim) {
     case 16: return launch<16>(bf16, a);

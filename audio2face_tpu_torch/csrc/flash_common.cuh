@@ -43,4 +43,17 @@ __device__ __forceinline__ float dropout_keep(uint32_t seed, uint32_t bh, uint32
   return (h & 0x7FFFFFFFu) >= thr ? keep_scale : 0.f;
 }
 
+// The dropout hash's batch*head index of slice bh of a launch with `local`
+// heads. A launch may compute a slice of a larger call: a data-parallel
+// rank's rows (batch offset b0) and a tensor-parallel rank's heads (head
+// offset h0 of `heads` in all). The hash then takes the whole call's index
+// (b0 + b) * heads + h0 + h, so each rank drops what the whole call drops.
+// {0, 0, local} is the identity.
+struct HashIndex {
+  int b0, h0, heads;
+  __device__ __forceinline__ uint32_t of(int bh, int local) const {
+    return (uint32_t)((bh / local + b0) * heads + h0 + bh % local);
+  }
+};
+
 }  // namespace

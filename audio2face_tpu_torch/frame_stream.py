@@ -13,9 +13,11 @@ Each batched step advances ``frame_batch`` frames for every ready slot
 through one (n_streams, span) forward. The audio of frames [f0, f0 + fb)
 spans ``(fb - 1) * sr // fps + 2 * n_pad + 1`` samples whatever f0; the
 per-slot frame offsets go to the device as an (S,) int64 tensor and each
-frame's window is gathered there. ``mesh=`` is not ported yet. Runs on the
-GPU unless ``device="cpu"``; every forward runs under
-``torch.inference_mode()``.
+frame's window is gathered there. ``mesh=`` shards the slot axis over the
+mesh's ``data`` axis: every rank runs the same calls and keeps every slot's
+bookkeeping, runs the forward on its own slots (``shard_map_data``) and
+gathers the vertices. Runs on the GPU unless ``device="cpu"``; every
+forward runs under ``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -93,13 +95,27 @@ class FrameStreamPool:
         from audio2face_tpu_torch.serving import FramePredictor
 
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh= serving is not ported yet (ROADMAP.md queue 1 item 4: parallelism)")
+            from audio2face_tpu_torch.parallel.mesh import DATA_AXIS, axis_size
+
+            n_data = axis_size(mesh, DATA_AXIS)
+            if int(n_streams) % n_data != 0:
+                raise ValueError(
+                    f"n_streams={n_streams} must be divisible by the mesh data axis "
+                    f"({n_data}) so each rank hosts a whole slot slice")
         # FramePredictor builds the model and extractor, with their weights
+        # (on a mesh the first rank's, on every rank); its batch cap, which
+        # the pool does not use, is the slot count, a multiple of the axis
         self._base = FramePredictor(
             config, variables=variables, state_dict=state_dict, frame_batch=frame_batch,
-            seed=seed, unit_scale=unit_scale, device=device,
+            seed=seed, unit_scale=unit_scale, device=device, mesh=mesh, max_batch=int(n_streams),
         )
+        self._forward = self.forward
+        if mesh is not None:
+            from audio2face_tpu_torch.parallel.mesh import DATA_AXIS, shard_map_data
+
+            d = (DATA_AXIS,)
+            self._forward = shard_map_data(mesh, self.forward, in_specs=(d, d, d, d),
+                                           out_specs=d)
         self.device = self._base.device
         self.config = config
         self.sr = config.sample_rate
@@ -231,7 +247,7 @@ class FrameStreamPool:
         if not n_valid.any():
             return
 
-        out = self.forward(windows, self._one_hot, self._template, f0)
+        out = self._forward(windows, self._one_hot, self._template, f0)
         self.steps += 1
         served = np.flatnonzero(n_valid)
         out_np = out[torch.as_tensor(served, device=self.device)].cpu().numpy()

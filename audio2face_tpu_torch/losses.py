@@ -5,6 +5,12 @@ mean of the per-vertex squared L2 norm, velocity pairs consecutive items
 along the leading axis (view (-1, 2, V, 3)), weights k_rec=1 / k_vel=10, and
 the FaceFormer variant squeezes the batch dim and drops the last frame when
 the frame count is odd.
+
+``group=``: the batch is one data-parallel rank's share. Every mean is then
+this rank's sum over the whole batch's count (the count summed over the
+group), so the group's losses sum to the whole batch's loss and their
+gradients sum to its gradient (the JAX package's jit sees the global batch
+and divides by its global mask sum).
 """
 
 from __future__ import annotations
@@ -15,9 +21,23 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 
-def _per_vertex_sq_l2_mean(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+def global_count(n, group, device=None) -> torch.Tensor:
+    """``n`` (a count, number or tensor) summed over ``group``; ``n`` itself
+    when ``group`` is None."""
+    n = torch.as_tensor(n, dtype=torch.float32, device=device)
+    if group is None:
+        return n
+    from audio2face_tpu_torch.parallel import comm
+
+    return comm.all_reduce(n.detach(), group)
+
+
+def _per_vertex_sq_l2_mean(pred: torch.Tensor, gt: torch.Tensor, group=None) -> torch.Tensor:
     # (N, V, 3) -> mean over N and V of sum over coords of squared error
-    return (pred - gt).square().sum(dim=2).mean()
+    sq = (pred - gt).square().sum(dim=2)
+    if group is None:
+        return sq.mean()
+    return sq.sum() / global_count(sq.numel(), group, sq.device)
 
 
 class VocaLoss:
@@ -27,20 +47,20 @@ class VocaLoss:
         self.k_rec = k_rec
         self.k_vel = k_vel
 
-    def __call__(self, pred: torch.Tensor, gt: torch.Tensor) -> dict[str, torch.Tensor]:
+    def __call__(self, pred: torch.Tensor, gt: torch.Tensor, group=None) -> dict[str, torch.Tensor]:
         bs = pred.shape[0]
         pred = pred.reshape(bs, -1, 3).float()
         gt = gt.reshape(bs, -1, 3).float()
         n_verts = pred.shape[1]
 
-        rec_loss = _per_vertex_sq_l2_mean(pred, gt)
+        rec_loss = _per_vertex_sq_l2_mean(pred, gt, group)
 
         # velocity over consecutive leading-axis pairs: view (-1, 2, V, 3)
         pred_pairs = pred.reshape(-1, 2, n_verts, 3)
         gt_pairs = gt.reshape(-1, 2, n_verts, 3)
         v_pred = pred_pairs[:, 1] - pred_pairs[:, 0]
         v_gt = gt_pairs[:, 1] - gt_pairs[:, 0]
-        vel_loss = _per_vertex_sq_l2_mean(v_pred, v_gt)
+        vel_loss = _per_vertex_sq_l2_mean(v_pred, v_gt, group)
 
         return {
             "loss": rec_loss * self.k_rec + vel_loss * self.k_vel,
@@ -56,17 +76,17 @@ class FaceFormerLoss:
     def __init__(self) -> None:
         self.loss = VocaLoss()
 
-    def __call__(self, pred: torch.Tensor, gt: torch.Tensor) -> dict[str, torch.Tensor]:
+    def __call__(self, pred: torch.Tensor, gt: torch.Tensor, group=None) -> dict[str, torch.Tensor]:
         pred = pred.squeeze(0)
         gt = gt.squeeze(0)
         if gt.shape[0] % 2 != 0:
             pred = pred[:-1]
             gt = gt[:-1]
-        return self.loss(pred, gt)
+        return self.loss(pred, gt, group)
 
 
 def masked_faceformer_loss(
-    pred: torch.Tensor, gt: torch.Tensor, frame_mask: torch.Tensor
+    pred: torch.Tensor, gt: torch.Tensor, frame_mask: torch.Tensor, group=None,
 ) -> dict[str, torch.Tensor]:
     """Padded-batch generalisation of FaceFormerLoss.
 
@@ -78,7 +98,7 @@ def masked_faceformer_loss(
     pred = pred.float()
     gt = gt.float()
     per_frame = (pred - gt).square().sum(dim=-1).mean(dim=-1)  # (B, T)
-    denom = frame_mask.sum().clamp(min=1.0)
+    denom = global_count(frame_mask.sum(), group).clamp(min=1.0)
     rec_loss = (per_frame * frame_mask).sum() / denom
 
     t_even = (pred.shape[1] // 2) * 2
@@ -86,7 +106,7 @@ def masked_faceformer_loss(
     v_gt = gt[:, 1:t_even:2] - gt[:, 0:t_even:2]
     vmask = frame_mask[:, 1:t_even:2] * frame_mask[:, 0:t_even:2]
     vsq = (v_pred - v_gt).square().sum(dim=-1).mean(dim=-1)
-    vdenom = vmask.sum().clamp(min=1.0)
+    vdenom = global_count(vmask.sum(), group).clamp(min=1.0)
     vel_loss = (vsq * vmask).sum() / vdenom
 
     return {
@@ -101,6 +121,7 @@ def mse_error(
     gt: torch.Tensor,
     n_verts: int = 5023,
     frame_mask: Optional[torch.Tensor] = None,
+    group=None,
 ) -> torch.Tensor:
     """Validation "err" metric: mean over items of the mean squared
     difference over the flattened (n_verts*3,) vertex vector. ``frame_mask``
@@ -109,9 +130,11 @@ def mse_error(
     g = gt.reshape(-1, n_verts * 3).float()
     per_item = (p - g).square().mean(dim=1)
     if frame_mask is None:
-        return per_item.mean()
+        if group is None:
+            return per_item.mean()
+        return per_item.sum() / global_count(per_item.numel(), group, per_item.device)
     mask = frame_mask.reshape(-1)
-    return (per_item * mask).sum() / mask.sum().clamp(min=1.0)
+    return (per_item * mask).sum() / global_count(mask.sum(), group).clamp(min=1.0)
 
 
 def chunked_faceformer_head_loss(
@@ -124,6 +147,7 @@ def chunked_faceformer_head_loss(
     *,
     n_verts: int,
     chunk: int = 128,
+    group=None,
 ):
     """``masked_faceformer_loss`` + ``mse_error`` WITHOUT materializing the
     (B, T, V, 3) prediction.
@@ -180,9 +204,9 @@ def chunked_faceformer_head_loss(
         m_t = frame_mask[:, t_even:t]
         rec_t, err_t = rec_and_err(head(hs[:, t_even:t]), gt[:, t_even:t].float(), m_t)
         rec_n, m_n, err_n = rec_n + rec_t, m_n + m_t.sum(), err_n + err_t
-    denom = m_n.clamp(min=1.0)
+    denom = global_count(m_n, group).clamp(min=1.0)
     rec_loss = rec_n / denom
-    vel_loss = vel_n / vm_n.clamp(min=1.0)
+    vel_loss = vel_n / global_count(vm_n, group).clamp(min=1.0)
     return (
         {"loss": rec_loss + 10.0 * vel_loss, "rec_loss": rec_loss, "vel_loss": vel_loss},
         err_n / denom,

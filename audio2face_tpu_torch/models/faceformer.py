@@ -123,17 +123,20 @@ def decode_chunk_size(n_frames: int) -> int:
 
 def decoder_keep_masks(
     n_frames: int, bsz: int, dtype: torch.dtype, generator: torch.Generator, device,
-    rate: float = DECODER_DROPOUT,
+    rate: float = DECODER_DROPOUT, batch_rows=None,
 ) -> dict:
     """The five dropout keep-multipliers (0 or 1/(1-rate)) of the decoder
     layer, for all frames at once: after the positional encoding (``m_pe``),
     the self-attention (``m_sa``), the cross term (``m_ca``), inside the FFN
-    (``m_ff1``, 128 wide) and after it (``m_ff2``). Each is (T, B, width)."""
+    (``m_ff1``, 128 wide) and after it (``m_ff2``). Each is (T, B, width).
+    ``batch_rows=(offset, total)``: the batch is those rows of a batch of
+    ``total``, and each mask that slice of the whole batch's."""
     d = FEATURE_DIM
+    b0, total = (0, bsz) if batch_rows is None else batch_rows
 
     def keep(width):
-        m = torch.rand((n_frames, bsz, width), generator=generator, device=device) < (1.0 - rate)
-        return (m.float() / (1.0 - rate)).to(dtype)
+        m = torch.rand((n_frames, total, width), generator=generator, device=device) < (1.0 - rate)
+        return (m[:, b0 : b0 + bsz].float() / (1.0 - rate)).to(dtype)
 
     return {"m_pe": keep(d), "m_sa": keep(d), "m_ca": keep(d), "m_ff1": keep(2 * d), "m_ff2": keep(d)}
 
@@ -223,6 +226,7 @@ class FaceFormer(nn.Module):
         use_kernels: bool = True,
         encoder_hidden: Optional[torch.Tensor] = None,
         differentiable: bool = False,
+        batch_rows=None,
     ):
         """Returns (B, T, V, 3) vertices with T = frame_count(S, fps) (60 fps;
         BIWI 25), plus a (B, T) frame validity mask when ``lengths`` is given.
@@ -239,7 +243,10 @@ class FaceFormer(nn.Module):
         kernel. ``differentiable=True`` asks for gradients in eval mode: the
         decode is the step loop without masks and the conv stack runs its
         ``conv1d`` path, in place of the two inference-only kernels (which
-        raise on CUDA when a gradient is asked of them)."""
+        raise on CUDA when a gradient is asked of them). ``batch_rows=(offset,
+        total)``: the batch is those rows of a batch of ``total`` (a
+        data-parallel rank's share), and every random draw is this share of
+        the whole batch's."""
         cdt = self.dtype or torch.float32
         biwi = self.dataset == "biwi"
         bsz, n_samples = audio.shape
@@ -257,7 +264,7 @@ class FaceFormer(nn.Module):
                 output_lengths=None if biwi else frame_lengths, dataset=self.dataset,
                 dtype=cdt, use_kernels=use_kernels,
                 train=train, apply_spec_augment=train, generator=generator,
-                differentiable=differentiable,
+                differentiable=differentiable, batch_rows=batch_rows,
             )  # (B, T, 768); biwi: (B, <= 2T, 768), the 50 fps latents untouched
         if biwi and hidden.shape[1] != 2 * n_frames:
             # the 2-way alignment needs exactly 2 latents per frame: a short
@@ -287,7 +294,8 @@ class FaceFormer(nn.Module):
         if train or differentiable or use_kernels:
             impl = select_decode_impl(audio.device, self.dataset, train=train or differentiable)
         if impl == "steps":
-            masks = decoder_keep_masks(n_frames, bsz, cdt, generator, audio.device) if train else None
+            masks = (decoder_keep_masks(n_frames, bsz, cdt, generator, audio.device,
+                                        batch_rows=batch_rows) if train else None)
             chunk = decode_chunk_size(n_frames) if train and self.remat_scan is not False else None
             hs = decode_kernel.decode_steps(
                 cross, style, pe, weights, period=self.period, masks=masks, chunk=chunk, **mem)

@@ -73,18 +73,34 @@ class TorchBatchNorm(nn.Module):
       variances part by up to a factor 2 at batch 2;
     - eval mode normalizes with the running statistics.
 
-    The output is in the input's dtype."""
+    The output is in the input's dtype. ``sync_group`` is None, or the
+    data-parallel group whose ranks each hold a share of the batch: the
+    batch moments are then the whole batch's, from the f32 sums and sums of
+    squares summed over the group (the JAX package's jit sees the global
+    batch)."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.bn = _BatchNormState(channels)
+        self.sync_group = None
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         bn = self.bn
         if train:
             xf = x.float()
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp(xf.square().mean(dim=(0, 2, 3)) - mean.square(), min=0.0)
+            if self.sync_group is None:
+                mean = xf.mean(dim=(0, 2, 3))
+                var = torch.clamp(xf.square().mean(dim=(0, 2, 3)) - mean.square(), min=0.0)
+            else:
+                from audio2face_tpu_torch.parallel import comm
+
+                c = xf.shape[1]
+                n = torch.full((1,), xf.numel() / c, device=x.device)
+                sums = comm.sum_over_group(
+                    torch.cat([xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3)), n]),
+                    self.sync_group)
+                mean = sums[:c] / sums[2 * c]
+                var = torch.clamp(sums[c : 2 * c] / sums[2 * c] - mean.square(), min=0.0)
             with torch.no_grad():
                 bn.running_mean.mul_(1.0 - BN_MOMENTUM).add_(BN_MOMENTUM * mean.detach())
                 bn.running_var.mul_(1.0 - BN_MOMENTUM).add_(BN_MOMENTUM * var.detach())

@@ -24,6 +24,18 @@ per call for its hash mask), SpecAugment along time and features, and
 LayerDrop. The conv stack then runs its differentiable per-layer ``conv1d``
 path, recomputed in the backward (``torch.utils.checkpoint``): the fused
 conv-encoder kernel has no backward and is not launched in training.
+
+The parallel paths (``parallel/``) hook in at three places. A layer in its
+Megatron form (``parallel/mesh.py shard_params_tensor_parallel``: q/k/v
+and the FFN's first product split by columns, ``out_proj`` and
+``output_dense`` by rows over ``tp_group``) runs ``num_heads / m`` local
+heads. ``EncoderLayer.forward(time_group=)`` all-gathers K and V along
+time (sequence parallelism). ``Wav2Vec2Encoder.forward(pre_layers_only=
+True)`` stops before the layers. ``batch_rows=(offset, total)`` says that
+the batch is rows ``offset ..`` of a batch of ``total`` (a data-parallel
+rank's share): every random draw is then this rank's slice of the draw the
+whole batch makes, and the attention hash takes global batch and head
+indices, so a sharded step drops what the solo step drops.
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -78,11 +91,28 @@ class Wav2Vec2Config:
 HIDDEN_DROPOUT = 0.1  # the rate of every nn.Dropout in the JAX modules
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
-    """Inverted dropout from an explicit generator (on x's device)."""
+def dropout(
+    x: torch.Tensor, rate: float, generator: torch.Generator, rows=None, cols=None,
+) -> torch.Tensor:
+    """Inverted dropout from an explicit generator (on x's device).
+
+    ``rows=(offset, total)`` / ``cols=(offset, total)``: ``x`` is that slice
+    of the first / last dimension of a tensor with ``total`` of them (a
+    data- / tensor-parallel rank's share). The mask is then drawn at the
+    whole shape and sliced, so the rank drops what a run on the whole
+    tensor drops, and every rank's generator advances alike."""
     if rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < (1.0 - rate)
+    shape = list(x.shape)
+    if rows is not None:
+        shape[0] = rows[1]
+    if cols is not None:
+        shape[-1] = cols[1]
+    keep = torch.rand(shape, generator=generator, device=x.device) < (1.0 - rate)
+    if rows is not None:
+        keep = keep.narrow(0, rows[0], x.shape[0])
+    if cols is not None:
+        keep = keep.narrow(-1, cols[0], x.shape[-1])
     return x * (keep.to(x.dtype) / (1.0 - rate))
 
 
@@ -220,10 +250,10 @@ class FeatureProjection(nn.Module):
 
     def forward(
         self, x: torch.Tensor, dtype: torch.dtype, *, train: bool = False,
-        generator: Optional[torch.Generator] = None,
+        generator: Optional[torch.Generator] = None, batch_rows=None,
     ) -> torch.Tensor:
         x = dense(layer_norm(x, self.layer_norm, dtype), self.projection, dtype)
-        return dropout(x, HIDDEN_DROPOUT, generator) if train else x
+        return dropout(x, HIDDEN_DROPOUT, generator, rows=batch_rows) if train else x
 
 
 class PositionalConvEmbedding(nn.Module):
@@ -249,12 +279,17 @@ class PositionalConvEmbedding(nn.Module):
 
 
 class EncoderLayer(nn.Module):
-    """Post-LN transformer layer (do_stable_layer_norm=False, base config)."""
+    """Post-LN transformer layer (do_stable_layer_norm=False, base config).
+
+    ``tp_group`` is None, or the tensor-parallel group of the layer's
+    Megatron form, set by ``parallel/mesh.py shard_params_tensor_parallel``
+    together with the split weights."""
 
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
         d = config.hidden_size
         self.num_heads = config.num_heads
+        self.tp_group = None
         self.attention_dropout = config.attention_dropout
         self.q_proj = nn.Linear(d, d)
         self.k_proj = nn.Linear(d, d)
@@ -268,18 +303,34 @@ class EncoderLayer(nn.Module):
     def forward(
         self, x: torch.Tensor, kv_lengths: Optional[torch.Tensor] = None, *,
         dtype: torch.dtype = torch.float32, use_kernels: bool = True, train: bool = False,
-        generator: Optional[torch.Generator] = None,
+        generator: Optional[torch.Generator] = None, time_group=None, batch_rows=None,
     ) -> torch.Tensor:
+        """``time_group``: ``x`` is this rank's slice of the time axis
+        (sequence parallelism): K and V are all-gathered along time over the
+        group (rank order is time order) and the local queries attend every
+        key; ``kv_lengths`` are global counts. ``batch_rows=(offset,
+        total)``: ``x`` holds those rows of the batch (dropout and the
+        attention hash as in the module's note)."""
         b, s, d = x.shape
-        nh = self.num_heads
-        drop = (lambda t: dropout(t, HIDDEN_DROPOUT, generator)) if train else (lambda t: t)
+        tp = self.tp_group
+        m, r = (1, 0) if tp is None else (dist.get_world_size(tp), dist.get_rank(tp))
+        nh, hd = self.num_heads // m, d // self.num_heads
+        x_in = self._column_input(x)
+
+        def drop(t, cols=None):
+            return dropout(t, HIDDEN_DROPOUT, generator, rows=batch_rows, cols=cols) if train else t
 
         def split_heads(t):
-            return t.reshape(b, s, nh, d // nh).transpose(1, 2)
+            return t.reshape(b, -1, nh, hd).transpose(1, 2)
 
-        q = split_heads(dense(x, self.q_proj, dtype))
-        k = split_heads(dense(x, self.k_proj, dtype))
-        v = split_heads(dense(x, self.v_proj, dtype))
+        q = split_heads(dense(x_in, self.q_proj, dtype))
+        k = split_heads(dense(x_in, self.k_proj, dtype))
+        v = split_heads(dense(x_in, self.v_proj, dtype))
+        if time_group is not None:
+            from audio2face_tpu_torch.parallel import comm
+
+            k = comm.gather_along(k, 2, time_group)
+            v = comm.gather_along(v, 2, time_group)
         attend = flash_attention if use_kernels else mha_reference
         rate, seed = 0.0, None
         if train and self.attention_dropout > 0:
@@ -288,12 +339,41 @@ class EncoderLayer(nn.Module):
             rate = self.attention_dropout
             seed = torch.randint(
                 0, 2**31 - 1, (1,), generator=generator, device=x.device, dtype=torch.int32)
-        attn = attend(q, k, v, kv_lengths=kv_lengths, dropout_rate=rate, dropout_seed=seed)
-        attn = drop(dense(attn.transpose(1, 2).reshape(b, s, d), self.out_proj, dtype))
+        hash_index = None
+        if tp is not None or batch_rows is not None:
+            hash_index = (0 if batch_rows is None else batch_rows[0], r * nh, self.num_heads)
+        attn = attend(q, k, v, kv_lengths=kv_lengths, dropout_rate=rate, dropout_seed=seed,
+                      hash_index=hash_index)
+        attn = drop(self._row_split(attn.transpose(1, 2).reshape(b, s, nh * hd), self.out_proj,
+                                    dtype))
         x = layer_norm(x + attn, self.layer_norm, dtype)
-        ff = drop(F.gelu(dense(x, self.intermediate_dense, dtype)))
-        ff = drop(dense(ff, self.output_dense, dtype))
+        ff = F.gelu(dense(self._column_input(x), self.intermediate_dense, dtype))
+        ff = drop(ff, cols=None if tp is None else (r * ff.shape[-1], m * ff.shape[-1]))
+        ff = drop(self._row_split(ff, self.output_dense, dtype))
         return layer_norm(x + ff, self.final_layer_norm, dtype)
+
+    def _column_input(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` as the replicated input of a column-parallel product: in the
+        Megatron form through Megatron's "f" (its gradient summed over
+        ``tp_group``)."""
+        if self.tp_group is None:
+            return x
+        from audio2face_tpu_torch.parallel import comm
+
+        return comm.copy_to_group(x, self.tp_group)
+
+    def _row_split(self, x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+        """``layer`` on ``x``; in the Megatron form a row-parallel product:
+        the partial products are summed over ``tp_group``, the bias added by
+        the group's first rank (so a one-rank group computes what the whole
+        layer computes)."""
+        if self.tp_group is None:
+            return dense(x, layer, dtype)
+        from audio2face_tpu_torch.parallel import comm
+
+        bias = layer.bias.to(dtype) if dist.get_rank(self.tp_group) == 0 else None
+        return comm.reduce_from_group(F.linear(x.to(dtype), layer.weight.to(dtype), bias),
+                                      self.tp_group)
 
 
 class Wav2Vec2Encoder(nn.Module):
@@ -308,7 +388,11 @@ class Wav2Vec2Encoder(nn.Module):
     input's device; ``apply_spec_augment`` adds the span masks.
     ``differentiable=True`` keeps eval mode but runs the conv stack's
     ``conv1d`` path, for gradients into the conv weights (the fused kernel
-    has no backward)."""
+    has no backward). ``pre_layers_only=True`` returns ``(h,
+    feat_lengths)`` before the transformer layers: the split point of the
+    sequence- and pipeline-parallel encoders. ``batch_rows=(offset,
+    total)``: the batch is those rows of a larger one (the module's
+    note)."""
 
     def __init__(self, config: Wav2Vec2Config = Wav2Vec2Config()):
         super().__init__()
@@ -349,7 +433,9 @@ class Wav2Vec2Encoder(nn.Module):
         apply_spec_augment: bool = False,
         generator: Optional[torch.Generator] = None,
         differentiable: bool = False,
-    ) -> torch.Tensor:
+        pre_layers_only: bool = False,
+        batch_rows=None,
+    ):
         cfg = self.config
         if train and generator is None:
             raise ValueError("train=True needs an explicit torch.Generator")
@@ -397,17 +483,19 @@ class Wav2Vec2Encoder(nn.Module):
                 h = interp_linear_per_item(h, output_len, feat_lengths, output_lengths)
                 feat_lengths = output_lengths
 
-        h = self.feature_projection(h, dtype, train=train, generator=generator)
+        h = self.feature_projection(
+            h, dtype, train=train, generator=generator, batch_rows=batch_rows)
+        b0, n_rows = (0, h.shape[0]) if batch_rows is None else batch_rows
         if train and apply_spec_augment and cfg.mask_time_prob > 0:
             mask = compute_spec_augment_mask(
-                generator, h.shape[0], h.shape[1], cfg.mask_time_prob, cfg.mask_time_length,
-                cfg.mask_time_min_masks, device=h.device)
+                generator, n_rows, h.shape[1], cfg.mask_time_prob, cfg.mask_time_length,
+                cfg.mask_time_min_masks, device=h.device).narrow(0, b0, h.shape[0])
             h = torch.where(mask[..., None], self.masked_spec_embed.to(h.dtype), h)
         if train and apply_spec_augment and cfg.mask_feature_prob > 0:
             # masked channels are zeroed across every time step
             fmask = compute_spec_augment_mask(
-                generator, h.shape[0], h.shape[2], cfg.mask_feature_prob,
-                cfg.mask_feature_length, device=h.device)
+                generator, n_rows, h.shape[2], cfg.mask_feature_prob,
+                cfg.mask_feature_length, device=h.device).narrow(0, b0, h.shape[0])
             h = h.masked_fill(fmask[:, None, :], 0.0)
         if feat_lengths is not None:
             # zero padded positions before the (global) positional conv
@@ -415,21 +503,23 @@ class Wav2Vec2Encoder(nn.Module):
             h = h * valid[..., None].to(h.dtype)
         h = h + self.pos_conv_embed(h, dtype)
         h = layer_norm(h, self.layer_norm, dtype)
-        skip = [False] * len(self.layers)
         if train:
-            h = dropout(h, HIDDEN_DROPOUT, generator)
-            if cfg.layerdrop > 0.0:
-                # LayerDrop: a whole layer is skipped for the whole batch with
-                # probability layerdrop; all draws come in one host read
-                skip = (
-                    torch.rand(len(self.layers), generator=generator, device=h.device)
-                    < cfg.layerdrop
-                ).tolist()
+            h = dropout(h, HIDDEN_DROPOUT, generator, rows=batch_rows)
+        if pre_layers_only:
+            return h, feat_lengths
+        skip = [False] * len(self.layers)
+        if train and cfg.layerdrop > 0.0:
+            # LayerDrop: a whole layer is skipped for the whole batch with
+            # probability layerdrop; all draws come in one host read
+            skip = (
+                torch.rand(len(self.layers), generator=generator, device=h.device)
+                < cfg.layerdrop
+            ).tolist()
         for layer, skipped in zip(self.layers, skip):
             if skipped:
                 continue
             h = layer(
                 h, kv_lengths=feat_lengths, dtype=dtype, use_kernels=use_kernels, train=train,
-                generator=generator,
+                generator=generator, batch_rows=batch_rows,
             )
         return h

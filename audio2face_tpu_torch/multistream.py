@@ -24,9 +24,13 @@ and frame counter; this module batches that state over a fixed pool of
 Per stream, the decoder is the reference's autoregressive loop
 (src/model/faceformer.py:154-185) exactly, and the encoder's bounded-context
 approximation is ``streaming.py``'s: N interleaved streams reproduce N solo
-streams. ``mesh=`` (the JAX pool's slot sharding over chips) is not ported
-yet. Runs on the GPU unless ``device="cpu"``; every call that touches the
-device runs under ``torch.inference_mode()``.
+streams. ``mesh=`` shards the slot axis over the mesh's ``data`` axis: every
+rank runs the same calls and keeps the host bookkeeping of every slot, but
+holds the device state of, and encodes and decodes, only its own
+``n_streams / n_data`` slots; each step's vertices are gathered so that
+every rank returns every slot's frames. Runs on the GPU unless
+``device="cpu"``; every call that touches the device runs under
+``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -111,15 +115,32 @@ class MultiStreamFaceFormerPredictor:
         mesh=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= serving is not ported yet (ROADMAP.md queue 1 item 4: parallelism)")
-        self.device = resolve_device(device, "MultiStreamFaceFormerPredictor")
+        self.n_streams = int(n_streams)
+        self.mesh = mesh
+        # this rank's slots: [slot0, slot0 + n_local)
+        self._slot0, self._n_local = 0, self.n_streams
+        if mesh is None:
+            self.device = resolve_device(device, "MultiStreamFaceFormerPredictor")
+        else:
+            from audio2face_tpu_torch.parallel.mesh import (
+                DATA_AXIS, axis_size, mesh_device)
+
+            n_data = axis_size(mesh, DATA_AXIS)
+            if self.n_streams % n_data != 0:
+                raise ValueError(
+                    f"n_streams={self.n_streams} must be divisible by the mesh data "
+                    f"axis ({n_data}) so each rank hosts a whole slot slice")
+            self.device = mesh_device(mesh, device, "MultiStreamFaceFormerPredictor")
+            self._n_local = self.n_streams // n_data
+            self._slot0 = mesh.get_local_rank(DATA_AXIS) * self._n_local
         self.model = load_live_faceformer(
             variables, state_dict, n_verts, n_onehot, dtype, seed, self.device)
+        if mesh is not None:
+            from audio2face_tpu_torch.parallel.mesh import replicate
+
+            replicate(mesh, self.model)
         self.n_verts = n_verts
         self.n_onehot = n_onehot
-        self.n_streams = int(n_streams)
         self.sr = AUDIO_SR  # ingest clock (wire surfaces validate against it)
         self.fps = 60  # vocaset animation clock
         self.dtype = dtype
@@ -130,8 +151,8 @@ class MultiStreamFaceFormerPredictor:
         self.t_max = frame_count(_ceil_grain(int(max_seconds * AUDIO_SR)))
         self.chunk_frames = frame_count(self.chunk)
 
-        s, hd, dev = self.n_streams, FEATURE_DIM // N_HEADS, self.device
-        self._slots = [_SlotState() for _ in range(s)]
+        s, hd, dev = self._n_local, FEATURE_DIM // N_HEADS, self.device
+        self._slots = [_SlotState() for _ in range(self.n_streams)]
         with torch.inference_mode():
             self._p = decoder_step_params(self.model)
             self._emb = torch.zeros((s, FEATURE_DIM), device=dev)
@@ -140,7 +161,7 @@ class MultiStreamFaceFormerPredictor:
             self._v_cache = torch.zeros((s, N_HEADS, self.t_max + 1, hd), device=dev)
             self._styles = torch.zeros((s, FEATURE_DIM), device=dev)
             self._templates = torch.zeros((s, n_verts // 3, 3), device=dev)
-        self._t0 = np.zeros((s,), np.int64)
+        self._t0 = np.zeros((self.n_streams,), np.int64)
 
     # ------------------------------------------------------------------
     # stream lifecycle
@@ -158,14 +179,17 @@ class MultiStreamFaceFormerPredictor:
         sl = self._slots[free]
         sl.active = True
         sl.reset()
+        self._t0[free] = 0
+        i = free - self._slot0
+        if not 0 <= i < self._n_local:  # another rank's slot
+            return free
         one_hot = torch.as_tensor(np.asarray(one_hot, np.float32).reshape(self.n_onehot),
                                   device=self.device)
         style = F.linear(one_hot, self.model.obj_vector.weight.float())
-        self._styles[free] = style
-        self._emb[free] = style  # emb_0 = the style embedding
-        self._templates[free] = torch.as_tensor(
+        self._styles[i] = style
+        self._emb[i] = style  # emb_0 = the style embedding
+        self._templates[i] = torch.as_tensor(
             np.asarray(template, np.float32).reshape(-1, 3), device=self.device) * self.unit_scale
-        self._t0[free] = 0
         return free
 
     def close_stream(self, slot: int) -> None:
@@ -285,17 +309,23 @@ class MultiStreamFaceFormerPredictor:
             return
 
         keep_from = frame_count(self.left)
+        mine = slice(self._slot0, self._slot0 + self._n_local)  # this rank's slots
         cross = encode_windows(
-            self.model, norm, frame_count(window), keep_from, keep_from + self.chunk_frames,
+            self.model, norm[mine], frame_count(window), keep_from, keep_from + self.chunk_frames,
             self.device, use_kernels=True)
         dev = self.device
         step = make_decoder_step(
-            self._p, styles=self._styles, t0=torch.as_tensor(self._t0, device=dev),
-            n_valid=torch.as_tensor(n_valid, device=dev), t_scratch=self.t_max,
+            self._p, styles=self._styles, t0=torch.as_tensor(self._t0[mine], device=dev),
+            n_valid=torch.as_tensor(n_valid[mine], device=dev), t_scratch=self.t_max,
         )
         (self._emb, self._k_cache, self._v_cache), hs = run_decoder_steps(
             step, (self._emb, self._k_cache, self._v_cache), cross)
         verts = self.model.vertex_head(hs, self._templates) / self.unit_scale
+        if self.mesh is not None:
+            from audio2face_tpu_torch.parallel import comm
+            from audio2face_tpu_torch.parallel.mesh import DATA_AXIS
+
+            verts = comm.all_gather(verts, 0, self.mesh.get_group(DATA_AXIS))
         # one device-to-host copy of the rows that hold frames, whatever the
         # number of slots served
         served = np.flatnonzero(n_valid)

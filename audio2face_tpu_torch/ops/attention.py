@@ -12,7 +12,10 @@ The dropout mask is no random stream: each position's keep bit is a hash of
 ``(seed, batch*head, row, col)`` (``dropout_keep_mask``, bit for bit the JAX
 package's ``_dropout_keep_tile``), so the forward kernel, the backward
 kernels and the plain versions all drop the same positions and no mask is
-ever stored.
+ever stored. ``hash_index=(batch offset, head offset, total heads)`` says
+which slice of a larger call's batch and heads a call computes (a data- or
+tensor-parallel rank's share): the hash then takes the whole call's
+``batch*head``, so the rank drops what the whole call drops there.
 
 When an input requires grad, ``flash_attention`` goes through a
 ``torch.autograd.Function`` whose backward is ``flash_attention_bwd``: for
@@ -144,9 +147,20 @@ def dropout_keep_mask(seed, bh, row, col, rate: float) -> torch.Tensor:
     return keep.to(torch.float32) * float(np.float32(1.0 / (1.0 - rate)))
 
 
-def attention_keep_mask(b, h, t_q, t_k, seed, rate, device) -> torch.Tensor:
-    """(B, H, Tq, Tk) keep multipliers of one attention call."""
-    bh = torch.arange(b * h, device=device).reshape(b, h, 1, 1)
+def hash_batch_heads(b: int, h: int, hash_index=None, device=None) -> torch.Tensor:
+    """(B, H, 1, 1) int64: the hash's ``batch*head`` index of each (batch,
+    head) of a call on ``b`` x ``h`` slices. ``hash_index=(b0, h0, heads)``
+    places the call at batch offset b0 and head offset h0 of a call with
+    ``heads`` heads in all; ``None`` is ``(0, 0, h)``."""
+    b0, h0, heads = (0, 0, h) if hash_index is None else hash_index
+    rows = torch.arange(b, device=device).reshape(b, 1, 1, 1) + b0
+    return rows * heads + h0 + torch.arange(h, device=device).reshape(1, h, 1, 1)
+
+
+def attention_keep_mask(b, h, t_q, t_k, seed, rate, device, hash_index=None) -> torch.Tensor:
+    """(B, H, Tq, Tk) keep multipliers of one attention call (``hash_index``
+    as in ``hash_batch_heads``)."""
+    bh = hash_batch_heads(b, h, hash_index, device)
     row = torch.arange(t_q, device=device).reshape(1, 1, t_q, 1)
     col = torch.arange(t_k, device=device).reshape(1, 1, 1, t_k)
     return dropout_keep_mask(seed, bh, row, col, rate)
@@ -189,6 +203,7 @@ def mha_reference(
     return_lse: bool = False,
     dropout_rate: float = 0.0,
     dropout_seed=None,
+    hash_index=None,
 ):
     """Plain multi-head attention. q, k, v: (B, H, T, D) -> (B, H, Tq, D).
 
@@ -196,7 +211,8 @@ def mha_reference(
     the value product, as the kernel does. ``return_lse`` also returns the
     per-row logsumexp (B, H, Tq) f32. With ``dropout_rate`` > 0 and an int32
     ``dropout_seed`` (int or one-element tensor) the normalized
-    probabilities are multiplied by the hash mask of ``dropout_keep_mask``."""
+    probabilities are multiplied by the hash mask of ``dropout_keep_mask``
+(``hash_index`` as in ``hash_batch_heads``)."""
     b, h, t_q, d = q.shape
     t_k = k.shape[2]
     if sm_scale is None:
@@ -205,7 +221,8 @@ def mha_reference(
     s, _ = _masked_scores(q, k, causal, alibi_period, kv_lengths, sm_scale)
     p = torch.softmax(s, dim=-1)
     if dropout_rate > 0.0 and dropout_seed is not None:
-        p = p * attention_keep_mask(b, h, t_q, t_k, dropout_seed, dropout_rate, q.device).to(acc)
+        p = p * attention_keep_mask(
+            b, h, t_q, t_k, dropout_seed, dropout_rate, q.device, hash_index).to(acc)
     out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).to(acc), v.to(acc)).to(q.dtype)
     if return_lse:
         return out, torch.logsumexp(s, dim=-1)
@@ -222,7 +239,7 @@ def attention_delta_reference(out: torch.Tensor, g: torch.Tensor) -> torch.Tenso
 
 def flash_attention_bwd_reference(
     q, k, v, out, lse, g, *, causal=False, alibi_period=None, kv_lengths=None,
-    sm_scale=None, dropout_rate: float = 0.0, dropout_seed=None,
+    sm_scale=None, dropout_rate: float = 0.0, dropout_seed=None, hash_index=None,
 ):
     """Plain version of the backward kernels: (dq, dk, dv) in q's dtype from
     the saved ``out`` and ``lse`` and the output gradient ``g``, in the
@@ -243,7 +260,8 @@ def flash_attention_bwd_reference(
     dp = torch.einsum("bhqd,bhkd->bhqk", g32, v32)
     pm = p
     if dropout_rate > 0.0 and dropout_seed is not None:
-        m = attention_keep_mask(b, h, t_q, t_k, dropout_seed, dropout_rate, q.device).to(acc)
+        m = attention_keep_mask(
+            b, h, t_q, t_k, dropout_seed, dropout_rate, q.device, hash_index).to(acc)
         pm, dp = p * m, dp * m
     delta = attention_delta_reference(out, g)[..., None]
     ds = (p * (dp - delta) * sm_scale).to(q.dtype).to(acc)
@@ -255,10 +273,10 @@ def flash_attention_bwd_reference(
 
 # trailing arguments shared by the forward and backward entry points:
 # batch, heads, t_q, t_k, head_dim, is_bf16, causal, period, sm_scale, seed,
-# drop_thr, keep_scale, stream
+# drop_thr, keep_scale, hash_b0, hash_h0, hash_heads, stream
 _TAIL_ARGTYPES = [ctypes.c_int] * 8 + [
-    ctypes.c_float, ctypes.c_void_p, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p,
-]
+    ctypes.c_float, ctypes.c_void_p, ctypes.c_uint, ctypes.c_float,
+] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 # q, k, v, o, lse, kv_len, slopes
 _FWD_ARGTYPES = [ctypes.c_void_p] * 7 + _TAIL_ARGTYPES
 # q, k, v, out, dout, lse, delta, dq, dk, dv, kv_len, slopes
@@ -289,11 +307,11 @@ def _kernel_layout(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _kernel_side_inputs(q, t_k, kv_lengths, dropout_rate, dropout_seed):
-    """Device tensors both kernels' launches take beside q, k, v: clamped
-    int32 KV lengths, ALiBi slopes (cached on the device), the (1,) int32
-    seed, and the dropout threshold and keep scale (0 and 1 when dropout is
-    off)."""
+def _kernel_side_inputs(q, t_k, kv_lengths, dropout_rate, dropout_seed, hash_index=None):
+    """What both kernels' launches take beside q, k, v: clamped int32 KV
+    lengths, ALiBi slopes (cached on the device), the (1,) int32 seed, the
+    dropout threshold and keep scale (0 and 1 when dropout is off), and the
+    hash's (batch offset, head offset, total heads)."""
     b, h = q.shape[:2]
     if kv_lengths is None:
         kvlen = torch.full((b,), t_k, dtype=torch.int32, device=q.device)
@@ -306,18 +324,20 @@ def _kernel_side_inputs(q, t_k, kv_lengths, dropout_rate, dropout_seed):
     else:
         seed = torch.zeros(1, dtype=torch.int32, device=q.device)
         thr, keep_scale = 0, 1.0
-    return kvlen, slopes, seed, thr, keep_scale
+    hix = (0, 0, h) if hash_index is None else tuple(int(x) for x in hash_index)
+    return kvlen, slopes, seed, thr, keep_scale, hix
 
 
 def _flash_attention_cuda(
     q, k, v, causal, alibi_period, kv_lengths, sm_scale, dropout_rate=0.0, dropout_seed=None,
+    hash_index=None,
 ):
     _check_kernel_inputs("flash_attention", q, k, v)
     b, h, t_q, d = q.shape
     t_k = k.shape[2]
     qf, kf, vf = _kernel_layout(q), _kernel_layout(k), _kernel_layout(v)
-    kvlen, slopes, seed, thr, keep_scale = _kernel_side_inputs(
-        q, t_k, kv_lengths, dropout_rate, dropout_seed)
+    kvlen, slopes, seed, thr, keep_scale, hix = _kernel_side_inputs(
+        q, t_k, kv_lengths, dropout_rate, dropout_seed, hash_index)
     out = torch.empty((b, h, t_q, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device)
     fn = _build.function("flash_attention", "a2f_flash_attention_fwd", _FWD_ARGTYPES)
@@ -325,7 +345,7 @@ def _flash_attention_cuda(
         qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), out.data_ptr(), lse.data_ptr(),
         kvlen.data_ptr(), slopes.data_ptr(), b, h, t_q, t_k, d,
         int(q.dtype == torch.bfloat16), int(causal), int(alibi_period or 0),
-        float(sm_scale), seed.data_ptr(), thr, keep_scale,
+        float(sm_scale), seed.data_ptr(), thr, keep_scale, *hix,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "flash_attention")
@@ -336,6 +356,7 @@ def _flash_attention_cuda(
 
 def _flash_attention_bwd_cuda(
     q, k, v, out, lse, g, causal, alibi_period, kv_lengths, sm_scale, dropout_rate, dropout_seed,
+    hash_index=None,
 ):
     """(dq, dk, dv, delta) from the two backward kernels."""
     _check_kernel_inputs("flash_attention_bwd", q, k, v)
@@ -352,8 +373,8 @@ def _flash_attention_bwd_cuda(
     of, gf = _kernel_layout(out.to(q.dtype)), _kernel_layout(g.to(q.dtype))
     lsef = lse.to(torch.float32).contiguous()
     delta = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device)  # written by the dq kernel
-    kvlen, slopes, seed, thr, keep_scale = _kernel_side_inputs(
-        q, t_k, kv_lengths, dropout_rate, dropout_seed)
+    kvlen, slopes, seed, thr, keep_scale, hix = _kernel_side_inputs(
+        q, t_k, kv_lengths, dropout_rate, dropout_seed, hash_index)
     dq, dk, dv = torch.empty_like(qf), torch.empty_like(kf), torch.empty_like(vf)
     fn = _build.function("flash_attention_bwd", "a2f_flash_attention_bwd", _BWD_ARGTYPES)
     rc = fn(
@@ -361,7 +382,7 @@ def _flash_attention_bwd_cuda(
         lsef.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         kvlen.data_ptr(), slopes.data_ptr(), b, h, t_q, t_k, d,
         int(q.dtype == torch.bfloat16), int(causal), int(alibi_period or 0),
-        float(sm_scale), seed.data_ptr(), thr, keep_scale,
+        float(sm_scale), seed.data_ptr(), thr, keep_scale, *hix,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "flash_attention_bwd")
@@ -420,26 +441,27 @@ def flash_attention_bwd(
     sm_scale: Optional[float] = None,
     dropout_rate: float = 0.0,
     dropout_seed=None,
+    hash_index=None,
 ):
     """Backward of ``flash_attention``: (dq, dk, dv) in q's dtype from the
     forward's ``out`` and ``lse`` and the output gradient ``g``.
 
     CUDA tensors launch the two backward kernels (dq with delta, then dk/dv)
     for every shape; CPU tensors run ``flash_attention_bwd_reference``. With
-    dropout, ``dropout_seed`` must be the forward's."""
+    dropout, ``dropout_seed`` and ``hash_index`` must be the forward's."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(
             q, k, v, out, lse, g, causal=causal, alibi_period=alibi_period,
             kv_lengths=kv_lengths, sm_scale=sm_scale, dropout_rate=dropout_rate,
-            dropout_seed=dropout_seed,
+            dropout_seed=dropout_seed, hash_index=hash_index,
         )
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu, not {q.device}")
     return _flash_attention_bwd_cuda(
         q, k, v, out, lse, g, causal, alibi_period, kv_lengths, sm_scale,
-        dropout_rate, dropout_seed,
+        dropout_rate, dropout_seed, hash_index,
     )[:3]
 
 
@@ -454,40 +476,42 @@ class _FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_lengths, dropout_seed, causal, alibi_period, sm_scale,
-                dropout_rate):
+                dropout_rate, hash_index):
         out, lse = _flash_attention_forward(
-            q, k, v, causal, alibi_period, kv_lengths, sm_scale, dropout_rate, dropout_seed)
+            q, k, v, causal, alibi_period, kv_lengths, sm_scale, dropout_rate, dropout_seed,
+            hash_index)
         ctx.save_for_backward(q, k, v, out, lse, kv_lengths, dropout_seed)
-        ctx.options = (causal, alibi_period, sm_scale, dropout_rate)
+        ctx.options = (causal, alibi_period, sm_scale, dropout_rate, hash_index)
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, g, _g_lse):
         q, k, v, out, lse, kv_lengths, dropout_seed = ctx.saved_tensors
-        causal, alibi_period, sm_scale, dropout_rate = ctx.options
+        causal, alibi_period, sm_scale, dropout_rate, hash_index = ctx.options
         dq, dk, dv = flash_attention_bwd(
             q, k, v, out, lse, g, causal=causal, alibi_period=alibi_period,
             kv_lengths=kv_lengths, sm_scale=sm_scale, dropout_rate=dropout_rate,
-            dropout_seed=dropout_seed,
+            dropout_seed=dropout_seed, hash_index=hash_index,
         )
-        return dq, dk, dv, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def _flash_attention_forward(
-    q, k, v, causal, alibi_period, kv_lengths, sm_scale, dropout_rate, dropout_seed,
+    q, k, v, causal, alibi_period, kv_lengths, sm_scale, dropout_rate, dropout_seed, hash_index,
 ):
     """(out, lse): the kernel for CUDA tensors, the plain version for CPU."""
     if q.device.type == "cpu":
         return mha_reference(
             q, k, v, causal=causal, alibi_period=alibi_period, kv_lengths=kv_lengths,
             sm_scale=sm_scale, return_lse=True, dropout_rate=dropout_rate,
-            dropout_seed=dropout_seed,
+            dropout_seed=dropout_seed, hash_index=hash_index,
         )
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     return _flash_attention_cuda(
-        q, k, v, causal, alibi_period, kv_lengths, sm_scale, dropout_rate, dropout_seed)
+        q, k, v, causal, alibi_period, kv_lengths, sm_scale, dropout_rate, dropout_seed,
+        hash_index)
 
 
 def flash_attention(
@@ -502,6 +526,7 @@ def flash_attention(
     return_lse: bool = False,
     dropout_rate: float = 0.0,
     dropout_seed=None,
+    hash_index=None,
 ):
     """Fused MHA. q, k, v: (B, H, T, D) f32 or bf16 -> (B, H, Tq, D).
 
@@ -511,8 +536,10 @@ def flash_attention(
 
     ``dropout_rate`` > 0 with an int32 ``dropout_seed`` (an int or a
     one-element integer tensor, drawn once per call by the caller) drops
-    attention probabilities by the hash mask. Differentiable in q, k and v:
-    the backward is ``flash_attention_bwd``."""
+    attention probabilities by the hash mask; ``hash_index=(batch offset,
+    head offset, total heads)`` places this call's batch and heads in a
+    larger call's (``hash_batch_heads``). Differentiable in q, k and v: the
+    backward is ``flash_attention_bwd``."""
     if alibi_period is not None and alibi_period <= 0:
         raise ValueError(f"alibi_period must be positive, got {alibi_period}")
     if not 0.0 <= dropout_rate < 1.0:
@@ -520,15 +547,17 @@ def flash_attention(
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if dropout_rate == 0.0 or dropout_seed is None:
-        dropout_rate, dropout_seed = 0.0, None
+        dropout_rate, dropout_seed, hash_index = 0.0, None, None
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         if dropout_seed is not None:
             dropout_seed = torch.as_tensor(dropout_seed, device=q.device).to(torch.int32).reshape(1)
         out, lse = _FlashAttentionFunction.apply(
-            q, k, v, kv_lengths, dropout_seed, causal, alibi_period, sm_scale, dropout_rate)
+            q, k, v, kv_lengths, dropout_seed, causal, alibi_period, sm_scale, dropout_rate,
+            hash_index)
     else:
         out, lse = _flash_attention_forward(
-            q, k, v, causal, alibi_period, kv_lengths, sm_scale, dropout_rate, dropout_seed)
+            q, k, v, causal, alibi_period, kv_lengths, sm_scale, dropout_rate, dropout_seed,
+            hash_index)
     return (out, lse) if return_lse else out
 
 

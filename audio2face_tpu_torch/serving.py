@@ -19,13 +19,21 @@ from a reference PyTorch/Lightning checkpoint (``from_torch_checkpoint``),
 the port trainer's checkpoint (``from_checkpoint``), carried JAX variables,
 a port state dict, or a seeded random init. ``dataset="biwi"`` serves
 FaceFormer's BIWI mode (25 fps, period 25, 2-way cross softmax). The JAX
-trainer's orbax checkpoints are not read: orbax imports JAX. Multi-device
-meshes are not ported yet (``ROADMAP.md`` queue 1 item 4).
+trainer's orbax checkpoints are not read: orbax imports JAX.
+
+``mesh=`` (``parallel.make_mesh``) serves on every rank of a mesh, each
+rank running the same call: each batch is padded to a multiple of the
+``data`` axis and every rank decodes its rows (``shard_map_data``), the
+results gathered so that every rank returns them all.
+``FaceFormerPredictor(sp_mesh=)`` instead shards each clip's wav2vec2
+stack on time (``parallel/sequence.py``) and runs the decoder on the
+gathered hidden states on every rank.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Optional, Sequence
 
 import numpy as np
@@ -43,24 +51,68 @@ from audio2face_tpu_torch.utils.device import resolve_device
 from audio2face_tpu_torch.utils.shapes import round_up as _round_up
 
 
-def _batch_grid(max_batch: int) -> list[int]:
-    """The batch-shape grid: powers of two below ``max_batch``, and
-    ``max_batch``."""
+def _fit_max_batch(max_batch: int, n_data: int) -> int:
+    """Largest batch cap <= max_batch that splits evenly over the mesh's
+    data axis (each rank gets a whole share). Rounds down (the cap is a
+    memory ceiling on long clips) and warns; a cap smaller than the data
+    axis cannot be honoured at all (every sharded call pads to a multiple
+    of the axis), so that raises."""
+    if max_batch % n_data == 0:
+        return max_batch
+    if max_batch < n_data:
+        raise ValueError(
+            f"max_batch={max_batch} is smaller than the mesh data axis "
+            f"({n_data}): every mesh-sharded call is padded to a multiple "
+            f"of the axis, so the cap cannot be honored — raise max_batch "
+            f"to >= {n_data} or serve on a smaller mesh"
+        )
+    new = (max_batch // n_data) * n_data
+    warnings.warn(
+        f"max_batch={max_batch} is not divisible by the "
+        f"mesh data axis ({n_data}); rounding down to max_batch={new}",
+        stacklevel=3,
+    )
+    return new
+
+
+def _batch_grid(max_batch: int, n_data: int = 1) -> list[int]:
+    """The batch-shape grid: powers of two, each rounded up to a whole
+    multiple of the mesh data axis and capped at ``max_batch`` (itself a
+    multiple of the axis after ``_fit_max_batch``), and ``max_batch``.
+    Every grid size pads to itself, so ``warmup`` covers every shape a
+    request can be padded to."""
     grid = set()
     p = 1
     while p < max_batch:
-        grid.add(p)
+        grid.add(min(_round_up(p, n_data), max_batch))
         p *= 2
     grid.add(max_batch)
     return sorted(grid)
 
 
-def _pad_batch(b: int, max_batch: int) -> int:
+def _pad_batch(b: int, max_batch: int, n_data: int = 1) -> int:
     """Smallest grid batch size >= the request group's size ``b``."""
-    for g in _batch_grid(max_batch):
+    for g in _batch_grid(max_batch, n_data):
         if g >= b:
             return g
     raise ValueError(f"group of {b} clips exceeds max_batch={max_batch}")
+
+
+def _n_data(mesh) -> int:
+    if mesh is None:
+        return 1
+    from audio2face_tpu_torch.parallel.mesh import DATA_AXIS, axis_size
+
+    return axis_size(mesh, DATA_AXIS)
+
+
+def _serving_device(device, mesh, what: str) -> torch.device:
+    """The predictor's device: ``device``, or on a mesh this rank's."""
+    if mesh is None:
+        return resolve_device(device, what)
+    from audio2face_tpu_torch.parallel.mesh import mesh_device
+
+    return mesh_device(mesh, device, what)
 
 
 def _warmup_predictor(predictor, max_seconds: float, batches: Optional[Sequence[int]],
@@ -70,7 +122,7 @@ def _warmup_predictor(predictor, max_seconds: float, batches: Optional[Sequence[
     live traffic. ``batches=None`` covers the full batch grid. Returns the
     number of warm calls made."""
     if batches is None:
-        batches = _batch_grid(predictor.max_batch)
+        batches = _batch_grid(predictor.max_batch, _n_data(predictor.mesh))
     bucket = predictor.bucket_samples
     n_buckets = max(1, -(-int(max_seconds * sample_rate) // bucket))
     template = np.zeros((predictor.n_verts // 3, 3), np.float32)
@@ -115,21 +167,33 @@ class FaceFormerPredictor:
         dataset: str = "vocaset",
         device="cuda",
         use_kernels: bool = True,
+        mesh=None,
+        sp_mesh=None,
     ):
         """``variables``: the JAX FaceFormer's ``{"params": ...}`` as numpy
         arrays; ``state_dict``: the port's own; neither: random init from
         ``seed``. ``use_kernels=False`` runs the plain PyTorch versions of
-        every kernel (a reference run on the card)."""
+        every kernel (a reference run on the card). ``mesh``: data-parallel
+        clip batches over the mesh's ``data`` axis (``max_batch`` rounded
+        down to a multiple of it); ``sp_mesh``: each clip's encoder stack
+        time-sharded over its ``data`` axis; the two exclude each other.
+        On a mesh the first rank's weights serve on every rank."""
         if variables is not None and state_dict is not None:
             raise ValueError("pass variables= or state_dict=, not both")
-        self.device = resolve_device(device, "FaceFormerPredictor")
+        if mesh is not None and sp_mesh is not None:
+            raise ValueError(
+                "mesh= (data-parallel clip batches) and sp_mesh= "
+                "(time-sharded encoder) are mutually exclusive"
+            )
+        self.mesh, self.sp_mesh = mesh, sp_mesh
+        self.device = _serving_device(device, mesh or sp_mesh, "FaceFormerPredictor")
         self.dataset = dataset
         # animation clock of the returned (T, V, 3) tracks: VOCASET animates
         # at 60 fps, BIWI at 25
         self.fps = 25 if dataset == "biwi" else 60
         self.n_onehot = n_onehot
         self.n_verts = n_verts
-        self.max_batch = max_batch
+        self.max_batch = max_batch if mesh is None else _fit_max_batch(max_batch, _n_data(mesh))
         self.unit_scale = float(unit_scale)
         self.bucket_samples = int(bucket_seconds * AUDIO_SR)
         self.use_kernels = use_kernels
@@ -158,6 +222,19 @@ class FaceFormerPredictor:
         else:
             self.model.init_parameters(torch.Generator().manual_seed(seed))
         self.model.eval().to(self.device)
+        if mesh is not None or sp_mesh is not None:
+            from audio2face_tpu_torch.parallel.mesh import replicate
+
+            replicate(mesh or sp_mesh, self.model)
+        self._hidden_fn = self._hidden
+        if mesh is not None:
+            from audio2face_tpu_torch.parallel.mesh import DATA_AXIS, shard_map_data
+
+            # each rank decodes its rows (kernels included); the hidden
+            # states and masks are gathered (the vertex head runs on all)
+            d = (DATA_AXIS,)
+            self._hidden_fn = shard_map_data(mesh, self._hidden, in_specs=(d, d, d),
+                                             out_specs=(d, d))
 
     @classmethod
     def from_torch_checkpoint(cls, path: str, **kwargs) -> "FaceFormerPredictor":
@@ -183,8 +260,27 @@ class FaceFormerPredictor:
 
     @torch.inference_mode()
     def _hidden(self, audio, one_hot, lengths):
+        encoder_hidden = None
+        if self.sp_mesh is not None:
+            # sequence parallelism: the wav2vec2 stack time-sharded over the
+            # mesh, gathered, and the decoder (its kernel included) run on
+            # the whole hidden states on every rank
+            from audio2face_tpu_torch.models.faceformer import frame_count, normalize_waveform
+            from audio2face_tpu_torch.parallel.sequence import sequence_parallel_encode
+
+            encoder = self.model.audio_encoder
+            encoder_hidden = sequence_parallel_encode(
+                encoder, normalize_waveform(audio, lengths), self.sp_mesh,
+                output_len=frame_count(audio.shape[1], self.fps), lengths=lengths,
+                # BIWI keeps the 50 fps latents (their valid counts come from
+                # the conv stack); vocaset's interpolation takes frame counts
+                output_lengths=None if self.dataset == "biwi" else frame_count(lengths, self.fps),
+                config=encoder.config, dtype=self.model.dtype or torch.float32,
+                use_kernels=self.use_kernels, gather_output=True, dataset=self.dataset,
+            )
         return self.model(
-            audio, one_hot, None, lengths, return_hidden=True, use_kernels=self.use_kernels
+            audio, one_hot, None, lengths, return_hidden=True, use_kernels=self.use_kernels,
+            encoder_hidden=encoder_hidden,
         )
 
     @torch.inference_mode()
@@ -239,10 +335,10 @@ class FaceFormerPredictor:
             max_len = max(len(a) for a in group)
             samples = _round_up(max(max_len, self.bucket_samples), self.bucket_samples)
             b = len(group)
-            b_pad = _pad_batch(b, self.max_batch)
+            b_pad = _pad_batch(b, self.max_batch, _n_data(self.mesh))
             audio_pad = np.zeros((b_pad, samples), np.float32)
-            # dummy rows (batch-grid padding) get a short valid length: 800
-            # samples decode 3 frames each (BIWI: 1), discarded below
+            # dummy rows (batch-grid and mesh padding) get a short valid
+            # length: 800 samples decode 3 frames each (BIWI: 1), discarded below
             lengths = np.full((b_pad,), min(800, samples), np.int64)
             oh = np.zeros((b_pad, one_hot.shape[1]), np.float32)
             tmpl = np.zeros((b_pad,) + template.shape[1:], np.float32)
@@ -252,7 +348,7 @@ class FaceFormerPredictor:
             oh[:b] = one_hot[idx]
             tmpl[:b] = template[idx].astype(np.float32)
             dev = self.device
-            hs, mask = self._hidden(
+            hs, mask = self._hidden_fn(
                 torch.as_tensor(audio_pad, device=dev), torch.as_tensor(oh, device=dev),
                 torch.as_tensor(lengths, device=dev),
             )
@@ -305,7 +401,9 @@ class FramePredictor:
     Weights: ``variables`` (the JAX model's ``{"params", "batch_stats"}``
     as numpy arrays), ``state_dict`` (the port's), or a random init from
     ``seed``. The model computes in bf16 when the config asks for
-    "16-mixed", with BatchNorm in eval mode."""
+    "16-mixed", with BatchNorm in eval mode. ``mesh``: each rank runs its
+    share of the clips of each chunk (``max_batch`` rounded down to a
+    multiple of the ``data`` axis) and the chunks are gathered."""
 
     def __init__(
         self,
@@ -325,18 +423,16 @@ class FramePredictor:
 
         if config.modelname == "faceformer":
             raise ValueError("use FaceFormerPredictor for faceformer")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= serving is not ported yet (ROADMAP.md queue 1 item 4: parallelism)")
         if variables is not None and state_dict is not None:
             raise ValueError("pass variables= or state_dict=, not both")
-        self.device = resolve_device(device, "FramePredictor")
+        self.mesh = mesh
+        self.device = _serving_device(device, mesh, "FramePredictor")
         self.config = config
         self.fps = FPS
         self.sample_rate = config.sample_rate
         self.n_verts = config.vertex_count
         self.n_onehot = config.one_hot_size
-        self.max_batch = max_batch
+        self.max_batch = max_batch if mesh is None else _fit_max_batch(max_batch, _n_data(mesh))
         self.frame_batch = frame_batch
         self.unit_scale = float(unit_scale)
         self.bucket_samples = int(bucket_seconds * config.sample_rate)
@@ -357,6 +453,18 @@ class FramePredictor:
             sample_rate=config.sample_rate, n_feature=config.n_feature, out_dim=config.out_dim,
             win_length=config.win_length, hop_length=config.hop_length, n_fft=1024,
         ).to(self.device)
+        self._chunk_fn = self.forward_chunk
+        if mesh is not None:
+            from audio2face_tpu_torch.parallel.mesh import DATA_AXIS, replicate, shard_map_data
+
+            replicate(mesh, self.model)
+            if isinstance(self.extractor, torch.nn.Module):
+                replicate(mesh, self.extractor)
+            # the clips' rows (a clip's frame rows are contiguous) on each
+            # rank; the frame offset whole
+            d = (DATA_AXIS,)
+            self._chunk_fn = shard_map_data(mesh, self.forward_chunk, in_specs=(d, d, d, ()),
+                                            out_specs=d)
 
     @classmethod
     def from_torch_checkpoint(cls, path: str, config, **kwargs) -> "FramePredictor":
@@ -405,7 +513,7 @@ class FramePredictor:
         b = len(group)
         samples = _round_up(max(max(len(a) for a in group), self.bucket_samples),
                             self.bucket_samples)
-        b_pad = _pad_batch(b, self.max_batch)
+        b_pad = _pad_batch(b, self.max_batch, _n_data(self.mesh))
         audio = np.zeros((b_pad, samples), np.float32)
         for j, a in enumerate(group):
             audio[j, : len(a)] = a
@@ -455,7 +563,7 @@ class FramePredictor:
                 results[i] = np.empty((n_frames[j], self.n_verts // 3, 3), np.float32)
             inputs = self.prepare(group, one_hot[idx], template[idx].astype(np.float32))
             for f0 in range(0, max(n_frames), self.frame_batch):
-                chunk = self.forward_chunk(*inputs, f0).cpu().numpy()
+                chunk = self._chunk_fn(*inputs, f0).cpu().numpy()
                 for j, i in enumerate(idx):
                     m = min(n_frames[j], f0 + self.frame_batch) - f0
                     if m > 0:

@@ -38,8 +38,31 @@ port's own ``torch.save`` files; ``load_torch_checkpoint`` takes a reference
 PyTorch/Lightning checkpoint. ``evaluate`` scores the test split with the
 metrics of ``evaluation.py``. ``fit`` writes tensorboard scalars when
 ``torch.utils.tensorboard`` is installed and, with ``profile_epoch``, a
-``torch.profiler`` Chrome trace of that epoch's first steps. Not ported
-yet: meshes, and the JAX trainer's orbax checkpoints (orbax imports JAX).
+``torch.profiler`` Chrome trace of that epoch's first steps. Not ported:
+the JAX trainer's orbax checkpoints (orbax imports JAX).
+
+``mesh=`` (or a ``config.mesh_shape`` other than one device, ``fsdp``, or
+``torchrun``'s environment) trains on a ``(data, model)`` mesh
+(``parallel/``), one process a device, every rank running the same calls
+on the same host batches:
+
+- data parallelism: each batch (each microbatch under gradient
+  accumulation) is sharded on ``data`` by ``shard_batch``; the losses
+  divide by the whole batch's counts (``losses.py`` ``group=``), so the
+  ranks' losses sum to the whole batch's and their gradients are summed;
+  BatchNorm takes the whole batch's moments; every random draw is the
+  rank's slice of the solo step's (``models/wav2vec2.py``), so a sharded
+  step equals the solo step with dropout on. A batch the ranks cannot
+  share evenly (its size, or an odd share of a frame model's velocity
+  pairs) is computed whole on every rank and its gradient divided;
+- tensor parallelism (on by default when the ``model`` axis is larger than
+  1): the wav2vec2 encoders (the model's and a wav2vec2 feature
+  extractor's) in their Megatron form;
+- ``fsdp``: FSDP2 (``parallel/fsdp.py``) over the ``data`` axis, composed
+  around the Megatron shards;
+- only rank 0 writes ``metrics.jsonl``, tensorboard and checkpoints, and
+  checkpoints hold the whole state, gathered (they load into a solo
+  trainer and the predictors).
 """
 
 from __future__ import annotations
@@ -52,6 +75,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from audio2face_tpu_torch.config import ExpConfig
 from audio2face_tpu_torch.losses import (
@@ -93,6 +118,9 @@ class Audio2FaceExperiment:
         device="cuda",
         model_kwargs: Optional[dict] = None,
         use_kernels: bool = True,
+        mesh=None,
+        tensor_parallel: Optional[bool] = None,
+        fsdp: Optional[bool] = None,
     ):
         """tensorboard: also write ``fit``'s scalars as tensorboard events
         into ``log_dir`` (``metrics.jsonl`` is always written); without the
@@ -104,16 +132,31 @@ class Audio2FaceExperiment:
         update; the batch size must divide evenly. Defaults to the config's
         key. ``model_kwargs`` go to the model's constructor (a narrow
         ``encoder_config`` in tests). ``use_kernels=False`` runs the plain
-        versions of every kernel."""
+        versions of every kernel.
+
+        mesh: a ``parallel.make_mesh`` mesh; made from ``config.mesh_shape``
+        when none is given and the config asks for more than one device,
+        for ``fsdp``, for ``tensor_parallel=True``, or under ``torchrun``.
+        tensor_parallel: Megatron-split the wav2vec2 encoders over the
+        mesh's ``model`` axis; default on when that axis is larger than 1.
+        fsdp: shard parameters and Adam moments over the ``data`` axis
+        (ZeRO-3); defaults to the config's ``fsdp`` key."""
+        from audio2face_tpu_torch.parallel import mesh as pm
+
         if accumulate_grad_batches is None:
             accumulate_grad_batches = config.accumulate_grad_batches
         if accumulate_grad_batches < 1:
             raise ValueError("accumulate_grad_batches must be >= 1")
-        if tuple(config.mesh_shape) not in ((-1, 1), (1, 1)) or config.fsdp:
-            raise NotImplementedError(
-                "the trainer takes one device: meshes and fsdp arrive with the "
-                "parallel modules (ROADMAP.md queue 1 item 4)"
-            )
+        self.fsdp = bool(config.fsdp if fsdp is None else fsdp)
+        if mesh is None and (
+            tuple(config.mesh_shape) not in ((-1, 1), (1, 1)) or self.fsdp or tensor_parallel
+            or "WORLD_SIZE" in os.environ
+        ):
+            mesh = pm.make_mesh(tuple(config.mesh_shape))
+        self.mesh = mesh
+        self.tensor_parallel = mesh is not None and (
+            pm.axis_size(mesh, pm.MODEL_AXIS) > 1 if tensor_parallel is None
+            else bool(tensor_parallel))
         if config.dataset not in ("vocaset", "biwi"):
             raise ValueError(f"unknown dataset {config.dataset!r}; available: vocaset, biwi")
         dataset_kwargs: dict = {}
@@ -128,7 +171,12 @@ class Audio2FaceExperiment:
             dataset_kwargs = {"dataset": config.dataset, "period": 25}
         self.accumulate_grad_batches = int(accumulate_grad_batches)
         self.config = config
-        self.device = resolve_device(device, "Audio2FaceExperiment")
+        if mesh is None:
+            self.device = resolve_device(device, "Audio2FaceExperiment")
+        else:
+            self.device = pm.mesh_device(mesh, device, "Audio2FaceExperiment")
+        # the rank that writes logs and checkpoints
+        self.writer = mesh is None or dist.get_rank() == 0
         self.use_kernels = use_kernels
         self.log_dir = log_dir or os.path.join("logs", config.name())
         self.is_faceformer = config.modelname == "faceformer"
@@ -149,6 +197,8 @@ class Audio2FaceExperiment:
         )
         self.model.init_parameters(torch.Generator().manual_seed(config.seed))
         self.model.to(self.device)
+        if mesh is not None:
+            self._shard_state()
         if config.loss is None:
             self.loss_fn = get_loss_fn(config.modelname)
         else:
@@ -163,16 +213,54 @@ class Audio2FaceExperiment:
         self.optimizer = self._new_optimizer()
         self.step = 0
 
+    def _shard_state(self) -> None:
+        """Place the model (and a wav2vec2 extractor) on the mesh: rank 0's
+        weights on every rank, BatchNorm synchronized over ``data``, then
+        tensor parallelism and FSDP as asked (the JAX trainer's
+        ``_place_state`` and extractor placement)."""
+        from audio2face_tpu_torch.models.layers import TorchBatchNorm
+        from audio2face_tpu_torch.parallel import fsdp as pf
+        from audio2face_tpu_torch.parallel import mesh as pm
+
+        mesh = self.mesh
+        pm.replicate(mesh, self.model)
+        for mod in self.model.modules():
+            if isinstance(mod, TorchBatchNorm):
+                mod.sync_group = mesh.get_group(pm.DATA_AXIS)
+        if self.fsdp:
+            pf.shard_state_fsdp(mesh, self.model, tensor_parallel=self.tensor_parallel)
+        elif self.tensor_parallel:
+            pm.shard_state_tensor_parallel(mesh, self.model)
+        fe = self.feature_extractor
+        if isinstance(fe, torch.nn.Module):
+            pm.replicate(mesh, fe)
+            if self.tensor_parallel:
+                pm.shard_params_tensor_parallel(mesh, fe)
+            if self.fsdp:
+                pf.shard_state_fsdp(mesh, fe)
+
     def _new_optimizer(self) -> torch.optim.Adam:
+        params = list(self.model.parameters())
+        # FSDP's sharded parameters and the replicated ones in two groups:
+        # Adam's multi-tensor step takes one kind at a time
+        groups = [g for g in (
+            [p for p in params if isinstance(p, DTensor)],
+            [p for p in params if not isinstance(p, DTensor)]) if g]
         return torch.optim.Adam(
-            self.model.parameters(), lr=self.config.lr, weight_decay=self.config.lr / 10.0)
+            [{"params": g} for g in groups], lr=self.config.lr,
+            weight_decay=self.config.lr / 10.0)
 
     # ------------------------------------------------------------------
     # state
     # ------------------------------------------------------------------
 
     def state_dict(self) -> dict:
-        """Model, optimizer and step count, on the CPU (a copy)."""
+        """Model, optimizer and step count, on the CPU (a copy). On a mesh
+        the whole state, gathered on every rank (every rank must call it),
+        laid out as a solo trainer's."""
+        if self.mesh is not None:
+            return self._gathered_state()
+
         def cpu(x):
             if isinstance(x, torch.Tensor):
                 return x.detach().cpu().clone()
@@ -189,9 +277,75 @@ class Audio2FaceExperiment:
         }
 
     def load_state_dict(self, state: dict) -> None:
-        self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        """Load a whole state (``state_dict()``'s layout); on a mesh each
+        rank keeps its shards of it."""
+        if self.mesh is None:
+            self.model.load_state_dict(state["model"])
+            self.optimizer.load_state_dict(state["optimizer"])
+        else:
+            self._load_model_state(state["model"])
+            self.optimizer.load_state_dict(self._sharded_optimizer_state(state["optimizer"]))
         self.step = int(state["step"])
+
+    # the whole state of a sharded model: each tensor gathered like its
+    # parameter (parallel/fsdp.py gather_full), the optimizer's state keyed
+    # by the parameter's place in model.parameters(), as a solo trainer's
+
+    def _param_order(self) -> tuple[list, dict]:
+        """The names of the optimizer's parameters in its order, and each
+        name's place in ``model.parameters()``."""
+        name_of = {p: n for n, p in self.model.named_parameters()}
+        place = {n: i for i, (n, _) in enumerate(self.model.named_parameters())}
+        order = [name_of[p] for g in self.optimizer.param_groups for p in g["params"]]
+        return order, place
+
+    def _gathered_state(self) -> dict:
+        from audio2face_tpu_torch.parallel.fsdp import gather_full
+
+        mesh, model = self.mesh, self.model
+        sd = {n: gather_full(mesh, model, n, v).detach().cpu().clone()
+              for n, v in model.state_dict().items()}
+        opt = self.optimizer.state_dict()
+        order, place = self._param_order()
+        state = {}
+        for i, st in opt["state"].items():
+            name = order[i]
+            state[place[name]] = {
+                k: (gather_full(mesh, model, name, v).detach().cpu().clone()
+                    if isinstance(v, torch.Tensor) and k != "step" else
+                    v.detach().cpu().clone() if isinstance(v, torch.Tensor) else v)
+                for k, v in st.items()}
+        group = {k: v for k, v in opt["param_groups"][0].items() if k != "params"}
+        group["params"] = list(range(len(place)))
+        return {"model": sd, "optimizer": {"state": state, "param_groups": [group]},
+                "step": self.step}
+
+    def _load_model_state(self, full: dict) -> None:
+        from audio2face_tpu_torch.parallel.fsdp import scatter_full
+
+        local = self.model.state_dict()
+        self.model.load_state_dict({
+            n: scatter_full(self.mesh, self.model, n, full[n], like=v) for n, v in local.items()})
+
+    def _sharded_optimizer_state(self, full: dict) -> dict:
+        from audio2face_tpu_torch.parallel.fsdp import scatter_full
+
+        params = dict(self.model.named_parameters())
+        order, place = self._param_order()
+        state = {}
+        for i, name in enumerate(order):
+            st = full["state"].get(place[name])
+            if st is None:
+                continue
+            state[i] = {k: (scatter_full(self.mesh, self.model, name, v, like=params[name])
+                            if isinstance(v, torch.Tensor) and k != "step" else v)
+                        for k, v in st.items()}
+        groups, start = [], 0
+        for g in self.optimizer.param_groups:
+            hyper = {k: v for k, v in full["param_groups"][0].items() if k != "params"}
+            groups.append(dict(hyper, params=list(range(start, start + len(g["params"])))))
+            start += len(g["params"])
+        return {"state": state, "param_groups": groups}
 
     def load_torch_checkpoint(self, path: str) -> None:
         """Swap in the weights (and BatchNorm statistics) of a reference
@@ -210,7 +364,10 @@ class Audio2FaceExperiment:
             state_dict = convert_faceformer(sd, dataset=self.config.dataset)
         else:
             state_dict = convert_state_dict(self.config.modelname, sd)
-        self.model.load_state_dict(state_dict)
+        if self.mesh is None:
+            self.model.load_state_dict(state_dict)
+        else:
+            self._load_model_state(state_dict)
         self.optimizer = self._new_optimizer()
 
     # ------------------------------------------------------------------
@@ -229,13 +386,80 @@ class Audio2FaceExperiment:
             for k, v in batch.items()
         }
 
+    def _place(self, batch: dict):
+        """``(batch on the device, rows, group)``: on a mesh whose ranks can
+        share the batch, this rank's rows of it (``shard_batch``), the
+        ``(offset, total)`` of those rows and the ``data`` group the losses
+        normalize over; else the whole batch, None, None. The ranks share
+        a batch that the data axis divides, into shares that keep a frame
+        model's velocity pairs (consecutive items) whole; a FaceFormer batch
+        only with ``audio_lengths`` (the masked loss)."""
+        from audio2face_tpu_torch.parallel import mesh as pm
+
+        if self.mesh is None:
+            return self._to_device(batch), None, None
+        n = batch["audio"].shape[0]
+        rows = pm.data_rows(self.mesh, n)
+        if rows is not None:
+            share = n // pm.axis_size(self.mesh, pm.DATA_AXIS)
+            ok = "audio_lengths" in batch if self.is_faceformer else share % 2 == 0
+            rows = rows if ok else None
+        if rows is None:
+            return self._to_device(batch), None, None
+        return (pm.shard_batch(self.mesh, batch), rows,
+                self.mesh.get_group(pm.DATA_AXIS))
+
+    def _sum_metrics(self, metrics: dict, group) -> dict:
+        """The ranks' metric shares summed: each loss term is the rank's
+        share of the whole batch's (normalized by global counts)."""
+        if group is None:
+            return metrics
+        from audio2face_tpu_torch.parallel import comm
+
+        names = list(metrics)
+        total = comm.all_reduce(torch.stack([metrics[k].detach().float() for k in names]), group)
+        return dict(zip(names, total.unbind()))
+
+    def _sync_gradients(self) -> None:
+        """Sum the gradients FSDP does not reduce: the biases of the
+        row-parallel products, which only the model group's first rank adds
+        (over ``model``), then every parameter FSDP leaves replicated (over
+        ``data``); one flat buffer each."""
+        from audio2face_tpu_torch.models.wav2vec2 import EncoderLayer
+        from audio2face_tpu_torch.parallel import comm
+        from audio2face_tpu_torch.parallel import mesh as pm
+
+        def local(t):
+            return t.to_local() if isinstance(t, DTensor) else t
+
+        def summed(params, group):
+            grads = [local(p.grad) for p in params if p.grad is not None]
+            if grads:
+                flat = comm.all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
+                for g, s in zip(grads, flat.split([g.numel() for g in grads])):
+                    g.copy_(s.view_as(g))
+
+        if self.tensor_parallel:
+            partial = []
+            for m in self.model.modules():
+                # LayerDrop skips a layer on every rank alike
+                if isinstance(m, EncoderLayer) and m.tp_group is not None \
+                        and m.q_proj.weight.grad is not None:
+                    for p in (m.out_proj.bias, m.output_dense.bias):
+                        if p.grad is None:  # the ranks that add no bias
+                            p.grad = torch.zeros_like(p)
+                        partial.append(p)
+            summed(partial, self.mesh.get_group(pm.MODEL_AXIS))
+        summed([p for p in self.model.parameters() if not isinstance(p, DTensor)],
+               self.mesh.get_group(pm.DATA_AXIS))
+
     def _unpack(self, batch: dict):
         """x100 scaling + field split."""
         verts = batch["verts"].float() * 100.0
         template = batch["template_vert"].float() * 100.0
         return batch["audio"].float(), batch["one_hot"].float(), verts, template, batch.get("audio_lengths")
 
-    def _apply(self, batch: dict, train: bool, generator=None):
+    def _apply(self, batch: dict, train: bool, generator=None, rows=None):
         x, one_hot, verts, template, lengths = self._unpack(batch)
         if not self.is_faceformer:
             # the extractor's output comes detached (the reference detaches it)
@@ -243,21 +467,25 @@ class Audio2FaceExperiment:
             return self.model(feats, one_hot, template, train=train), None, verts
         out = self.model(
             x, one_hot, template, lengths, train=train, generator=generator,
-            use_kernels=self.use_kernels,
+            use_kernels=self.use_kernels, batch_rows=rows,
         )
         pred, frame_mask = out if lengths is not None else (out, None)
         return pred, frame_mask, verts
 
-    def _compute_loss(self, pred, verts, frame_mask):
+    def _compute_loss(self, pred, verts, frame_mask, group=None):
+        """The loss terms; with ``group`` this rank's share of the whole
+        batch's (``_place``: only the masked FaceFormer loss and the frame
+        models' loss are shared)."""
         if not self.is_faceformer:
-            return self.loss_fn(pred, verts)
+            return self.loss_fn(pred, verts, group)
         gt = verts.reshape(pred.shape)
         if frame_mask is not None:
-            return masked_faceformer_loss(pred, gt, frame_mask)
+            return masked_faceformer_loss(pred, gt, frame_mask, group)
         return self.loss_fn(pred, gt)
 
-    def _train_loss(self, batch: dict, generator: torch.Generator):
-        """(loss dict, err) of one microbatch in train mode."""
+    def _train_loss(self, batch: dict, generator: torch.Generator, rows=None, group=None):
+        """(loss dict, err) of one microbatch in train mode; with ``rows``
+        and ``group`` (``_place``) this rank's shares of them."""
         n_verts = self.config.vertex_count // 3
         if self.is_faceformer and "audio_lengths" in batch:
             # padded whole-clip training: decode to hidden states and run the
@@ -267,23 +495,30 @@ class Audio2FaceExperiment:
             x, one_hot, verts_gt, template, lengths = self._unpack(batch)
             hs, fmask = self.model(
                 x, one_hot, template, lengths, train=True, generator=generator,
-                return_hidden=True, use_kernels=self.use_kernels,
+                return_hidden=True, use_kernels=self.use_kernels, batch_rows=rows,
             )
             head = self.model.vertice_map_r
             return chunked_faceformer_head_loss(
                 hs, head.weight.T, head.bias, template,
                 verts_gt.reshape(hs.shape[0], hs.shape[1], -1, 3), fmask, n_verts=n_verts,
+                group=group,
             )
-        pred, fmask, verts = self._apply(batch, train=True, generator=generator)
-        return self._compute_loss(pred, verts, fmask), mse_error(pred, verts, n_verts, fmask)
+        pred, fmask, verts = self._apply(batch, train=True, generator=generator, rows=rows)
+        return (self._compute_loss(pred, verts, fmask, group),
+                mse_error(pred, verts, n_verts, fmask, group=group))
 
     def accumulate_gradients(self, batch: dict) -> dict:
         """Leave the mean gradient of the batch's k microbatches in the
         parameters' ``.grad`` (k = ``accumulate_grad_batches``) and return
         the mean metrics. Microbatch i draws from the stream ``(seed, step,
-        i)``; with k = 1 the stream is ``(seed, step)``."""
+        i)``; with k = 1 the stream is ``(seed, step)``.
+
+        On a mesh each microbatch is shared by the data axis (``_place``),
+        the gradients summed over it, and the metrics are the whole
+        batch's."""
+        from audio2face_tpu_torch.parallel import mesh as pm
+
         k = self.accumulate_grad_batches
-        batch = self._to_device(batch)
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         if k == 1:
@@ -297,10 +532,17 @@ class Audio2FaceExperiment:
             keys = [(self.config.seed, self.step, i) for i in range(k)]
         totals: dict = {}
         for mb, key in zip(micro, keys):
-            loss, err = self._train_loss(mb, self._generator(*key))
-            (loss["loss"] / k).backward()
-            for name, value in dict(loss, err=err).items():
+            mb, rows, group = self._place(mb)
+            loss, err = self._train_loss(mb, self._generator(*key), rows, group)
+            scale = 1.0 / k
+            if self.mesh is not None and group is None:
+                # every rank computed the whole batch; the gradients are summed
+                scale /= pm.axis_size(self.mesh, pm.DATA_AXIS)
+            (loss["loss"] * scale).backward()
+            for name, value in self._sum_metrics(dict(loss, err=err), group).items():
                 totals[name] = totals.get(name, 0.0) + value.detach() / k
+        if self.mesh is not None:
+            self._sync_gradients()
         return totals
 
     def train_step(self, batch: dict) -> dict:
@@ -314,17 +556,26 @@ class Audio2FaceExperiment:
     @torch.no_grad()
     def eval_step(self, batch: dict) -> dict:
         self.model.eval()
-        pred, fmask, verts = self._apply(self._to_device(batch), train=False)
-        loss = self._compute_loss(pred, verts, fmask)
-        return dict(loss, err=mse_error(pred, verts, self.config.vertex_count // 3, fmask))
+        batch, rows, group = self._place(batch)
+        pred, fmask, verts = self._apply(batch, train=False)
+        loss = self._compute_loss(pred, verts, fmask, group)
+        return self._sum_metrics(dict(loss, err=mse_error(
+            pred, verts, self.config.vertex_count // 3, fmask, group=group)), group)
 
     @torch.no_grad()
     def predict(self, batch: dict):
         """Predicted vertices in data units (/100) plus the err metric
-        against ground truth."""
+        against ground truth (on a mesh the whole batch's, on every
+        rank)."""
+        from audio2face_tpu_torch.parallel import comm
+
         self.model.eval()
-        pred, fmask, verts = self._apply(self._to_device(batch), train=False)
-        return pred / 100.0, mse_error(pred, verts, self.config.vertex_count // 3, fmask)
+        batch, rows, group = self._place(batch)
+        pred, fmask, verts = self._apply(batch, train=False)
+        err = mse_error(pred, verts, self.config.vertex_count // 3, fmask, group=group)
+        if group is not None:
+            pred, err = comm.all_gather(pred, 0, group), comm.all_reduce(err, group)
+        return pred / 100.0, err
 
     def evaluate(
         self,
@@ -408,7 +659,11 @@ class Audio2FaceExperiment:
         state, step and epoch counter included. ``checkpoint_every_steps=N``
         also saves a rolling ``periodic-epoch=E-step=S`` checkpoint every N
         optimizer steps (newest two kept); a run resumed from one finishes
-        the interrupted epoch, skipping the batches already trained."""
+        the interrupted epoch, skipping the batches already trained.
+
+        On a mesh every rank runs the loop on the same batches (each takes
+        its share of each); only rank 0 writes the metrics, tensorboard,
+        the profiler's trace and the checkpoints, and prints."""
         cfg = self.config
         max_epochs = max_epochs if max_epochs is not None else cfg.max_epochs
         os.makedirs(self.log_dir, exist_ok=True)
@@ -430,7 +685,7 @@ class Audio2FaceExperiment:
         bad_epochs = 0
         history = []
 
-        with open(metrics_path, "a") as logf:
+        with open(metrics_path if self.writer else os.devnull, "a") as logf:
             for epoch in range(start_epoch, max_epochs):
                 t0 = time.time()
                 train_errs, n_steps = [], 0
@@ -441,7 +696,8 @@ class Audio2FaceExperiment:
                 epoch_step0 = skip_steps if epoch == start_epoch else 0
                 for _ in range(epoch_step0):  # already trained before resume
                     next(batches, None)
-                profiler = self._start_profiler() if epoch == profile_epoch else None
+                profiler = (self._start_profiler()
+                            if epoch == profile_epoch and self.writer else None)
                 try:
                     # the next batches are assembled, and uploaded from
                     # pinned memory on a side stream, while this step runs
@@ -480,8 +736,9 @@ class Audio2FaceExperiment:
                 # scalar names mirror the reference's logger
                 self._scalar("train/err", train_err, epoch)
                 self._scalar("val/err", val_err, epoch)
-                print(f"Epoch {epoch} train err: {train_err}")
-                print(f"Epoch {epoch} val error: {val_err}")
+                if self.writer:
+                    print(f"Epoch {epoch} train err: {train_err}")
+                    print(f"Epoch {epoch} val error: {val_err}")
 
                 if val_err < best_val:
                     best_val, best_epoch, bad_epochs = val_err, epoch, 0
@@ -501,7 +758,7 @@ class Audio2FaceExperiment:
         """One tensorboard scalar; the writer (and its import) is made at
         the first call. Without the ``tensorboard`` package nothing is
         written."""
-        if not self.tensorboard:
+        if not (self.tensorboard and self.writer):
             return
         if self._tb is None:
             try:
@@ -548,19 +805,24 @@ class Audio2FaceExperiment:
         """Save ``[periodic-]epoch=E-step=S``. ``periodic=True`` marks a
         rolling save: only the newest two periodic saves are kept.
         ``epoch_step`` records how many optimizer steps of ``epoch`` were
-        already trained (mid-epoch saves set it; end-of-epoch saves do not)."""
-        os.makedirs(self._ckpt_dir(), exist_ok=True)
+        already trained (mid-epoch saves set it; end-of-epoch saves do not).
+        On a mesh every rank gathers the state and rank 0 writes it; the
+        others wait for the file."""
         prefix = "periodic-" if periodic else ""
         path = os.path.join(self._ckpt_dir(), f"{prefix}epoch={epoch}-step={self.step}")
         ckpt = dict(self.state_dict(), epoch=int(epoch))
         if epoch_step is not None:
             ckpt["epoch_step"] = int(epoch_step)
-        torch.save(ckpt, path + ".tmp")
-        os.replace(path + ".tmp", path)
-        if periodic:
-            old = [c for c in self._checkpoints() if c.startswith("periodic-")]
-            for name in old[:-2]:
-                os.remove(os.path.join(self._ckpt_dir(), name))
+        if self.writer:
+            os.makedirs(self._ckpt_dir(), exist_ok=True)
+            torch.save(ckpt, path + ".tmp")
+            os.replace(path + ".tmp", path)
+            if periodic:
+                old = [c for c in self._checkpoints() if c.startswith("periodic-")]
+                for name in old[:-2]:
+                    os.remove(os.path.join(self._ckpt_dir(), name))
+        if self.mesh is not None:
+            dist.barrier()
         return path
 
     def load_checkpoint(self, path: Optional[str] = None) -> tuple[int, Optional[int]]:

@@ -109,11 +109,23 @@ which raises (exit code != 0) on failure:
    as a subprocess with ``--warmup-seconds 10`` and ``--live-port``: two
    concurrent 5 s POSTs against direct calls, ``/stats``, one 5 s live
    session, then terminated;
-13. prints the ``{"kernels": [...]}`` line (each kernel's launches on the
-   serving, training, frame, checkpoint, data, live and CLI paths; K1 f32
-   and K4 f32 have rows of their own, counted by the wrappers'
-   ``f32_launches`` on the wav2vec2 frame request and the f32 gradient
-   check), then, last, ``{"ok": true, "device": {...}}``.
+13. parallelism (``parallel/``) on a one-rank NCCL group (the machine has
+   one card; NCCL puts no two ranks on one device), every sharded path at
+   full width against its solo run and timed beside it, each asserting
+   its kernels and a collective count above zero: (a) the trainer with
+   mesh (1, 1), tensor parallelism and FSDP (FSDP2-sharded parameters),
+   two bf16 steps of 8 x 10 s (K1 with dropout, K4); (b) sequence- and
+   pipeline-parallel encodes of 8 x 60 s (K2, K1); (c)
+   ``FaceFormerPredictor(mesh=)`` and ``(sp_mesh=)`` on the flagship
+   request (K1-K3); (d) ``FramePredictor(mesh=)`` on config.yaml, the
+   slot-sharded ``MultiStreamFaceFormerPredictor`` and ``FrameStreamPool``;
+   (e) K1 and K4, bf16 and f32, with a hash offset, against their plain
+   versions; each row gains ``parallel_launches``;
+14. prints the ``{"kernels": [...]}`` line (each kernel's launches on the
+   serving, training, frame, checkpoint, data, live, CLI and parallel
+   paths; K1 f32 and K4 f32 have rows of their own, counted by the
+   wrappers' ``f32_launches`` on the wav2vec2 frame request and the f32
+   gradient check), then, last, ``{"ok": true, "device": {...}}``.
 
 Gradients are off process-wide (the inference phases build no autograd
 graph); the training phases turn them on in their own scope.
@@ -271,8 +283,11 @@ def profiled_ms(torch, fn, calls: int, repeats: int = 5) -> tuple[list, list]:
     Each window starts and ends with a marker kernel (``torch.cuda._sleep``,
     not counted): the profiler on the GPU machine has lost one device event
     at a window's edge in most windows (K1's 60 events a window read 59 in
-    58 of 60 windows). A window that still lost device events (fewer than
-    the most any window recorded) is taken again, up to 12 x ``repeats``
+    58 of 60 windows). The windows timed are those with the event count
+    most windows recorded (ties to the larger): a window that still lost
+    events, or that recorded extra ones (a library call's occasional extra
+    kernels: a plain version's cuDNN convs read 330 events in 4 windows of
+    60 and 321 in the rest), is taken again, up to 12 x ``repeats``
     windows in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -291,10 +306,10 @@ def profiled_ms(torch, fn, calls: int, repeats: int = 5) -> tuple[list, list]:
                   and "spin_kernel" not in e.name]
         windows.append((len(events), sum(e.time_range.elapsed_us() for e in events) / 1e3 / calls))
         names |= {e.name for e in events}
-        full = max(n_ for n_, _ in windows)
-        if sum(n_ == full for n_, _ in windows) >= repeats:
+        counts = [n_ for n_, _ in windows]
+        full = max(counts, key=lambda c: (counts.count(c), c))
+        if counts.count(full) >= repeats:
             break
-    full = max(n_ for n_, _ in windows)
     times = [t_ for n_, t_ in windows if n_ == full][:repeats]
     require(full > 0 and len(times) == repeats,
             f"the profiler recorded {[n_ for n_, _ in windows]} device events of {sorted(names)}")
@@ -1932,6 +1947,347 @@ def cli_phases(torch, rows, by_name, smi, vdir: str) -> None:
         require(by_name[name]["cli_launches"] > 0, f"{name} did not launch on the CLIs' path")
 
 
+# one-rank sharded paths against their solo runs (phase 13): the trainer's
+# loss and err within the JAX package's rtol; its gradients per leaf within
+# GRAD_LEAF_TOL of the leaf's largest value (floored at 1e-4 of the largest
+# of any leaf), its parameters and Adam moments within JAX's bars (atol
+# 3e-5, rtol 1e-4); the encodes within K1's row bar; the predictors and
+# pools within phase 4's bf16 bar. On one rank the sharded paths launch the
+# same kernels on the same tensors, so the readings are expected at 0.
+PARALLEL_PARAM_ATOL, PARALLEL_PARAM_RTOL = 3e-5, 1e-4
+
+
+def parallel_phases(torch, rows, by_name, smi, pred) -> None:
+    """13: every sharded path at full width on a one-rank NCCL group, each
+    against its solo run and timed beside it: (a) the trainer with mesh
+    (1, 1), tensor parallelism and FSDP, two steps of the phase-7 batch;
+    (b) sequence- and pipeline-parallel encodes of 8 x 60 s; (c)
+    ``FaceFormerPredictor(mesh=)`` and ``(sp_mesh=)`` on the flagship
+    request; (d) ``FramePredictor(mesh=)`` on config.yaml, then the
+    slot-sharded pools; (e) K1 and K4, bf16 and f32, with a hash offset,
+    against their plain versions. Records each kernel's launches on these
+    paths as ``parallel_launches`` and asserts the collectives ran."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from audio2face_tpu_torch.config import ExpConfig
+    from audio2face_tpu_torch.frame_stream import FrameStreamPool
+    from audio2face_tpu_torch.models.faceformer import frame_count, normalize_waveform
+    from audio2face_tpu_torch.multistream import MultiStreamFaceFormerPredictor
+    from audio2face_tpu_torch.ops import attention as attn_ops
+    from audio2face_tpu_torch.parallel import comm, make_mesh
+    from audio2face_tpu_torch.parallel.pipeline import pipeline_parallel_encode
+    from audio2face_tpu_torch.parallel.sequence import sequence_parallel_encode
+    from audio2face_tpu_torch.serving import FaceFormerPredictor, FramePredictor
+    from audio2face_tpu_torch.training.trainer import Audio2FaceExperiment
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    for r in rows:
+        r["parallel_launches"] = 0
+    report = {"card": smi, "group": "nccl, 1 rank"}
+
+    def counted(part: str, fn, *, kernels: tuple, collectives=("all_reduce",)):
+        """fn() with the launch and collective counts set to 0 before and
+        read after; the part's kernels and collectives must have run."""
+        reset_counts(rows)
+        comm.reset_counts()
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tic
+        launched = {r["name"]: read_count(r) for r in rows}
+        for r in rows:
+            r["parallel_launches"] += launched[r["name"]]
+        for k in kernels:
+            require(launched[k] > 0, f"13 {part}: {k} was not launched")
+        for c in collectives:
+            require(comm.COUNTS[c] > 0, f"13 {part}: no {c} ran")
+        report.setdefault("launches", {})[part] = {k: v for k, v in launched.items() if v}
+        report.setdefault("collectives", {})[part] = dict(comm.COUNTS)
+        return out, wall
+
+    s_ = socket.socket()
+    s_.bind(("localhost", 0))
+    port = s_.getsockname()[1]
+    s_.close()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_mesh((1, 1))
+        n_verts = pred.n_verts
+
+        # ---- 13a. the trainer: DP x TP x FSDP on one rank, two steps --------
+        cfg = ExpConfig(
+            batch_size=8, modelname="faceformer", one_hot_size=12, feature_extractor=None,
+            sample_rate=16000, vertex_count=n_verts, split_frame=False, n_feature=32,
+            out_dim=52, win_length=440, percision="16-mixed", lr=1e-3, seed=0,
+        )
+        rng = np.random.default_rng(13)
+        tmpl = (rng.normal(size=(8, n_verts // 3, 3)) * 0.1).astype(np.float32)
+        batch = {
+            "audio": (rng.normal(size=(8, 160000)) * 0.1).astype(np.float32),
+            "one_hot": np.eye(12, dtype=np.float32)[rng.integers(0, 12, 8)],
+            "verts": rng.standard_normal((8, 600, n_verts), dtype=np.float32) * 0.002
+            + tmpl.reshape(8, 1, -1),
+            "template_vert": tmpl,
+            "audio_lengths": np.asarray([160000, 120000, 160000, 40000, 80000, 160000, 8000,
+                                         150000], np.int32),
+        }
+        solo = Audio2FaceExperiment(cfg, log_dir="build/chip_smoke_logs")
+        solo.model.load_state_dict(pred.model.state_dict())
+        start = solo.state_dict()
+        sharded = Audio2FaceExperiment(cfg, log_dir="build/chip_smoke_logs", mesh=mesh,
+                                       tensor_parallel=True, fsdp=True)
+        sharded.load_state_dict(start)
+        del start
+        w = sharded.model.audio_encoder.layers[0].intermediate_dense.weight
+        require(isinstance(w, DTensor) and sharded.tensor_parallel and sharded.fsdp,
+                f"13a: the trainer's parameters are not FSDP2-sharded: {type(w)}")
+        steps = {"solo": [], "sharded": []}
+
+        def full(t):
+            return t.full_tensor() if isinstance(t, DTensor) else t
+
+        def two_steps(exp):
+            """Each step's metrics and wall, and each step's gradients."""
+            out = []
+            with torch.enable_grad():
+                for _ in range(2):
+                    tic_ = time.perf_counter()
+                    m = exp.train_step(batch)
+                    torch.cuda.synchronize()
+                    wall_ = time.perf_counter() - tic_
+                    grads_ = {k: full(p.grad).detach().float().clone()
+                              for k, p in exp.model.named_parameters() if p.grad is not None}
+                    out.append(({k: float(v) for k, v in m.items()}, wall_, grads_))
+            return out
+
+        # deterministic library kernels for the comparison (cuDNN's and
+        # PyTorch's nondeterministic backward algorithms part two solo runs
+        # by rounding, which Adam scales to lr on leaves whose gradient is
+        # rounding noise); on one rank the sharded step then equals the solo
+        # step bit for bit
+        was = torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled()
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            reset_counts(rows)
+            steps["solo"] = two_steps(solo)
+            steps["sharded"], _ = counted("trainer", lambda: two_steps(sharded),
+                                          kernels=("flash_attention", "flash_attention_bwd"))
+        finally:
+            torch.backends.cudnn.deterministic = was[0]
+            torch.use_deterministic_algorithms(was[1])
+        require(by_name["fused_conv_encoder"]["parallel_launches"] == 0
+                and by_name["faceformer_decode_loop"]["parallel_launches"] == 0,
+                "13a: an inference-only kernel was launched in training")
+        metric_err = max(abs(a[0][k] - b[0][k]) / max(abs(b[0][k]), 1e-30)
+                         for a, b in zip(steps["sharded"], steps["solo"]) for k in b[0])
+        grad_err = 0.0
+        for (_, _, ga), (_, _, gb) in zip(steps["sharded"], steps["solo"]):
+            require(set(ga) == set(gb), "13a: the two runs skipped different layers")
+            largest = max(float(v.abs().max()) for v in gb.values())
+            grad_err = max([grad_err] + [
+                float((ga[k] - v).abs().max()) / max(float(v.abs().max()), 1e-4 * largest)
+                for k, v in gb.items()])
+        sp = dict(sharded.model.named_parameters())
+        param_excess, moment_excess = 0.0, 0.0
+        for k, p in solo.model.named_parameters():
+            a, b = full(sp[k].detach()).float(), p.detach().float()
+            param_excess = max(param_excess, float(
+                ((a - b).abs() - PARALLEL_PARAM_ATOL - PARALLEL_PARAM_RTOL * b.abs()).max()))
+            if p in solo.optimizer.state:
+                for key in ("exp_avg", "exp_avg_sq"):
+                    a_ = full(sharded.optimizer.state[sp[k]][key]).float()
+                    b_ = solo.optimizer.state[p][key].float()
+                    moment_excess = max(moment_excess, float(
+                        ((a_ - b_).abs() - PARALLEL_PARAM_ATOL - PARALLEL_PARAM_RTOL * b_.abs()).max()))
+        report["trainer"] = {
+            "batch": 8, "seconds_each": 10, "steps": 2, "tensor_parallel": True, "fsdp": True,
+            "deterministic_algorithms": True,
+            "solo_step_s": [s for _, s, _ in steps["solo"]],
+            "sharded_step_s": [s for _, s, _ in steps["sharded"]],
+            "solo_metrics": [m for m, _, _ in steps["solo"]],
+            "sharded_metrics": [m for m, _, _ in steps["sharded"]],
+            "max_metric_rel_err": metric_err, "max_grad_rel_err_of_a_leaf": grad_err,
+            "param_excess_over_bar": param_excess, "moment_excess_over_bar": moment_excess,
+        }
+        print(json.dumps({"parallel_trainer": report["trainer"], "card": smi}), flush=True)
+        require(metric_err <= 1e-5, f"13a: loss/err differ by {metric_err} (rtol 1e-5)")
+        require(grad_err <= GRAD_LEAF_TOL, f"13a: gradients differ by {grad_err} of a leaf")
+        require(param_excess <= 0.0 and moment_excess <= 0.0,
+                f"13a: parameters / moments beyond atol 3e-5 + rtol 1e-4: "
+                f"{param_excess}, {moment_excess}")
+        del solo, sharded, sp, steps, batch
+        torch.cuda.empty_cache()
+
+        # ---- 13b. SP and PP encodes of 8 x 60 s against the solo encoder ----
+        encoder = pred.model.audio_encoder
+        n_samples, n_frames = 960000, frame_count(960000)
+        audio = torch.as_tensor((rng.normal(size=(8, n_samples)) * 0.1).astype(np.float32),
+                                device=dev)
+        with torch.no_grad():
+            x = normalize_waveform(audio)
+            kw = dict(output_len=n_frames, dtype=bf)
+            encoder(x, **kw)  # warm
+            want, solo_s = counted("encoder", lambda: encoder(x, **kw),
+                                   kernels=("fused_conv_encoder", "flash_attention"),
+                                   collectives=())
+            sp_out, sp_s = counted(
+                "sequence_parallel_encode",
+                lambda: sequence_parallel_encode(encoder, x, mesh, config=encoder.config,
+                                                 gather_output=True, **kw),
+                kernels=("fused_conv_encoder", "flash_attention"), collectives=("all_gather",))
+            pp_out, pp_s = counted(
+                "pipeline_parallel_encode",
+                lambda: pipeline_parallel_encode(encoder, x, mesh, n_micro=1,
+                                                 config=encoder.config, **kw),
+                kernels=("fused_conv_encoder", "flash_attention"))
+        enc_errs = {name: row_scaled_err(got, want) for name, got in
+                    (("sequence_parallel", sp_out), ("pipeline_parallel", pp_out))}
+        report["encode"] = {"batch": 8, "seconds_each": 60, "frames": n_frames,
+                            "solo_ms": 1e3 * solo_s, "sequence_parallel_ms": 1e3 * sp_s,
+                            "pipeline_parallel_ms": 1e3 * pp_s, "pipeline_n_micro": 1,
+                            "max_err_over_row_max": enc_errs, "tol": K1_BF16_ROW_TOL}
+        print(json.dumps({"parallel_encode": report["encode"], "card": smi}), flush=True)
+        require(all(e <= K1_BF16_ROW_TOL for e in enc_errs.values()),
+                f"13b: sharded encodes against the solo encoder: {enc_errs}")
+        del audio, x, want, sp_out, pp_out
+        torch.cuda.empty_cache()
+
+        # ---- 13c. FaceFormerPredictor(mesh=) and (sp_mesh=), flagship ------
+        eye = np.eye(12, dtype=np.float32)
+        one_hot = eye[rng.integers(0, 12, 8)]
+        template = (rng.normal(size=(n_verts // 3, 3)) * 0.1).astype(np.float32)
+        clips = [(rng.normal(size=n_samples) * 0.1).astype(np.float32) for _ in range(8)]
+        state = pred.model.state_dict()
+        kw = dict(n_verts=n_verts, bf16=True, max_batch=8, bucket_seconds=5.0, state_dict=state)
+        want, solo_s = counted("predictor", lambda: pred(clips, one_hot, template),
+                               kernels=("fused_conv_encoder", "flash_attention",
+                                        "faceformer_decode_loop"), collectives=())
+        served = {}
+        for name, extra, coll in (("mesh", {"mesh": mesh}, ("all_gather",)),
+                                  ("sp_mesh", {"sp_mesh": mesh}, ("all_gather",))):
+            p_ = FaceFormerPredictor(**kw, **extra)
+            p_([c[:16000] for c in clips], one_hot, template)  # warm
+            got, s = counted(f"predictor_{name}", lambda: p_(clips, one_hot, template),
+                             kernels=("fused_conv_encoder", "flash_attention",
+                                      "faceformer_decode_loop"), collectives=coll)
+            l2, disp, tol = max_l2_and_bar(got, want, template)
+            served[name] = {"wall_s": s, "max_vertex_l2": l2, "tol": tol}
+            require(all(g.shape == w_.shape for g, w_ in zip(got, want)) and l2 <= tol,
+                    f"13c: FaceFormerPredictor({name}=) against the solo predictor: {l2} > {tol}")
+            del p_, got
+        report["predictors"] = {"request": "8 x 60 s", "solo_wall_s": solo_s, **served}
+        print(json.dumps({"parallel_predictors": report["predictors"], "card": smi}), flush=True)
+        del want
+        torch.cuda.empty_cache()
+
+        # ---- 13d. FramePredictor(mesh=) on config.yaml, then the pools -----
+        fcfg = ExpConfig.from_yaml("config.yaml")
+        sr = fcfg.sample_rate
+        fclips = [(rng.normal(size=20 * sr) * 0.1).astype(np.float32) for _ in range(8)]
+        ftemplate = (rng.normal(size=(fcfg.vertex_count // 3, 3)) * 0.1).astype(np.float32)
+        solo_f = FramePredictor(fcfg, max_batch=8, frame_batch=128, seed=0)
+        mesh_f = FramePredictor(fcfg, max_batch=8, frame_batch=128, seed=0, mesh=mesh)
+        for p_ in (solo_f, mesh_f):
+            p_([c[:sr] for c in fclips], one_hot, ftemplate)  # warm
+        fwant, fsolo_s = counted("frame_predictor", lambda: solo_f(fclips, one_hot, ftemplate),
+                                 kernels=(), collectives=())
+        fgot, fmesh_s = counted("frame_predictor_mesh", lambda: mesh_f(fclips, one_hot, ftemplate),
+                                kernels=(), collectives=("all_gather",))
+        fl2, fdisp, ftol = max_l2_and_bar(fgot, fwant, ftemplate)
+        require(fl2 <= ftol, f"13d: FramePredictor(mesh=) against solo: {fl2} > {ftol}")
+
+        def pool_run(pool, clips_, tmpl_, piece):
+            slots = [pool.open_stream(eye[i], tmpl_) for i in range(len(clips_))]
+            got_ = [[] for _ in clips_]
+            for off in range(0, max(len(c) for c in clips_), piece):
+                for i, c in enumerate(clips_):
+                    if off < len(c):
+                        got_[i].append(pool.push(slots[i], c[off : off + piece],
+                                                 last=off + piece >= len(c)))
+            return [np.concatenate(g_ + [pool.poll(s_)]) for g_, s_ in zip(got_, slots)]
+
+        pclips = [c[: 3 * 16000] for c in clips]
+        pools = {}
+        for name, mk in (("pool", lambda m: MultiStreamFaceFormerPredictor(
+                state_dict=state, n_verts=n_verts, n_streams=8, dtype=bf, mesh=m)),):
+            pw, ps = counted(f"{name}_solo", lambda: pool_run(mk(None), pclips, template, 4000),
+                             kernels=("fused_conv_encoder", "flash_attention"), collectives=())
+            pg, pm = counted(f"{name}_mesh", lambda: pool_run(mk(mesh), pclips, template, 4000),
+                             kernels=("fused_conv_encoder", "flash_attention"),
+                             collectives=("all_gather",))
+            l2, disp, tol = max_l2_and_bar(pg, pw, template)
+            pools[name] = {"clips": "8 x 3 s", "solo_s": ps, "mesh_s": pm, "max_vertex_l2": l2,
+                           "tol": tol}
+            require(l2 <= tol, f"13d: the slot-sharded {name} against solo: {l2} > {tol}")
+        fpclips = [c[: 3 * sr] for c in fclips]
+        fpw, fps = counted("frame_pool_solo", lambda: pool_run(FrameStreamPool(
+            fcfg, state_dict=solo_f.model.state_dict(), n_streams=8), fpclips, ftemplate,
+            int(0.1 * sr)), kernels=(), collectives=())
+        fpg, fpm = counted("frame_pool_mesh", lambda: pool_run(FrameStreamPool(
+            fcfg, state_dict=solo_f.model.state_dict(), n_streams=8, mesh=mesh), fpclips,
+            ftemplate, int(0.1 * sr)), kernels=(), collectives=("all_gather",))
+        l2, disp, tol = max_l2_and_bar(fpg, fpw, ftemplate)
+        require(l2 <= tol, f"13d: the slot-sharded frame pool against solo: {l2} > {tol}")
+        pools["frame_pool"] = {"clips": "8 x 3 s", "solo_s": fps, "mesh_s": fpm,
+                               "max_vertex_l2": l2, "tol": tol}
+        report["frame_and_pools"] = {
+            "frame_predictor": {"request": "8 x 20 s", "solo_wall_s": fsolo_s,
+                                "mesh_wall_s": fmesh_s, "max_vertex_l2": fl2, "tol": ftol},
+            **pools}
+        print(json.dumps({"parallel_frame_and_pools": report["frame_and_pools"], "card": smi}),
+              flush=True)
+        del solo_f, mesh_f, fwant, fgot
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # ---- 13e. K1 and K4 with a hash offset against their plain versions -----
+    # a (2, 6) slice placed at batch 3 and head 6 of a 12-head call; not
+    # counted (launches to compare with the plain version)
+    g = torch.Generator().manual_seed(13)
+    hix = (3, 6, 12)
+    offsets = {}
+    for dt in (bf, torch.float32):
+        q, k, v, dout = (torch.randn(2, 6, 600, 64, generator=g).to(dev, dt) for _ in range(4))
+        kvl = torch.tensor([600, 350], dtype=torch.int32, device=dev)
+        opt = dict(kv_lengths=kvl, dropout_rate=0.1, dropout_seed=torch.tensor(
+            [987654], dtype=torch.int32, device=dev), hash_index=hix)
+        with torch.no_grad():
+            out, lse = attn_ops.flash_attention(q, k, v, return_lse=True, **opt)
+            ref = attn_ops.mha_reference(q, k, v, **opt)
+            grads = attn_ops.flash_attention_bwd(q, k, v, out, lse, dout, **opt)
+            ref_grads = attn_ops.flash_attention_bwd_reference(q, k, v, out, lse, dout, **opt)
+            # the offset matters: another place in the call drops other keys
+            other = attn_ops.mha_reference(q, k, v, **dict(opt, hash_index=(0, 0, 6)))
+        torch.cuda.synchronize()
+        name = "bf16" if dt == bf else "f32"
+        if dt == bf:
+            fwd_err = row_scaled_err(out, ref)
+            bwd_err = max(row_scaled_err(a_, b_, K4_ROW_FLOOR) for a_, b_ in zip(grads, ref_grads))
+            ok = fwd_err <= K1_BF16_ROW_TOL and bwd_err <= K4_BF16_ROW_TOL
+        else:  # the bars of phase 3's f32 variant checks
+            fwd_err = float((out - ref).abs().max()) / (1e-5 + 1e-4 * float(ref.abs().max()))
+            bwd_err = max(float(((a_ - b_).abs() - K4_F32_RTOL * b_.abs()).max())
+                          for a_, b_ in zip(grads, ref_grads)) / K4_F32_ATOL
+            ok = fwd_err <= 1.0 and bwd_err <= 1.0
+        moved = float((other.float() - ref.float()).abs().max())
+        offsets[name] = {"k1_err": fwd_err, "k4_err": bwd_err, "other_offset_moves": moved}
+        require(ok and moved > 0, f"13e: K1/K4 {name} with hash offsets: {offsets[name]}")
+    report["hash_offsets"] = {"shape": [2, 6, 600, 64], "hash_index": list(hix),
+                              "dropout": 0.1, **offsets}
+    print(json.dumps({"parallel_hash_offsets": report["hash_offsets"], "card": smi}), flush=True)
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"parallel": report}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2935,7 +3291,11 @@ def main() -> int:
     finally:
         shutil.rmtree(shared, ignore_errors=True)
 
-    # ---- 13. results ----------------------------------------------------
+    # ---- 13. parallelism: every sharded path on a one-rank NCCL group -------
+    parallel_phases(torch, rows, by_name, smi, pred)
+    torch.cuda.empty_cache()
+
+    # ---- 14. results ----------------------------------------------------
     for r in rows:
         del r["wrapper"]
         r.pop("counter", None)

@@ -18,6 +18,7 @@ from audio2face_tpu.config import ExpConfig as JaxExpConfig
 from audio2face_tpu.data.vocaset import batch_audio_fragments
 from audio2face_tpu.serving import FramePredictor as JaxFramePredictor
 from audio2face_tpu_torch.config import ExpConfig
+from audio2face_tpu_torch.parallel import make_mesh
 from audio2face_tpu_torch.serving import FramePredictor
 
 torch.set_num_threads(1)
@@ -141,8 +142,11 @@ def test_resampling_validation_and_warmup():
         port([a16], np.eye(12, dtype=np.float32)[[0, 1]], template)
     with pytest.raises(ValueError, match="faceformer"):
         FramePredictor(_cfg("faceformer", split_frame=False, batch_size=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        FramePredictor(cfg, mesh=object(), device="cpu")
+    # on a one-rank mesh (shard_map_data, the gather) it decodes the same
+    meshed = FramePredictor(cfg, variables=jax.tree.map(np.asarray, ref.variables),
+                            frame_batch=16, bucket_seconds=0.3, device="cpu",
+                            mesh=make_mesh((1, 1)))
+    np.testing.assert_array_equal(meshed([a16], one, template, sample_rate=16000)[0], got)
     assert port.warmup(0.5, batches=[1, 2]) == 4
 
 

@@ -14,6 +14,7 @@ from audio2face_tpu.serving import FramePredictor as JaxFramePredictor
 from audio2face_tpu_torch.config import ExpConfig
 from audio2face_tpu_torch.frame_stream import FPS, FrameStreamPool, window_offsets
 from audio2face_tpu_torch.multistream import StreamingServer
+from audio2face_tpu_torch.parallel import make_mesh
 from audio2face_tpu_torch.serving import FramePredictor
 
 torch.set_num_threads(1)
@@ -106,8 +107,12 @@ def test_slot_lifecycle_and_small_pushes(stack):
         pool.push(slots[0], clip[:10])
     for s in (slots[0], again, slots[2]):
         pool.close_stream(s)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        FrameStreamPool(pool.config, n_streams=2, device="cpu", mesh=object())
+    # on a one-rank mesh the slot-sharded pool decodes the same
+    meshed = FrameStreamPool(pool.config, state_dict=pool._base.model.state_dict(), n_streams=2,
+                             frame_batch=8, device="cpu", mesh=make_mesh((1, 1)))
+    s = meshed.open_stream(one_hot[0], template)
+    got = np.concatenate([meshed.push(s, clip[:500]), meshed.push(s, clip[500:]), meshed.flush(s)])
+    np.testing.assert_allclose(got, offline([clip], one_hot, template)[0], atol=1e-6, rtol=0)
 
 
 def test_streaming_server_fronts_frame_pool(stack):

@@ -39,7 +39,8 @@ sys.meta_path.insert(0, Blocker())
 import audio2face_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(audio2face_tpu_torch.__path__, "audio2face_tpu_torch.")]
 for name in ("cli.train", "cli.serve", "cli.evaluate", "cli.export", "evaluation",
-             "compat.torch_export"):
+             "compat.torch_export", "parallel", "parallel.comm", "parallel.mesh",
+             "parallel.fsdp", "parallel.sequence", "parallel.pipeline", "parallel.dryrun"):
     assert "audio2face_tpu_torch." + name in names, name
 for name in names:
     importlib.import_module(name)
@@ -49,7 +50,8 @@ from audio2face_tpu_torch.ops import _build
 assert not _build._libs, "importing the port loaded kernels"
 # the package's top-level surface resolves without JAX or a kernel
 for name in ("ExpConfig", "get_model", "get_extractor", "get_loss_fn", "VertexRegions",
-             "evaluate_animation", "infer_regions", "FaceFormerPredictor", "ServingDaemon"):
+             "evaluate_animation", "infer_regions", "FaceFormerPredictor", "ServingDaemon",
+             "make_mesh", "dryrun_multichip"):
     getattr(audio2face_tpu_torch, name)
 assert audio2face_tpu_torch.__version__ and not _build._libs
 print(len(names))

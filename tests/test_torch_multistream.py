@@ -17,6 +17,7 @@ from audio2face_tpu.multistream import MultiStreamFaceFormerPredictor as JaxPool
 from audio2face_tpu_torch.compat.jax_params import faceformer_jax_tree_from_state_dict
 from audio2face_tpu_torch.models.faceformer import FaceFormer, frame_count
 from audio2face_tpu_torch.multistream import MultiStreamFaceFormerPredictor, StreamingServer
+from audio2face_tpu_torch.parallel import make_mesh
 from audio2face_tpu_torch.streaming import StreamingFaceFormerPredictor
 
 torch.set_num_threads(1)
@@ -149,8 +150,13 @@ def test_pool_lifecycle_capacity_and_reuse(setup, solo):
                                solo(one_hot[1], clip, left=0.0), **TOL)
     with pytest.raises(RuntimeError, match="flushed"):
         pool.push(b, clip)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        MultiStreamFaceFormerPredictor(state_dict=state, n_verts=N_VERTS, device="cpu", mesh=object())
+    # on a one-rank mesh the slot-sharded pool decodes the same
+    meshed = MultiStreamFaceFormerPredictor(state_dict=state, n_verts=N_VERTS, n_streams=2,
+                                            device="cpu", mesh=make_mesh((1, 1)),
+                                            **_kw(left=0.0, max_seconds=1.0))
+    s = meshed.open_stream(one_hot[2], template)
+    np.testing.assert_allclose(meshed.push(s, clip, last=True),
+                               solo(one_hot[2], clip, left=0.0), **TOL)
 
 
 def test_streaming_server_concurrent_sessions(setup, solo):

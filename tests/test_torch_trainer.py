@@ -162,9 +162,12 @@ def test_default_device_raises_without_gpu():
 
 
 def test_meshes_and_other_datasets_are_refused():
-    for kw in ({"mesh_shape": (2, 2)}, {"fsdp": True}):
-        with pytest.raises(NotImplementedError):
-            _experiment(**kw)
+    # a mesh this one-process world cannot cover is refused; fsdp makes a
+    # one-rank mesh (the multi-rank paths: tests/test_torch_fsdp.py)
+    with pytest.raises(ValueError, match="does not cover 1 devices"):
+        _experiment(mesh_shape=(2, 2))
+    exp = _experiment(fsdp=True)
+    assert exp.fsdp and exp.mesh is not None and not exp.tensor_parallel
     with pytest.raises(ValueError, match="unknown dataset"):
         _experiment(dataset="mead")
     # BIWI is a dataset of the faceformer family: 25 fps, period 25

@@ -46,10 +46,10 @@ HOOKS = {  # macro: (text in the source, text with the hook)
         "    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<D>(acc, pa[kk], desc_mnmajor<D>(s_v_prev, kk), 1);\n"
         "#endif\n    wgmma_commit();\n    wgmma_wait<1>();",
     ),
-    "NO_LOADS": (
-        "    if (kt <= last) {\n      const uint32_t stage",
+    "NO_LOADS": (  # the bf16 kernel's ring (the f32 tiled kernel has one too)
+        "    if (kt <= last) {\n      const uint32_t stage = s_ring + (kt % C::STAGES)",
         "#ifdef ABL_NO_LOADS\n    if (kt <= last && kt < C::STAGES) {\n#else\n    if (kt <= last) {\n#endif\n"
-        "      const uint32_t stage",
+        "      const uint32_t stage = s_ring + (kt % C::STAGES)",
     ),
     "NWG": (
         "  static constexpr int NWG = D == 64 ? 4 : 2;",
@@ -139,7 +139,7 @@ def main() -> int:
                 def call(fn=fn):
                     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                             kvl.data_ptr(), slopes.data_ptr(), b, h, t, t, d, 1, 0, 0, d ** -0.5,
-                            seed.data_ptr(), 0, 1.0, torch.cuda.current_stream().cuda_stream)
+                            seed.data_ptr(), 0, 1.0, 0, 0, h, torch.cuda.current_stream().cuda_stream)
                     if rc != 0:
                         raise RuntimeError(f"{name}: cudaError_t {rc}")
                 if rnd == 0 and name in CHECKED:

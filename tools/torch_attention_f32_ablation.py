@@ -119,14 +119,14 @@ def main() -> int:
         b, h, t, d = shape
         q, k, v = (torch.randn(b, h, t, d, generator=g).to(dev) for _ in range(3))
         kv = None if kvl is None else torch.tensor(kvl, dtype=torch.int32, device=dev)
-        kvlen, slopes, seed, thr, keep = attn._kernel_side_inputs(q, t, kv, 0.0, None)
+        kvlen, slopes, seed, thr, keep, hix = attn._kernel_side_inputs(q, t, kv, 0.0, None)
         o, lse = torch.empty_like(q), torch.empty(b, h, t, device=dev)
         ref = attn.mha_reference(q, k, v, kv_lengths=kv)
 
         def call(fn):
             rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), kvlen.data_ptr(),
                     slopes.data_ptr(), b, h, t, t, d, 0, 0, 0, d ** -0.5, seed.data_ptr(), thr, keep,
-                    torch.cuda.current_stream().cuda_stream)
+                    *hix, torch.cuda.current_stream().cuda_stream)
             cs.require(rc == 0, f"launch failed with {rc}")
 
         res = {}
