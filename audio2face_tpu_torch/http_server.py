@@ -18,7 +18,9 @@ in any language can decode speech to FLAME vertex animations:
 - ``GET /healthz`` — liveness + backend.
 - ``GET /stats`` — request/error/timeout counters, in-flight gauge, the
   predictor calls made (``batches``: fewer than requests when requests
-  coalesce) and latency percentiles over a sliding window.
+  coalesce), and percentiles over sliding windows of the requests'
+  latency (``latency_ms``) and of their wait in the queue from submit to
+  dispatch (``queue_wait_ms``).
 
 Concurrent requests coalesce into padded batched predictor calls through
 ``BatchingServer`` (bounded queue, backpressure, per-request timeouts,
@@ -110,13 +112,15 @@ class ServingDaemon:
             out = dict(self._stats)
             lat = np.asarray(self._latencies, np.float64)
         out["batches"] = self.batcher.batches
-        if lat.size:
-            out["latency_ms"] = {
-                "p50": round(float(np.percentile(lat, 50)) * 1e3, 1),
-                "p95": round(float(np.percentile(lat, 95)) * 1e3, 1),
-                "max": round(float(lat.max()) * 1e3, 1),
-                "window": int(lat.size),
-            }
+        for key, seconds in (("latency_ms", lat),
+                             ("queue_wait_ms", np.asarray(self.batcher.queue_waits(), np.float64))):
+            if seconds.size:
+                out[key] = {
+                    "p50": round(float(np.percentile(seconds, 50)) * 1e3, 1),
+                    "p95": round(float(np.percentile(seconds, 95)) * 1e3, 1),
+                    "max": round(float(seconds.max()) * 1e3, 1),
+                    "window": int(seconds.size),
+                }
         for key, fn in self.extra_stats.items():
             try:
                 out[key] = fn()

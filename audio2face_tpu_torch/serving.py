@@ -14,6 +14,15 @@ frame models (Audio2Mesh, VOCA, Song2Face), ``FramePredictor``.
   convention, so the predictor feeds ``template * 100`` and returns
   ``output / 100`` (``unit_scale``).
 
+While a span recording is open (``utils/spans.py``), each call records
+``predict`` and, inside it, ``predict.upload`` (padding and uploads),
+``predict.model`` (the model call), ``predict.sync`` (FaceFormer's wait for
+the valid frame counts), ``predict.head`` (FaceFormer's vertex head),
+``predict.copy`` (each chunk's copy to the host) and ``predict.unpack``
+(the result arrays and the scatter of their rows), and counts
+``frames_valid``, ``frames_computed``, ``vertex_bytes_copied`` and
+``vertex_bytes_returned``.
+
 Both run on the card unless ``device="cpu"`` is asked for. Weights come
 from a reference PyTorch/Lightning checkpoint (``from_torch_checkpoint``),
 the port trainer's checkpoint (``from_checkpoint``), carried JAX variables,
@@ -47,6 +56,7 @@ from audio2face_tpu_torch.compat.jax_params import (
 )
 from audio2face_tpu_torch.models.faceformer import AUDIO_SR, FaceFormer
 from audio2face_tpu_torch.ops.dsp import fragment_starts, resample
+from audio2face_tpu_torch.utils import spans
 from audio2face_tpu_torch.utils.device import resolve_device
 from audio2face_tpu_torch.utils.shapes import round_up as _round_up
 
@@ -144,6 +154,29 @@ def _resampled(audios, sample_rate: int, target: int, device) -> list:
         .cpu().numpy()
         for a in audios
     ]
+
+
+def _copy_out(out: torch.Tensor) -> np.ndarray:
+    """A chunk of vertices copied to the host."""
+    with spans.span("predict.copy"):
+        chunk = out.cpu().numpy()
+    spans.count("vertex_bytes_copied", chunk.nbytes)
+    return chunk
+
+
+def _unpack(chunk: np.ndarray, off: int, lo: int, idx: Sequence[int], frames: Sequence[int],
+            results: list) -> None:
+    """Copy frames ``lo ..`` of clip ``j`` (``frames[j]`` frames) from row
+    ``j`` of ``chunk``, whose column ``off`` holds frame ``lo``, into its
+    host array ``results[idx[j]]``."""
+    rows = 0
+    with spans.span("predict.unpack"):
+        for j, i in enumerate(idx):
+            m = min(frames[j], lo + chunk.shape[1] - off) - lo
+            if m > 0:
+                results[i][lo : lo + m] = chunk[j, off : off + m]
+                rows += m
+    spans.count("vertex_bytes_returned", rows * chunk.nbytes // (chunk.shape[0] * chunk.shape[1]))
 
 
 class FaceFormerPredictor:
@@ -294,18 +327,19 @@ class FaceFormerPredictor:
         """Apply the vertex head per time chunk, copying each chunk into its
         clip's host buffer; the tail window is realigned, not shortened."""
         b_pad, t, _ = hs.shape
-        for j, i in enumerate(idx):
-            results[i] = np.empty((int(n_valid[j]), self.n_verts // 3, 3), np.float32)
+        with spans.span("predict.unpack"):
+            for j, i in enumerate(idx):
+                results[i] = np.empty((int(n_valid[j]), self.n_verts // 3, 3), np.float32)
         t_need = int(n_valid.max()) if len(n_valid) else 0
+        frames = [int(n) for n in n_valid[: len(idx)]]
         width = min(t, max(1, self._VERTEX_CHUNK_BYTES // (b_pad * self.n_verts * 4)))
         for lo in range(0, t_need, width):
             start = min(lo, t - width)
-            chunk = self._vertex_chunk(hs[:, start : start + width], tmpl).cpu().numpy()
-            off = lo - start
-            for j, i in enumerate(idx):
-                m = min(int(n_valid[j]), lo + width - off) - lo
-                if m > 0:
-                    results[i][lo : lo + m] = chunk[j, off : off + m]
+            with spans.span("predict.head"):
+                out = self._vertex_chunk(hs[:, start : start + width], tmpl)
+            chunk = _copy_out(out)
+            del out  # freed before the next chunk is computed
+            _unpack(chunk, lo - start, lo, idx, frames, results)
 
     def __call__(
         self,
@@ -325,35 +359,43 @@ class FaceFormerPredictor:
         if template.ndim == 2:
             template = np.broadcast_to(template[None], (n, *template.shape))
 
-        audios = _resampled(audios, sample_rate, AUDIO_SR, self.device)
-
-        results: list[Optional[np.ndarray]] = [None] * n
-        order = sorted(range(n), key=lambda i: len(audios[i]))
-        for lo in range(0, n, self.max_batch):
-            idx = order[lo : lo + self.max_batch]
-            group = [audios[i] for i in idx]
-            max_len = max(len(a) for a in group)
-            samples = _round_up(max(max_len, self.bucket_samples), self.bucket_samples)
-            b = len(group)
-            b_pad = _pad_batch(b, self.max_batch, _n_data(self.mesh))
-            audio_pad = np.zeros((b_pad, samples), np.float32)
-            # dummy rows (batch-grid and mesh padding) get a short valid
-            # length: 800 samples decode 3 frames each (BIWI: 1), discarded below
-            lengths = np.full((b_pad,), min(800, samples), np.int64)
-            oh = np.zeros((b_pad, one_hot.shape[1]), np.float32)
-            tmpl = np.zeros((b_pad,) + template.shape[1:], np.float32)
-            for j, a in enumerate(group):
-                audio_pad[j, : len(a)] = a
-                lengths[j] = len(a)
-            oh[:b] = one_hot[idx]
-            tmpl[:b] = template[idx].astype(np.float32)
-            dev = self.device
-            hs, mask = self._hidden_fn(
-                torch.as_tensor(audio_pad, device=dev), torch.as_tensor(oh, device=dev),
-                torch.as_tensor(lengths, device=dev),
-            )
-            n_valid = mask.sum(dim=1).cpu().numpy().astype(int)
-            self._emit_vertices(hs, torch.as_tensor(tmpl, device=dev), idx, n_valid, results)
+        with spans.span("predict"):
+            audios = _resampled(audios, sample_rate, AUDIO_SR, self.device)
+            results: list[Optional[np.ndarray]] = [None] * n
+            order = sorted(range(n), key=lambda i: len(audios[i]))
+            for lo in range(0, n, self.max_batch):
+                idx = order[lo : lo + self.max_batch]
+                group = [audios[i] for i in idx]
+                b = len(group)
+                dev = self.device
+                with spans.span("predict.upload"):
+                    max_len = max(len(a) for a in group)
+                    samples = _round_up(max(max_len, self.bucket_samples), self.bucket_samples)
+                    b_pad = _pad_batch(b, self.max_batch, _n_data(self.mesh))
+                    audio_pad = np.zeros((b_pad, samples), np.float32)
+                    # dummy rows (batch-grid and mesh padding) get a short valid
+                    # length: 800 samples decode 3 frames each (BIWI: 1), discarded below
+                    lengths = np.full((b_pad,), min(800, samples), np.int64)
+                    oh = np.zeros((b_pad, one_hot.shape[1]), np.float32)
+                    tmpl = np.zeros((b_pad,) + template.shape[1:], np.float32)
+                    for j, a in enumerate(group):
+                        audio_pad[j, : len(a)] = a
+                        lengths[j] = len(a)
+                    oh[:b] = one_hot[idx]
+                    tmpl[:b] = template[idx].astype(np.float32)
+                    inputs = [torch.as_tensor(x, device=dev) for x in (audio_pad, oh, lengths)]
+                with spans.span("predict.model"):
+                    hs, mask = self._hidden_fn(*inputs)
+                del inputs  # freed before the vertex head runs
+                with spans.span("predict.sync"):
+                    # the host waits here for the model's device work
+                    n_valid = mask.sum(dim=1).cpu().numpy().astype(int)
+                spans.count("frames_valid", int(n_valid[:b].sum()))
+                spans.count("frames_computed", b_pad * hs.shape[1])
+                with spans.span("predict.upload"):
+                    tmpl_d = torch.as_tensor(tmpl, device=dev)
+                self._emit_vertices(hs, tmpl_d, idx, n_valid, results)
+                del tmpl_d  # freed before the next group's model call
         return results  # type: ignore[return-value]
 
     def warmup(self, max_seconds: float = 60.0, *, batches: Optional[Sequence[int]] = None) -> int:
@@ -550,22 +592,26 @@ class FramePredictor:
             raise ValueError(f"one_hot batch {one_hot.shape[0]} != {n} clips")
         if template.ndim == 2:
             template = np.broadcast_to(template[None], (n, *template.shape))
-        if sample_rate is not None:
-            audios = _resampled(audios, sample_rate, self.sample_rate, self.device)
-
-        results: list[Optional[np.ndarray]] = [None] * n
-        order = sorted(range(n), key=lambda i: len(audios[i]))
-        for lo in range(0, n, self.max_batch):
-            idx = order[lo : lo + self.max_batch]
-            group = [audios[i] for i in idx]
-            n_frames = [len(a) * self.fps // self.sample_rate for a in group]
-            for j, i in enumerate(idx):
-                results[i] = np.empty((n_frames[j], self.n_verts // 3, 3), np.float32)
-            inputs = self.prepare(group, one_hot[idx], template[idx].astype(np.float32))
-            for f0 in range(0, max(n_frames), self.frame_batch):
-                chunk = self._chunk_fn(*inputs, f0).cpu().numpy()
-                for j, i in enumerate(idx):
-                    m = min(n_frames[j], f0 + self.frame_batch) - f0
-                    if m > 0:
-                        results[i][f0 : f0 + m] = chunk[j, :m]
+        with spans.span("predict"):
+            if sample_rate is not None:
+                audios = _resampled(audios, sample_rate, self.sample_rate, self.device)
+            results: list[Optional[np.ndarray]] = [None] * n
+            order = sorted(range(n), key=lambda i: len(audios[i]))
+            for lo in range(0, n, self.max_batch):
+                idx = order[lo : lo + self.max_batch]
+                group = [audios[i] for i in idx]
+                n_frames = [len(a) * self.fps // self.sample_rate for a in group]
+                with spans.span("predict.unpack"):
+                    for j, i in enumerate(idx):
+                        results[i] = np.empty((n_frames[j], self.n_verts // 3, 3), np.float32)
+                with spans.span("predict.upload"):
+                    inputs = self.prepare(group, one_hot[idx], template[idx].astype(np.float32))
+                spans.count("frames_valid", sum(n_frames))
+                for f0 in range(0, max(n_frames), self.frame_batch):
+                    with spans.span("predict.model"):
+                        out = self._chunk_fn(*inputs, f0)
+                    chunk = _copy_out(out)
+                    del out  # freed before the next chunk is computed
+                    spans.count("frames_computed", chunk.shape[0] * chunk.shape[1])
+                    _unpack(chunk, 0, f0, idx, n_frames, results)
         return results  # type: ignore[return-value]

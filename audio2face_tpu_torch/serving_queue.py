@@ -24,12 +24,16 @@ Production hardening (round 3):
 - **failure isolation**: a predictor exception resolves (only) that
   group's futures with the exception; the dispatcher thread survives and
   keeps serving subsequent requests.
+- **queue wait**: each request's wait from ``submit`` to dispatch is kept
+  for the last ``WAIT_WINDOW`` requests (``queue_waits()``, the daemon's
+  ``/stats``).
 
 Pure host-side threading: the GPU sees only the predictor's calls.
 """
 
 from __future__ import annotations
 
+import collections
 import queue
 import threading
 import time
@@ -40,6 +44,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+WAIT_WINDOW = 512  # the last queue waits kept for queue_waits()
+
 
 @dataclass(eq=False)  # identity semantics; field-wise eq over arrays is a trap
 class _Request:
@@ -49,6 +55,7 @@ class _Request:
     sample_rate: int
     future: Future
     deadline: Optional[float] = None  # monotonic seconds; None = no timeout
+    submitted: float = 0.0  # monotonic seconds when submit() was called
     # whether this request currently owns a depth-semaphore slot. submit()
     # always acquires one; _requeue() may fail its non-blocking re-acquire,
     # in which case the request rides slotless and _take must NOT release
@@ -89,6 +96,9 @@ class BatchingServer:
         # predictor calls made (the dispatcher thread alone writes it):
         # coalescing shows as fewer batches than requests
         self.batches = 0
+        # seconds from submit to dispatch of the last WAIT_WINDOW requests
+        self._waits: collections.deque = collections.deque(maxlen=WAIT_WINDOW)
+        self._waits_lock = threading.Lock()
         # serializes the closed-check against close()'s sentinel enqueue:
         # without it a submit could land BEHIND the shutdown sentinel and
         # its future would never resolve
@@ -134,6 +144,7 @@ class BatchingServer:
                 int(sample_rate),
                 fut,
                 t0 + timeout if timeout is not None else None,
+                t0,
             )
             with self._lock:
                 if self._closed:
@@ -144,6 +155,12 @@ class BatchingServer:
             if self._slots is not None:
                 self._slots.release()
             raise
+
+    def queue_waits(self) -> list[float]:
+        """Seconds from ``submit`` to dispatch of the last requests
+        dispatched (at most ``WAIT_WINDOW``)."""
+        with self._waits_lock:
+            return list(self._waits)
 
     def close(self) -> None:
         """Drain outstanding requests and stop the dispatcher."""
@@ -243,6 +260,9 @@ class BatchingServer:
             live.append(r)
         if not live:
             return
+        now = time.monotonic()
+        with self._waits_lock:
+            self._waits.extend(now - r.submitted for r in live)
         try:
             self.batches += 1
             # grad mode is per thread: this thread's calls build no graph

@@ -61,9 +61,8 @@ which raises (exit code != 0) on failure:
 9. the frame models and checkpoint I/O: (a) the default configuration
    (``config.yaml``: Audio2Mesh, MFCC at 22 kHz, bf16, 15069-wide head)
    through FramePredictor (``max_batch`` 8, ``frame_batch`` 128) on 8 x 60 s
-   of synthetic speech, wall time, frames/s and the request replayed with
-   the model call and the copy-out split, then the bf16 predictor against
-   its f32 run on 2 clips; (b) VOCA and Song2Face (``configs/``), 2 x 10 s
+   of synthetic speech, wall time and frames/s, then the bf16 predictor
+   against its f32 run on 2 clips; (b) VOCA and Song2Face (``configs/``), 2 x 10 s
    each, against their f32 runs; (c) Audio2Mesh with the wav2vec2
    extractor, 2 x 10 s, which must launch the flash-attention kernel and
    nothing else, and that kernel in f32 at the frame-window shape (B x 128,
@@ -618,40 +617,6 @@ K1_F32_ROW_TOL = 1e-4
 FRAME_CHECKPOINT_TOL = 1e-5
 
 
-def frame_request_split(torch, predictor, audios, one_hot, template) -> dict:
-    """The FramePredictor request replayed chunk by chunk with the device
-    synchronized between stages: upload and pad, the model call (window
-    gather, features, model) and the copy-out (device to host, then into
-    each clip's array)."""
-    n = len(audios)
-    template = np.broadcast_to(template[None], (n, *template.shape))
-    split = {"upload_s": 0.0, "model_s": 0.0, "copy_out_s": 0.0, "chunks": 0}
-    order = sorted(range(n), key=lambda i: len(audios[i]))
-    for lo in range(0, n, predictor.max_batch):
-        idx = order[lo : lo + predictor.max_batch]
-        group = [audios[i] for i in idx]
-        n_frames = [len(a) * predictor.fps // predictor.sample_rate for a in group]
-        results = [np.empty((f, predictor.n_verts // 3, 3), np.float32) for f in n_frames]
-        t0 = time.perf_counter()
-        inputs = predictor.prepare(group, one_hot[idx], template[idx].astype(np.float32))
-        torch.cuda.synchronize()
-        split["upload_s"] += time.perf_counter() - t0
-        for f0 in range(0, max(n_frames), predictor.frame_batch):
-            t0 = time.perf_counter()
-            out = predictor.forward_chunk(*inputs, f0)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            chunk = out.cpu().numpy()
-            for j in range(len(idx)):
-                m = min(n_frames[j], f0 + predictor.frame_batch) - f0
-                if m > 0:
-                    results[j][f0 : f0 + m] = chunk[j, :m]
-            split["model_s"] += t1 - t0
-            split["copy_out_s"] += time.perf_counter() - t1
-            split["chunks"] += 1
-    return split
-
-
 def frame_bf16_vs_f32(torch, cfg, predictor, audios, one_hot, template, label: str) -> dict:
     """The bf16 predictor against an f32 one with the same weights."""
     from audio2face_tpu_torch.serving import FramePredictor
@@ -721,11 +686,10 @@ def frame_model_phases(torch, rows, by_name, smi, pred, biwi_state, n_verts_biwi
                 f"frame request: shape {y.shape} or not finite")
     require(frames == 28800, f"frame request: {frames} frames")
     del res
-    split = frame_request_split(torch, a2m, speech, one_hot, template)
     print(json.dumps({"frame_request": {
         "model": "audio2mesh", "extractor": "mfcc", "clips": 8, "seconds_each": 60, "frames": frames,
         "max_batch": 8, "frame_batch": 128, "wall_s": wall, "mesh_frames_per_s": frames / wall,
-        "realtime_factor": 8 * 60.0 / wall, "split_replayed": split,
+        "realtime_factor": 8 * 60.0 / wall,
         "output_bytes": frames * n_v * 4, "card": smi,
     }}), flush=True)
     clips2 = [speech[0][: 10 * sr], speech[1][: int(7.5 * sr)]]

@@ -25,6 +25,7 @@ from audio2face_tpu_torch.multistream import StreamingServer
 from audio2face_tpu_torch.serving import FaceFormerPredictor
 from audio2face_tpu_torch.serving_queue import BatchingServer
 from audio2face_tpu_torch.streaming import StreamingFaceFormerPredictor
+from audio2face_tpu_torch.utils import spans
 
 torch.set_num_threads(1)
 
@@ -112,6 +113,43 @@ def test_batching_server_backpressure_timeout_cancel_and_failure():
         server.close()
     with pytest.raises(RuntimeError, match="closed"):
         server.submit(np.zeros(3, np.float32), np.eye(12)[0], np.zeros((2, 3)))
+
+
+class _SpannedRecorder(_Recorder):
+    """A predictor that marks its calls as the port's predictors do."""
+
+    def __call__(self, *args, **kwargs):
+        with spans.span("predict"):
+            return super().__call__(*args, **kwargs)
+
+
+def test_queue_wait_in_stats_and_spans():
+    """Requests submitted while the dispatcher is busy wait for it: their
+    waits reach ``/stats`` as ``queue_wait_ms``. With a span recording
+    open, the dispatcher thread records the predictor's spans on its own
+    stack, one request id a call, and the queue records none of its own."""
+    pred = _SpannedRecorder(delay=0.3)
+    daemon = ServingDaemon(pred, np.zeros((2, 3), np.float32), max_wait_ms=1.0)
+    try:
+        with spans.recording() as rec:
+            first = daemon.batcher.submit(np.zeros(3, np.float32), np.eye(12)[0], np.zeros((2, 3)))
+            time.sleep(0.1)  # the dispatcher holds `first` for 0.3 s
+            rest = [daemon.batcher.submit(np.zeros(3, np.float32), np.eye(12)[i], np.zeros((2, 3)))
+                    for i in (1, 2)]
+            for f in [first, *rest]:
+                f.result(timeout=30)
+        waits = daemon.batcher.queue_waits()
+        stats = daemon.stats()
+    finally:
+        daemon.stop()
+    assert len(waits) == 3 and min(waits) >= 0.0 and max(waits) >= 0.1
+    assert stats["queue_wait_ms"]["window"] == 3
+    assert stats["queue_wait_ms"]["max"] == round(max(waits) * 1e3, 1) >= 100.0
+    assert stats["queue_wait_ms"]["p95"] >= stats["queue_wait_ms"]["p50"]
+    assert [s.name for s in rec.spans] == ["predict"] * len(pred.batches)
+    assert sorted(s.request for s in rec.spans) == list(range(len(pred.batches)))
+    assert all(s.parent is None and s.end_ns is not None for s in rec.spans)
+    assert {s.thread for s in rec.spans} == {daemon.batcher._thread.ident}
 
 
 # ---- HTTP daemon -----------------------------------------------------------

@@ -54,16 +54,6 @@ render of the synthetic 5,023-vertex head at 800 x 800 through
    the device's idle share;
 
 and prints the table, then ``{"render_breakdown": {...}}``.
-
-``python3 tools/torch_flagship_breakdown.py frame`` splits the default frame
-configuration's request (``config.yaml``: Audio2Mesh on MFCC features, bf16,
-15069-wide head) through ``FramePredictor`` (``max_batch`` 8, ``frame_batch``
-128) on 8 clips x 60 s of synthetic speech: the request on the host clock,
-the same request replayed chunk by chunk with the device synchronized
-between upload, model call and copy-out (``chip_smoke.py
-frame_request_split``), and one more under ``torch.profiler`` (device time
-by kernel group, idle share); prints the table, then
-``{"frame_breakdown": {...}}``. Run from the repository root.
 """
 
 from __future__ import annotations
@@ -437,70 +427,9 @@ def render_main() -> int:
     return 0
 
 
-def frame_main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("torch_flagship_breakdown: CUDA is not available", file=sys.stderr)
-        return 1
-    from concurrent.futures import ThreadPoolExecutor
-
-    from chip_smoke import frame_request_split
-    from audio2face_tpu_torch.config import ExpConfig
-    from audio2face_tpu_torch.data.synthetic import synthesize_speech_like
-    from audio2face_tpu_torch.serving import FramePredictor
-
-    card = card_line()
-    torch.set_grad_enabled(False)
-    cfg = ExpConfig.from_yaml("config.yaml")
-    sr, n_verts = cfg.sample_rate, cfg.vertex_count
-    with ThreadPoolExecutor(8) as ex:
-        audios = list(ex.map(lambda s_: synthesize_speech_like(60.0, sr, seed=s_), range(8)))
-    rng = np.random.default_rng(7)
-    template = (rng.normal(size=(n_verts // 3, 3)) * 0.1).astype(np.float32)
-    one_hot = np.eye(12, dtype=np.float32)[rng.integers(0, 12, 8)]
-    pred = FramePredictor(cfg, max_batch=8, frame_batch=128, seed=0)
-    pred(audios, one_hot, template)  # warms the libraries at the request's shapes
-    torch.cuda.synchronize()
-    tic = time.perf_counter()
-    pred(audios, one_hot, template)
-    wall = time.perf_counter() - tic
-    split = frame_request_split(torch, pred, audios, one_hot, template)
-
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        tic = time.perf_counter()
-        pred(audios, one_hot, template)
-        torch.cuda.synchronize()
-        traced_wall = time.perf_counter() - tic
-    by_group, busy_us = device_ms_by_group(prof)
-    copy_us = 1e3 * by_group.get("copies", 0.0)
-    print(profile_table(prof))
-    frames = 8 * 60 * 60
-    result = {
-        "card": card,
-        "request": f"8 clips x 60 s, {cfg.modelname} on {cfg.feature_extractor}, bf16, "
-                   f"{n_verts}-wide vertex head, max_batch 8, frame_batch 128",
-        "wall_s": wall,
-        "mesh_frames_per_s": frames / wall,
-        "realtime_factor": 8 * 60 / wall,
-        "split_replayed": split,
-        "traced_wall_s": traced_wall,
-        "device_busy_ms": busy_us / 1e3 if busy_us else None,
-        "device_idle_share": (1.0 - busy_us / 1e6 / traced_wall) if busy_us else None,
-        "device_kernel_ms": (busy_us - copy_us) / 1e3 if busy_us else None,
-        "kernel_idle_share": (1.0 - (busy_us - copy_us) / 1e6 / traced_wall) if busy_us else None,
-        "device_ms_by_group": by_group,
-    }
-    print(json.dumps({"frame_breakdown": result}))
-    return 0
-
-
 if __name__ == "__main__":
     modes = {(): main, ("biwi",): lambda: main(biwi=True), ("train",): train_main,
-             ("render",): render_main, ("frame",): frame_main}
+             ("render",): render_main}
     if tuple(sys.argv[1:]) not in modes:
-        sys.exit("usage: torch_flagship_breakdown.py [biwi|train|render|frame]")
+        sys.exit("usage: torch_flagship_breakdown.py [biwi|train|render]")
     sys.exit(modes[tuple(sys.argv[1:])]())
