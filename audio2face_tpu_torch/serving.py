@@ -14,14 +14,20 @@ frame models (Audio2Mesh, VOCA, Song2Face), ``FramePredictor``.
   convention, so the predictor feeds ``template * 100`` and returns
   ``output / 100`` (``unit_scale``).
 
+Each chunk's valid vertex rows go straight into the clips' results
+(``_CopyOut``): on the card by DMA into pinned memory on a copy stream,
+overlapping the next chunk's compute; padding rows and frames are never
+copied.
+
 While a span recording is open (``utils/spans.py``), each call records
 ``predict`` and, inside it, ``predict.upload`` (padding and uploads),
 ``predict.model`` (the model call), ``predict.sync`` (FaceFormer's wait for
 the valid frame counts), ``predict.head`` (FaceFormer's vertex head),
-``predict.copy`` (each chunk's copy to the host) and ``predict.unpack``
-(the result arrays and the scatter of their rows), and counts
-``frames_valid``, ``frames_computed``, ``vertex_bytes_copied`` and
-``vertex_bytes_returned``.
+``predict.copy`` (queueing each chunk's row copies and the host's waits for
+them) and ``predict.unpack`` (the results' allocation), and counts
+``frames_valid``, ``frames_computed``, ``vertex_bytes_copied``,
+``vertex_bytes_returned``, ``vertex_bytes_pinned`` and
+``host_alloc_misses``.
 
 Both run on the card unless ``device="cpu"`` is asked for. Weights come
 from a reference PyTorch/Lightning checkpoint (``from_torch_checkpoint``),
@@ -156,27 +162,75 @@ def _resampled(audios, sample_rate: int, target: int, device) -> list:
     ]
 
 
-def _copy_out(out: torch.Tensor) -> np.ndarray:
-    """A chunk of vertices copied to the host."""
-    with spans.span("predict.copy"):
-        chunk = out.cpu().numpy()
-    spans.count("vertex_bytes_copied", chunk.nbytes)
-    return chunk
+def _host_allocs() -> int:
+    """Blocks PyTorch's caching host allocator has made so far
+    (``cudaHostAlloc`` calls)."""
+    return int(torch.cuda.host_memory_stats().get("num_host_alloc", 0))
 
 
-def _unpack(chunk: np.ndarray, off: int, lo: int, idx: Sequence[int], frames: Sequence[int],
-            results: list) -> None:
-    """Copy frames ``lo ..`` of clip ``j`` (``frames[j]`` frames) from row
-    ``j`` of ``chunk``, whose column ``off`` holds frame ``lo``, into its
-    host array ``results[idx[j]]``."""
-    rows = 0
-    with spans.span("predict.unpack"):
-        for j, i in enumerate(idx):
-            m = min(frames[j], lo + chunk.shape[1] - off) - lo
-            if m > 0:
-                results[i][lo : lo + m] = chunk[j, off : off + m]
-                rows += m
-    spans.count("vertex_bytes_returned", rows * chunk.nbytes // (chunk.shape[0] * chunk.shape[1]))
+class _CopyOut:
+    """One call's output path: each chunk's valid vertex rows copied
+    straight into the clips' result tensors, one copy a clip row.
+
+    On the card the results are pinned, so each row copy is one DMA, and
+    PyTorch's caching host allocator recycles a result's block once the
+    caller drops it. A chunk's copies run on a copy stream after the
+    chunk's compute (an event) while the host launches the next chunk;
+    after queueing them the host waits for the chunk before, so at most two
+    chunks are alive on the device. ``finish`` waits for the last. On the
+    CPU the same copies run at once into plain tensors."""
+
+    def __init__(self, device: torch.device):
+        # a copy stream from PyTorch's pool; None on the CPU
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self.copied: list = []  # events of the chunks whose copies may run
+        self.allocs = _host_allocs() if self.stream is not None else 0
+
+    def results(self, frames: Sequence[int], n_verts: int) -> list:
+        """Empty (frames[j], V, 3) f32 results, pinned on the card."""
+        with spans.span("predict.unpack"):
+            return [torch.empty((n, n_verts // 3, 3), dtype=torch.float32,
+                                pin_memory=self.stream is not None) for n in frames]
+
+    def send(self, out: torch.Tensor, off: int, lo: int, dsts: Sequence[torch.Tensor],
+             frames: Sequence[int]) -> None:
+        """Copy frames ``lo ..`` of clip ``j`` (``frames[j]`` frames) from row
+        ``j`` of ``out``, whose column ``off`` holds frame ``lo``, into
+        ``dsts[j]``. The caller may drop ``out`` when this returns."""
+        stream = self.stream
+        rows = 0
+        with spans.span("predict.copy"):
+            if stream is not None:
+                computed = torch.cuda.Event()
+                computed.record(torch.cuda.current_stream(out.device))
+                stream.wait_event(computed)
+            with torch.cuda.stream(stream):  # a no-op for None
+                for j, dst in enumerate(dsts):
+                    m = min(frames[j], lo + out.shape[1] - off) - lo
+                    if m > 0:
+                        dst[lo : lo + m].copy_(out[j, off : off + m], non_blocking=True)
+                        rows += m
+            if stream is not None:
+                out.record_stream(stream)  # its block waits for the copies
+                done = torch.cuda.Event()
+                done.record(stream)
+                self.copied.append(done)
+                if len(self.copied) > 1:
+                    self.copied.pop(0).synchronize()
+        nbytes = rows * out[0, 0].numel() * out.element_size()
+        spans.count("vertex_bytes_copied", nbytes)
+        spans.count("vertex_bytes_returned", nbytes)
+        spans.count("vertex_bytes_pinned", nbytes if stream is not None else 0)
+
+    def finish(self, results: list) -> list:
+        """``results`` as numpy arrays, once every copy has landed."""
+        if self.copied:
+            with spans.span("predict.copy"):
+                self.copied[-1].synchronize()  # one stream: the last lands last
+            self.copied.clear()
+        misses = _host_allocs() - self.allocs if self.stream is not None else 0
+        spans.count("host_alloc_misses", misses)
+        return [r.numpy() for r in results]
 
 
 class FaceFormerPredictor:
@@ -323,23 +377,23 @@ class FaceFormerPredictor:
         scale = self.unit_scale
         return self.model.vertex_head(hs, template * scale) / scale
 
-    def _emit_vertices(self, hs, tmpl, idx, n_valid, results):
-        """Apply the vertex head per time chunk, copying each chunk into its
-        clip's host buffer; the tail window is realigned, not shortened."""
+    def _emit_vertices(self, hs, tmpl, idx, n_valid, results, copy_out):
+        """Apply the vertex head per time chunk and send each chunk's valid
+        rows into its clips' results; the tail window is realigned, not
+        shortened, and its frames before ``lo`` are not copied again."""
         b_pad, t, _ = hs.shape
-        with spans.span("predict.unpack"):
-            for j, i in enumerate(idx):
-                results[i] = np.empty((int(n_valid[j]), self.n_verts // 3, 3), np.float32)
-        t_need = int(n_valid.max()) if len(n_valid) else 0
         frames = [int(n) for n in n_valid[: len(idx)]]
+        dsts = copy_out.results(frames, self.n_verts)
+        for j, i in enumerate(idx):
+            results[i] = dsts[j]
+        t_need = int(n_valid.max()) if len(n_valid) else 0
         width = min(t, max(1, self._VERTEX_CHUNK_BYTES // (b_pad * self.n_verts * 4)))
         for lo in range(0, t_need, width):
             start = min(lo, t - width)
             with spans.span("predict.head"):
                 out = self._vertex_chunk(hs[:, start : start + width], tmpl)
-            chunk = _copy_out(out)
-            del out  # freed before the next chunk is computed
-            _unpack(chunk, lo - start, lo, idx, frames, results)
+            copy_out.send(out, lo - start, lo, dsts, frames)
+            del out  # its block is reused once its copies are done
 
     def __call__(
         self,
@@ -361,7 +415,8 @@ class FaceFormerPredictor:
 
         with spans.span("predict"):
             audios = _resampled(audios, sample_rate, AUDIO_SR, self.device)
-            results: list[Optional[np.ndarray]] = [None] * n
+            copy_out = _CopyOut(self.device)
+            results: list[Optional[torch.Tensor]] = [None] * n
             order = sorted(range(n), key=lambda i: len(audios[i]))
             for lo in range(0, n, self.max_batch):
                 idx = order[lo : lo + self.max_batch]
@@ -394,9 +449,9 @@ class FaceFormerPredictor:
                 spans.count("frames_computed", b_pad * hs.shape[1])
                 with spans.span("predict.upload"):
                     tmpl_d = torch.as_tensor(tmpl, device=dev)
-                self._emit_vertices(hs, tmpl_d, idx, n_valid, results)
+                self._emit_vertices(hs, tmpl_d, idx, n_valid, results, copy_out)
                 del tmpl_d  # freed before the next group's model call
-        return results  # type: ignore[return-value]
+            return copy_out.finish(results)
 
     def warmup(self, max_seconds: float = 60.0, *, batches: Optional[Sequence[int]] = None) -> int:
         """Run every (batch, bucket) shape a deployment will hit once on zero
@@ -595,23 +650,23 @@ class FramePredictor:
         with spans.span("predict"):
             if sample_rate is not None:
                 audios = _resampled(audios, sample_rate, self.sample_rate, self.device)
-            results: list[Optional[np.ndarray]] = [None] * n
+            copy_out = _CopyOut(self.device)
+            results: list[Optional[torch.Tensor]] = [None] * n
             order = sorted(range(n), key=lambda i: len(audios[i]))
             for lo in range(0, n, self.max_batch):
                 idx = order[lo : lo + self.max_batch]
                 group = [audios[i] for i in idx]
                 n_frames = [len(a) * self.fps // self.sample_rate for a in group]
-                with spans.span("predict.unpack"):
-                    for j, i in enumerate(idx):
-                        results[i] = np.empty((n_frames[j], self.n_verts // 3, 3), np.float32)
+                dsts = copy_out.results(n_frames, self.n_verts)
+                for j, i in enumerate(idx):
+                    results[i] = dsts[j]
                 with spans.span("predict.upload"):
                     inputs = self.prepare(group, one_hot[idx], template[idx].astype(np.float32))
                 spans.count("frames_valid", sum(n_frames))
                 for f0 in range(0, max(n_frames), self.frame_batch):
                     with spans.span("predict.model"):
                         out = self._chunk_fn(*inputs, f0)
-                    chunk = _copy_out(out)
-                    del out  # freed before the next chunk is computed
-                    spans.count("frames_computed", chunk.shape[0] * chunk.shape[1])
-                    _unpack(chunk, 0, f0, idx, n_frames, results)
-        return results  # type: ignore[return-value]
+                    spans.count("frames_computed", out.shape[0] * out.shape[1])
+                    copy_out.send(out, 0, f0, dsts, n_frames)
+                    del out  # its block is reused once its copies are done
+            return copy_out.finish(results)
