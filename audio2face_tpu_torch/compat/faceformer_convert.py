@@ -11,7 +11,10 @@ The cross-attention q/k projections are inert under vocaset's diagonal
 memory mask (a softmax over one element is 1), so only its value and output
 projections are carried; BIWI's 2-way alignment makes q/k live, and
 ``dataset="biwi"`` carries them too. The buffers (``PPE.pe``,
-``biased_mask``) are recomputed, not carried.
+``biased_mask``) are recomputed, not carried. The decoder's width d is the
+checkpoint's (``audio_feature_map``'s outputs: 64 in the repo's models, 128
+in the upstream BIWI model), and each packed ``in_proj`` (3d, d) is split
+at it.
 """
 
 from __future__ import annotations
@@ -23,11 +26,9 @@ import torch
 from audio2face_tpu_torch.compat.torch_convert import _t
 from audio2face_tpu_torch.compat.wav2vec2_convert import convert_wav2vec2, strip_prefix
 
-FEATURE_DIM = 64
-
 
 def convert_faceformer(sd: Mapping, dataset: str = "vocaset") -> dict[str, torch.Tensor]:
-    d = FEATURE_DIM
+    d = _t(sd["audio_feature_map.weight"]).shape[0]
     out = {f"audio_encoder.{k}": v
            for k, v in convert_wav2vec2(strip_prefix(sd, "audio_encoder.")).items()}
 

@@ -123,7 +123,8 @@ class ExpConfig:
     - dataset: ``batch_size``
     - model: ``modelname``, ``one_hot_size``, ``feature_extractor``,
       ``sample_rate``, ``vertex_count``, ``split_frame``, ``n_feature``,
-      ``out_dim``, ``win_length``, ``hop_length``
+      ``out_dim``, ``win_length``, ``hop_length``; FaceFormer's decoder
+      width ``feature_dim`` (an extension, 64 unless given)
     - training: ``percision`` (sic), ``lr``
     - loss: ``loss``
     """
@@ -164,6 +165,8 @@ class ExpConfig:
     fsdp: bool = False
     # dataset family: "vocaset" or "biwi"
     dataset: str = "vocaset"
+    # FaceFormer's decoder width (the upstream BIWI model: 128)
+    feature_dim: int = 64
     # accepted in place of ``percision``
     precision: dataclasses.InitVar[Optional[str]] = None
 
@@ -174,7 +177,7 @@ class ExpConfig:
         "hop_length": "?int", "percision": "str", "lr": "float", "loss": "?str",
         "seed": "int", "max_seq_len": "int", "mesh_shape": "pair", "max_epochs": "int",
         "early_stop_patience": "int", "accumulate_grad_batches": "int", "fsdp": "bool",
-        "dataset": "str",
+        "dataset": "str", "feature_dim": "int",
     }
 
     def __post_init__(self, precision):

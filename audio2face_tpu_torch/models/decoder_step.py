@@ -30,7 +30,9 @@ from audio2face_tpu_torch.ops.attention import decode_step_attention
 def decoder_step_params(model) -> dict:
     """The step's weights from a vocaset ``FaceFormer``, under the JAX
     serving tree's flat names: kernels in (in, out) order, f32, plus the
-    periodic positional encoding table ``ppe`` (period, d)."""
+    periodic positional encoding table ``ppe`` (period, d). The live paths
+    decode at width 64 only: another width raises."""
+    check_live_width(model.feature_dim)
     p = {}
     for name in ("dec_q", "dec_k", "dec_v", "dec_out", "linear1", "linear2",
                  "vertice_map", "vertice_map_r"):
@@ -43,6 +45,15 @@ def decoder_step_params(model) -> dict:
         p[f"{name}_bias"] = norm.bias.detach().float()
     p["ppe"] = model.ppe.float()
     return p
+
+
+def check_live_width(width: int) -> None:
+    """The live paths (this step, ``streaming.py``, ``multistream.py``)
+    decode at the width ``FEATURE_DIM`` (64) alone; another raises."""
+    if width != FEATURE_DIM:
+        raise ValueError(
+            f"the live decoder runs width {FEATURE_DIM}; these weights are {width} wide "
+            "(serve them with FaceFormerPredictor)")
 
 
 def make_decoder_step(

@@ -12,10 +12,17 @@ loop:
   in this mode, and the key/value projections of all latents are computed
   once before the loop;
 - the per-step feedback ``vertice_map(vertice_map_r(h_t)) + style`` runs
-  through the composed 64x64 matrix ``W_r W_m``; vertices come after the
-  loop from one (B*T, 64) @ (64, 3V) product;
-- the periodic positional encoding is a (period, 64) table indexed mod
+  through the composed d x d matrix ``W_r W_m``; vertices come after the
+  loop from one (B*T, d) @ (d, 3V) product;
+- the periodic positional encoding is a (period, d) table indexed mod
   period; the ALiBi bias is computed from indices.
+
+The decoder width d is ``feature_dim``: 64 by default (the repo's models),
+128 for FaceFormer's published BIWI decoder (4 heads of d / 4, FFN 2d).
+``FaceFormer.decode`` is the decoder: the latents' cross projections and
+the decode loop, inside the span ``predict.decode`` (``utils/spans.py``),
+counting ``decode_steps`` (batch rows x steps) and, in the kernel,
+``decode_rows_spilled`` (cache rows left in device memory).
 
 Padded batches carry ``lengths`` (samples) and return a frame mask. In
 inference on CUDA the decode loop is one launch of the decode kernel
@@ -41,6 +48,7 @@ from torch import nn
 from audio2face_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Encoder, _lecun_normal_
 from audio2face_tpu_torch.ops import decode_kernel
 from audio2face_tpu_torch.ops.dsp import wav2vec2_zero_mean_unit_var
+from audio2face_tpu_torch.utils import spans
 
 FEATURE_DIM = 64
 N_HEADS = 4
@@ -85,7 +93,8 @@ def frame_count(n_samples, fps: int = FPS):
 
 
 def select_decode_impl(
-    device: torch.device, dataset: str = "vocaset", *, train: bool = False
+    device: torch.device, dataset: str = "vocaset", *, train: bool = False,
+    feature_dim: int = FEATURE_DIM,
 ) -> str:
     """The decode implementation for ``device``: ``"fused"`` (the decode
     kernel) for inference on CUDA, ``"loop"`` (its plain Python loop)
@@ -94,8 +103,9 @@ def select_decode_impl(
 
     The kernel keeps its KV cache in device memory, so its only capacity
     limit is shared memory for the weights (more of them in its BIWI
-    variant): on a card where those do not fit this raises (there is no
-    fallback)."""
+    variant and at width 128, where the cluster's CTAs share them): on a
+    card where those do not fit, or at a width the kernel does not run,
+    this raises (there is no fallback)."""
     if dataset not in ("vocaset", "biwi"):
         raise ValueError(f"unknown dataset {dataset!r}; available: vocaset, biwi")
     if train:
@@ -103,11 +113,14 @@ def select_decode_impl(
     device = torch.device(device)
     if device.type != "cuda":
         return "loop"
+    if feature_dim not in decode_kernel.WIDTHS:
+        raise ValueError(
+            f"the decode kernel runs widths {decode_kernel.WIDTHS}, not {feature_dim}")
     biwi = dataset == "biwi"
-    if not decode_kernel.smem_fits(device, biwi):
+    if not decode_kernel.smem_fits(device, biwi, feature_dim):
         raise RuntimeError(
-            f"the decode kernel needs {decode_kernel.smem_bytes(biwi)} bytes of shared "
-            f"memory per block, more than {torch.cuda.get_device_name(device)} offers"
+            f"the decode kernel needs {decode_kernel.smem_bytes(biwi, feature_dim)} bytes of "
+            f"shared memory per block, more than {torch.cuda.get_device_name(device)} offers"
         )
     return "fused"
 
@@ -123,15 +136,16 @@ def decode_chunk_size(n_frames: int) -> int:
 
 def decoder_keep_masks(
     n_frames: int, bsz: int, dtype: torch.dtype, generator: torch.Generator, device,
-    rate: float = DECODER_DROPOUT, batch_rows=None,
+    rate: float = DECODER_DROPOUT, batch_rows=None, feature_dim: int = FEATURE_DIM,
 ) -> dict:
     """The five dropout keep-multipliers (0 or 1/(1-rate)) of the decoder
-    layer, for all frames at once: after the positional encoding (``m_pe``),
-    the self-attention (``m_sa``), the cross term (``m_ca``), inside the FFN
-    (``m_ff1``, 128 wide) and after it (``m_ff2``). Each is (T, B, width).
-    ``batch_rows=(offset, total)``: the batch is those rows of a batch of
-    ``total``, and each mask that slice of the whole batch's."""
-    d = FEATURE_DIM
+    layer of width ``feature_dim`` d, for all frames at once: after the
+    positional encoding (``m_pe``), the self-attention (``m_sa``), the cross
+    term (``m_ca``), inside the FFN (``m_ff1``, 2d wide) and after it
+    (``m_ff2``). Each is (T, B, width). ``batch_rows=(offset, total)``: the
+    batch is those rows of a batch of ``total``, and each mask that slice of
+    the whole batch's."""
+    d = feature_dim
     b0, total = (0, bsz) if batch_rows is None else batch_rows
 
     def keep(width):
@@ -141,13 +155,20 @@ def decoder_keep_masks(
     return {"m_pe": keep(d), "m_sa": keep(d), "m_ca": keep(d), "m_ff1": keep(2 * d), "m_ff2": keep(d)}
 
 
+def _mm(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """f32 products, as JAX promotes bf16 x f32 params."""
+    return torch.nn.functional.linear(x.float(), layer.weight, layer.bias)
+
+
 class FaceFormer(nn.Module):
     """FaceFormer; parameter names follow the JAX module.
 
     ``remat_scan=False`` turns the chunk checkpointing of the training
     decode loop off (every step's residuals are kept; only viable for small
     B*T^2). ``period`` is the PPE / ALiBi bucket period (the reference
-    hardcodes 60; the upstream FaceFormer uses 25 for BIWI)."""
+    hardcodes 60; the upstream FaceFormer uses 25 for BIWI).
+    ``feature_dim`` is the decoder width d (the upstream BIWI model: 128);
+    heads stay 4 and the FFN is 2d."""
 
     def __init__(
         self,
@@ -158,11 +179,14 @@ class FaceFormer(nn.Module):
         encoder_config: Wav2Vec2Config = Wav2Vec2Config(),
         remat_scan: Optional[bool] = None,
         period: int = PERIOD,
+        feature_dim: int = FEATURE_DIM,
     ):
         super().__init__()
         if dataset not in ("vocaset", "biwi"):
             raise ValueError(f"unknown dataset {dataset!r}; available: vocaset, biwi")
-        d = FEATURE_DIM
+        if feature_dim % (2 * N_HEADS):
+            raise ValueError(f"feature_dim {feature_dim}: want a multiple of {2 * N_HEADS}")
+        d = self.feature_dim = feature_dim
         self.n_verts = n_verts
         self.n_onehot = n_onehot
         self.dtype = dtype
@@ -192,7 +216,7 @@ class FaceFormer(nn.Module):
         self.norm2 = nn.LayerNorm(d)
         self.norm3 = nn.LayerNorm(d)
         self.register_buffer(
-            "ppe", torch.from_numpy(periodic_positional_encoding(period)), persistent=False
+            "ppe", torch.from_numpy(periodic_positional_encoding(period, d)), persistent=False
         )
 
     @torch.no_grad()
@@ -235,7 +259,7 @@ class FaceFormer(nn.Module):
         SpecAugment, LayerDrop, attention dropout, the decoder's five
         keep-masks), all drawn from ``generator`` (required, on the input's
         device), and decodes with the chunk-checkpointed step loop.
-        ``return_hidden=True`` returns the decoder hidden states (B, T, 64)
+        ``return_hidden=True`` returns the decoder hidden states (B, T, d)
         instead of vertices (serving applies the vertex head per time chunk;
         training runs it inside the chunked loss). ``encoder_hidden`` takes
         externally computed encoder states (B, T, 768) in place of running
@@ -272,39 +296,17 @@ class FaceFormer(nn.Module):
             pad = max(2 * n_frames - hidden.shape[1], 0)
             hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))[:, : 2 * n_frames]
 
-        def mm(x, layer):  # f32 products, as JAX promotes bf16 x f32 params
-            return torch.nn.functional.linear(x.float(), layer.weight, layer.bias)
-
-        memory = mm(hidden, self.audio_feature_map)  # (B, T, 64); biwi: (B, 2T, 64)
-        mem = {}
-        if biwi:
-            # cross keys and values of every latent, (B, H, 2T, hd); each
-            # step attends rows {2t, 2t+1}
-            def heads(x):
-                return x.reshape(bsz, -1, N_HEADS, FEATURE_DIM // N_HEADS).transpose(1, 2).to(cdt)
-
-            cross = None
-            mem = dict(mem_k=heads(mm(memory, self.cross_k)), mem_v=heads(mm(memory, self.cross_v)))
-        else:
-            cross = mm(mm(memory, self.cross_v), self.cross_out).to(cdt)
-        style = mm(one_hot, self.obj_vector).to(cdt)  # (B, 64)
-        pe = self.ppe.to(device=audio.device, dtype=cdt)
-        weights = self.decoder_weights(cdt)
+        memory = _mm(hidden, self.audio_feature_map)  # (B, T, d); biwi: (B, 2T, d)
         impl = "loop"
         if train or differentiable or use_kernels:
-            impl = select_decode_impl(audio.device, self.dataset, train=train or differentiable)
-        if impl == "steps":
-            masks = (decoder_keep_masks(n_frames, bsz, cdt, generator, audio.device,
-                                        batch_rows=batch_rows) if train else None)
-            chunk = decode_chunk_size(n_frames) if train and self.remat_scan is not False else None
-            hs = decode_kernel.decode_steps(
-                cross, style, pe, weights, period=self.period, masks=masks, chunk=chunk, **mem)
-        elif impl == "fused":
-            hs = decode_kernel.faceformer_decode_loop(
-                cross, style, pe, weights, period=self.period, **mem)
-        else:
-            hs = decode_kernel.decode_loop_reference(
-                cross, style, pe, weights, period=self.period, **mem)
+            impl = select_decode_impl(audio.device, self.dataset, train=train or differentiable,
+                                      feature_dim=self.feature_dim)
+        masks = chunk = None
+        if impl == "steps" and train:
+            masks = decoder_keep_masks(n_frames, bsz, cdt, generator, audio.device,
+                                       batch_rows=batch_rows, feature_dim=self.feature_dim)
+            chunk = decode_chunk_size(n_frames) if self.remat_scan is not False else None
+        hs = self.decode(memory, one_hot, impl=impl, masks=masks, chunk=chunk)
 
         frame_mask = None
         if lengths is not None:
@@ -314,12 +316,53 @@ class FaceFormer(nn.Module):
         out = hs if return_hidden else self.vertex_head(hs, template)
         return out if frame_mask is None else (out, frame_mask)
 
+    def decode(self, memory: torch.Tensor, one_hot: torch.Tensor, *, impl: str = "loop",
+               masks: Optional[dict] = None, chunk: Optional[int] = None) -> torch.Tensor:
+        """The decoder: ``memory`` (B, T, d) f32 audio features (BIWI: the
+        (B, 2T, d) 50 fps latents) and the styles' one-hot rows -> (B, T, d)
+        hidden states. vocaset hoists the diagonal cross term
+        ``cross_out(cross_v(memory))`` out of the loop; BIWI projects every
+        latent's cross key and value, (B, H, 2T, d / H), for the loop's 2-way
+        softmax. Then the loop by ``impl`` (``select_decode_impl``): the
+        kernel (``"fused"``), the plain loop (``"loop"``) or the
+        differentiable step loop (``"steps"``, with the dropout ``masks``
+        and checkpointed ``chunk`` of training)."""
+        with spans.span("predict.decode"):
+            cdt = self.dtype or torch.float32
+            bsz, d = memory.shape[0], self.feature_dim
+            mem = {}
+            if self.dataset == "biwi":
+                def heads(x):
+                    return x.reshape(bsz, -1, N_HEADS, d // N_HEADS).transpose(1, 2).to(cdt)
+
+                cross = None
+                mem = dict(mem_k=heads(_mm(memory, self.cross_k)),
+                           mem_v=heads(_mm(memory, self.cross_v)))
+                n_frames = memory.shape[1] // 2
+            else:
+                cross = _mm(_mm(memory, self.cross_v), self.cross_out).to(cdt)
+                n_frames = memory.shape[1]
+            spans.count("decode_steps", bsz * n_frames)
+            if impl != "fused":  # the kernel counts the cache rows its plan spills
+                spans.count("decode_rows_spilled", 0)
+            style = _mm(one_hot, self.obj_vector).to(cdt)  # (B, d)
+            pe = self.ppe.to(device=memory.device, dtype=cdt)
+            weights = self.decoder_weights(cdt)
+            if impl == "steps":
+                return decode_kernel.decode_steps(
+                    cross, style, pe, weights, period=self.period, masks=masks, chunk=chunk, **mem)
+            if impl == "fused":
+                return decode_kernel.faceformer_decode_loop(
+                    cross, style, pe, weights, period=self.period, **mem)
+            return decode_kernel.decode_loop_reference(
+                cross, style, pe, weights, period=self.period, **mem)
+
     def decoder_weights(self, dtype: torch.dtype) -> dict:
         """The decode loop's weights under the JAX kernel's keys, kernels in
         (in, out) order, cast to ``dtype`` as the JAX module casts them. The
-        feedback is the composed 64x64 ``vertice_map(vertice_map_r(h)) =
+        feedback is the composed d x d ``vertice_map(vertice_map_r(h)) =
         h @ fb_kernel + fb_bias``, computed in f32."""
-        wr, wm = self.vertice_map_r.weight.T, self.vertice_map.weight.T  # (64, V), (V, 64)
+        wr, wm = self.vertice_map_r.weight.T, self.vertice_map.weight.T  # (d, V), (V, d)
         w = {"fb_kernel": wr @ wm, "fb_bias": self.vertice_map_r.bias @ wm + self.vertice_map.bias}
         layers = [("q", self.dec_q), ("k", self.dec_k), ("v", self.dec_v),
                   ("o", self.dec_out), ("f1", self.linear1), ("f2", self.linear2)]
@@ -335,8 +378,8 @@ class FaceFormer(nn.Module):
         return w
 
     def vertex_head(self, hs: torch.Tensor, template: torch.Tensor) -> torch.Tensor:
-        """(B, T, 64) hidden states -> (B, T, V, 3) f32 vertices: one
-        (B*T, 64) @ (64, 3V) product plus the template."""
+        """(B, T, d) hidden states -> (B, T, V, 3) f32 vertices: one
+        (B*T, d) @ (d, 3V) product plus the template."""
         bsz, n_frames, d = hs.shape
         verts = torch.nn.functional.linear(
             hs.reshape(-1, d).float(), self.vertice_map_r.weight, self.vertice_map_r.bias

@@ -4,10 +4,14 @@ Port of ``audio2face_tpu/ops/decode_kernel.py``, both variants.
 ``faceformer_decode_loop`` runs the whole autoregressive loop: for CUDA
 tensors in one launch of ``csrc/decode_loop.cu`` (a thread-block cluster of
 CL CTAs per batch item, the KV cache rows spread over the cluster's shared
-memory, weights in shared memory in the caller's storage type), for CPU
+memory, weights in shared memory in the caller's storage type: all of them
+in every CTA at width 64, each CTA its rows' share of every matrix at width
+128, with each matvec's outputs exchanged over the cluster), for CPU
 tensors as ``decode_loop_reference``, a Python loop over t (``decode_steps``
 in f32; ``decode_steps`` is also the differentiable loop that training runs,
-with dropout masks and chunk checkpointing). Each step:
+with dropout masks and chunk checkpointing). Each step, at decoder width
+d (4 heads of hd = d / 4, FFN 2d; the kernel runs d = 64 and d = 128, the
+plain loop any):
 
   x_t   = emb_t + PPE[t mod period]
   attn  = softmax_{j<=t}(q_t . k_j / sqrt(hd) - slope_h * ((t-j) // period)) v_j
@@ -17,7 +21,7 @@ with dropout masks and chunk checkpointing). Each step:
   emb_{t+1} = h @ (W_r W_m) + b + style
 
 vocaset passes ``cross``: the diagonal cross attention, precomputed, is
-``ca_t = cross[:, t]``. BIWI passes ``mem_k``/``mem_v`` (B, 4, 2T, 16), the
+``ca_t = cross[:, t]``. BIWI passes ``mem_k``/``mem_v`` (B, 4, 2T, hd), the
 cross key/value projections of the 50 fps latents, and each step runs a true
 2-way softmax per head over the latents {2t, 2t+1}:
 
@@ -32,7 +36,9 @@ Weights use the JAX kernel's dict keys, kernels in (in, out) order:
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -41,11 +47,11 @@ from torch.utils.checkpoint import checkpoint
 
 from audio2face_tpu_torch.ops import _build
 from audio2face_tpu_torch.ops.attention import device_alibi_slopes
+from audio2face_tpu_torch.utils import spans
 
-D = 64
+D = 64  # the repo's FaceFormer width; the kernel also runs WIDTHS[1], the published BIWI decoder's
+WIDTHS = (64, 128)
 N_HEADS = 4
-HD = D // N_HEADS
-FF = 2 * D
 
 # the packed weight buffer of csrc/decode_loop.cu, in the storage type:
 # each matrix stored (out, in), i.e. its (in, out) kernel transposed, then
@@ -58,66 +64,120 @@ _PACK_ORDER = (
 _PACK_ORDER_BIWI = _PACK_ORDER + ("cq_kernel", "cq_bias", "co_kernel", "co_bias")
 # the layer-norm parameters, a separate f32 buffer (C: LN1S ... LN3B)
 _LN_ORDER = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias", "ln3_scale", "ln3_bias")
-N_WEIGHTS = 3 * D * D + 3 * D + D * D + D + FF * D + FF + D * FF + D + D * D + D
-N_WEIGHTS_BIWI = N_WEIGHTS + 2 * (D * D + D)
-N_LN = 6 * D
 N_WARPS = 8  # 256 threads a CTA
-# f32 scratch a CTA (C: S_Q ... S_STEP): q, attention output, style, two
-# 128-wide matvec outputs, each warp's own 64-wide row, two mbarriers, and
-# the step's rows prefetched a step ahead (2 parities x the pe row and the
-# cross row, or BIWI's pe row and 4 latent rows)
-PART = 2 + HD  # a warp's attention partial: max, sum, 16 value sums
-SCRATCH_FLOATS = 3 * D + 2 * FF + N_WARPS * D + 4 + 2 * 2 * D
-SCRATCH_FLOATS_BIWI = 3 * D + 2 * FF + N_WARPS * D + 4 + 2 * 5 * D
-# then every CTA's partials, pushed there by their CTAs (C: GATHER_FLOATS
-# a CTA of the cluster: 2 parities x 8 warps)
-GATHER_FLOATS = 2 * N_WARPS * PART
-ROW_BYTES = 2 * D * 4  # one cache row, f32 k | v
 MAX_CLUSTER = 16
 # shared memory one block may use on sm_90 (H100/H200)
 SM90_SMEM_PER_BLOCK = 232448
 
 
-def fixed_smem_bytes(biwi: bool = False, bf16_weights: bool = False, cluster: int = 1) -> int:
+@dataclass(frozen=True)
+class Layout:
+    """The kernel's numbers at decoder width ``width`` (csrc/decode_loop.cu
+    ``Layout<D>`` and ``home_of``): packed weights, the layer-norm
+    parameters, a CTA's f32 scratch (q, attention output, style, two
+    matvec outputs, each warp's own row, two mbarriers and the step's rows
+    prefetched a step ahead: 2 parities x the pe row and the cross row, or
+    BIWI's pe row and 4 latent rows), a warp's attention partial (max, sum,
+    head_dim value sums), every CTA's partials of a step (2 parities x 8
+    warps), and one cache row. ``split``: a CTA holds only its rows' share
+    of each matrix (plus every bias) and exchanges each matvec's outputs
+    (``exchange`` floats: the exchanges' mbarriers and 2 parities of every
+    result); else every CTA holds every weight."""
+
+    width: int
+    n_weights: int
+    n_weights_biwi: int
+    n_matrix: int
+    n_matrix_biwi: int
+    n_bias: int
+    n_bias_biwi: int
+    n_ln: int
+    part: int
+    scratch: int
+    scratch_biwi: int
+    gather: int
+    exchange: int
+    row_bytes: int
+    split: bool
+
+
+@functools.lru_cache(maxsize=None)
+def layout(width: int = D) -> Layout:
+    if width not in WIDTHS:
+        raise ValueError(f"the decode kernel runs widths {WIDTHS}, not {width}")
+    d, ff, hd = width, 2 * width, width // N_HEADS
+    n_matrix = 3 * d * d + d * d + ff * d + d * ff + d * d
+    n_bias = 3 * d + d + ff + d + d
+    head = 3 * d + 2 * ff + N_WARPS * d + 4  # S_Q ... S_XBAR and its two mbarriers
+    return Layout(
+        width=d, n_weights=n_matrix + n_bias, n_weights_biwi=n_matrix + n_bias + 2 * (d * d + d),
+        n_matrix=n_matrix, n_matrix_biwi=n_matrix + 2 * d * d, n_bias=n_bias,
+        n_bias_biwi=n_bias + 2 * d, n_ln=6 * d, part=2 + hd,
+        scratch=head + 2 * 2 * d, scratch_biwi=head + 2 * 5 * d,
+        gather=2 * N_WARPS * (2 + hd), exchange=32 + 2 * (3 * d + 4 * d + ff + d),
+        row_bytes=2 * d * 4, split=width != 64,
+    )
+
+
+# the width-64 layout under the names the C constants had before the
+# kernel took a width
+_L64 = layout(D)
+N_WEIGHTS, N_WEIGHTS_BIWI, N_LN = _L64.n_weights, _L64.n_weights_biwi, _L64.n_ln
+PART, GATHER_FLOATS, ROW_BYTES = _L64.part, _L64.gather, _L64.row_bytes
+SCRATCH_FLOATS, SCRATCH_FLOATS_BIWI = _L64.scratch, _L64.scratch_biwi
+
+
+def fixed_smem_bytes(
+    biwi: bool = False, bf16_weights: bool = False, cluster: int = 1, width: int = D,
+) -> int:
     """Shared memory a CTA of a cluster of ``cluster`` needs besides its
-    cache rows: the packed weights (2 or 4 bytes each), the f32 layer-norm
-    parameters, the scratch and the gathered partials of the cluster."""
-    n_w = N_WEIGHTS_BIWI if biwi else N_WEIGHTS
-    scratch = SCRATCH_FLOATS_BIWI if biwi else SCRATCH_FLOATS
-    return n_w * (2 if bf16_weights else 4) + 4 * N_LN + 4 * (scratch + cluster * GATHER_FLOATS)
+    cache rows: the weights it holds (2 or 4 bytes each: all of them, or
+    at width 128 its rows' share of each matrix and every bias), the f32
+    layer-norm parameters, the scratch, the exchanges (width 128) and the
+    gathered partials of the cluster."""
+    lay = layout(width)
+    if lay.split:
+        n_w = (lay.n_matrix_biwi if biwi else lay.n_matrix) // cluster + (
+            lay.n_bias_biwi if biwi else lay.n_bias)
+    else:
+        n_w = lay.n_weights_biwi if biwi else lay.n_weights
+    scratch = (lay.scratch_biwi if biwi else lay.scratch) + (lay.exchange if lay.split else 0)
+    return n_w * (2 if bf16_weights else 4) + 4 * lay.n_ln + 4 * (scratch + cluster * lay.gather)
 
 
-# the least a CTA needs (f32 weights, a cluster of 1, no cache row in shared memory)
-SMEM_BYTES = fixed_smem_bytes(False)
-SMEM_BYTES_BIWI = fixed_smem_bytes(True)
-
-
-def smem_bytes(biwi: bool = False) -> int:
+def smem_bytes(biwi: bool = False, width: int = D) -> int:
     """Shared memory a CTA of the kernel variant needs at least (f32
-    weights; cache rows that do not fit stay in device memory)."""
-    return SMEM_BYTES_BIWI if biwi else SMEM_BYTES
+    weights, the cluster size that needs least; cache rows that do not fit
+    stay in device memory)."""
+    return min(fixed_smem_bytes(biwi, False, cl, width) for cl in (1, 2, 4, 8, MAX_CLUSTER))
 
 
-def smem_fits(device: torch.device, biwi: bool = False) -> bool:
+# the least a CTA needs at width 64 (f32 weights, a cluster of 1, no cache row in shared memory)
+SMEM_BYTES = smem_bytes(False)
+SMEM_BYTES_BIWI = smem_bytes(True)
+
+
+def smem_fits(device: torch.device, biwi: bool = False, width: int = D) -> bool:
     """True iff the variant's least shared-memory need fits one block of ``device``."""
     limit = getattr(
         torch.cuda.get_device_properties(device), "shared_memory_per_block_optin",
         SM90_SMEM_PER_BLOCK,
     )
-    return smem_bytes(biwi) <= limit
+    return smem_bytes(biwi, width) <= limit
 
 
 def cluster_plan(
     n_steps: int, cluster: int, biwi: bool = False, bf16_weights: bool = False,
-    smem_limit: int = SM90_SMEM_PER_BLOCK,
+    smem_limit: int = SM90_SMEM_PER_BLOCK, width: int = D,
 ) -> dict:
     """The shared-memory plan of one CTA for a cluster of ``cluster`` CTAs
     per item (csrc/decode_loop.cu ``rows_per_cta``): cache row j belongs to
     CTA j mod cluster, which holds its rows in shared memory up to as many
     as fit beside the fixed part (and no more than its share of T); later
     rows stay in device memory. Raises if the fixed part does not fit."""
-    fixed = fixed_smem_bytes(biwi, bf16_weights, cluster)
-    capacity = (smem_limit - fixed) // ROW_BYTES
+    fixed = fixed_smem_bytes(biwi, bf16_weights, cluster, width)
+    row_bytes = layout(width).row_bytes
+    capacity = (smem_limit - fixed) // row_bytes
     if capacity < 0:
         raise RuntimeError(
             f"the decode kernel needs {fixed} bytes of shared memory per block, "
@@ -125,7 +185,7 @@ def cluster_plan(
         )
     rows = min(capacity, -(-n_steps // cluster))
     return {
-        "cluster": cluster, "rows_per_cta": rows, "smem_bytes": fixed + rows * ROW_BYTES,
+        "cluster": cluster, "rows_per_cta": rows, "smem_bytes": fixed + rows * row_bytes,
         "rows_resident": min(n_steps, cluster * rows), "capacity_rows": cluster * capacity,
     }
 
@@ -138,28 +198,28 @@ def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> tor
 
 def _flat_heads(mem: torch.Tensor) -> torch.Tensor:
     """(B, H, S, hd) -> (B, S, H*hd): the decode loop's column order h*hd + i."""
-    b, _, s, _ = mem.shape
-    return mem.transpose(1, 2).reshape(b, s, D)
+    b, h, s, hd = mem.shape
+    return mem.transpose(1, 2).reshape(b, s, h * hd)
 
 
 def decode_steps(
-    cross: Optional[torch.Tensor],  # (B, T, 64) precomputed cross term (vocaset)
-    style: torch.Tensor,  # (B, 64)
-    pe: torch.Tensor,  # (period, 64)
+    cross: Optional[torch.Tensor],  # (B, T, d) precomputed cross term (vocaset)
+    style: torch.Tensor,  # (B, d)
+    pe: torch.Tensor,  # (period, d)
     weights: dict,
     *,
     period: int = 60,
     masks: Optional[dict] = None,
     chunk: Optional[int] = None,
-    mem_k: Optional[torch.Tensor] = None,  # (B, 4, 2T, 16) BIWI cross keys
-    mem_v: Optional[torch.Tensor] = None,  # (B, 4, 2T, 16) BIWI cross values
+    mem_k: Optional[torch.Tensor] = None,  # (B, 4, 2T, d / 4) BIWI cross keys
+    mem_v: Optional[torch.Tensor] = None,  # (B, 4, 2T, d / 4) BIWI cross values
 ) -> torch.Tensor:
     """The KV-cached decode step of FaceFormer, one Python iteration per
     frame, differentiable (no in-place cache writes), in the compute dtype
     of its inputs (products in that dtype; LayerNorm, scores and softmax
     in f32), with optional dropout ``masks``: keep-multipliers (T, B, width)
-    under the keys ``m_pe``, ``m_sa``, ``m_ca``, ``m_ff1`` (128 wide) and
-    ``m_ff2``. Returns (B, T, 64). BIWI passes ``cross=None`` and
+    under the keys ``m_pe``, ``m_sa``, ``m_ca``, ``m_ff1`` (2d wide) and
+    ``m_ff2``. Returns (B, T, d), d the width of ``style``. BIWI passes ``cross=None`` and
     ``mem_k``/``mem_v``: the cross term of step t is the 2-way softmax over
     the latents {2t, 2t+1}, computed inside the step.
 
@@ -169,14 +229,16 @@ def decode_steps(
     O(T^2 / chunk) instead of O(T^2). ``chunk=None`` keeps every step's
     residuals."""
     biwi = mem_k is not None
+    d = style.shape[-1]
+    nh = N_HEADS
+    hd = d // nh
     if biwi:
-        # each frame's latent pair, keys beside values: (B, 2T, 128) -> (B, T, 2, 128)
+        # each frame's latent pair, keys beside values: (B, 2T, 2d) -> (B, T, 2, 2d)
         per_frame = torch.cat([_flat_heads(mem_k), _flat_heads(mem_v)], dim=-1)
-        per_frame = per_frame.reshape(per_frame.shape[0], -1, 2, 2 * D)
+        per_frame = per_frame.reshape(per_frame.shape[0], -1, 2, 2 * d)
     else:
         per_frame = cross
     bsz, n_frames = per_frame.shape[:2]
-    d, nh, hd = D, N_HEADS, HD
     w = weights
     qkv_k = torch.cat([w["q_kernel"], w["k_kernel"], w["v_kernel"]], dim=1)
     qkv_b = torch.cat([w["q_bias"], w["k_bias"], w["v_bias"]])
@@ -197,9 +259,9 @@ def decode_steps(
             x = emb + pe[t % period]
             if m:
                 x = x * m["m_pe"][i]
-            qkv = torch.addmm(qkv_b, x, qkv_k)  # (B, 192); columns are head*hd + lane
+            qkv = torch.addmm(qkv_b, x, qkv_k)  # (B, 3d); columns are head*hd + lane
             q = qkv[:, :d].reshape(bsz, nh, hd)
-            k_cache = torch.cat([k_cache, qkv[:, None, d : 2 * d]], dim=1)  # (B, t+1, 64)
+            k_cache = torch.cat([k_cache, qkv[:, None, d : 2 * d]], dim=1)  # (B, t+1, d)
             v_cache = torch.cat([v_cache, qkv[:, None, 2 * d :]], dim=1)
             kmat = k_cache.reshape(bsz, t + 1, nh, hd)
             vmat = v_cache.reshape(bsz, t + 1, nh, hd)
@@ -257,7 +319,7 @@ def decode_loop_reference(
     mem_k: Optional[torch.Tensor] = None, mem_v: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain version of the kernel: ``decode_steps`` in f32 (the kernel
-    computes in f32 whatever its inputs' type). Returns (B, T, 64) in the
+    computes in f32 whatever its inputs' type). Returns (B, T, d) in the
     type of ``cross`` (BIWI: of ``mem_k``)."""
     w = {k: v.float() for k, v in weights.items()}
     if mem_k is not None:
@@ -290,15 +352,16 @@ def _pack_weights(weights: dict, device, biwi: bool = False) -> tuple[torch.Tens
     return packed.contiguous(), ln.contiguous()
 
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_ARGTYPES_BIWI = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_PLAN_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_LAYOUT_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES_BIWI = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_PLAN_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_LAYOUT_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _plans: dict[tuple, dict] = {}
 
 
 def kernel_cluster_plan(
     batch: int, n_steps: int, device, biwi: bool = False, bf16_weights: bool = True,
+    width: int = D,
 ) -> dict:
     """The launch plan the kernel takes on ``device``: the cluster size CL
     (the largest of 16, 8, ... that keeps min(batch, 8) items resident at
@@ -309,22 +372,23 @@ def kernel_cluster_plan(
     dev = torch.device(device)
     if dev.index is None:
         dev = torch.device(dev.type, torch.cuda.current_device())
-    key = (batch, n_steps, biwi, bf16_weights, dev)
+    key = (batch, n_steps, biwi, bf16_weights, dev, width)
     if key not in _plans:
-        layout = (ctypes.c_int * 3)()
+        lay = layout(width)
+        got = (ctypes.c_int * 3)()
         _build.function("decode_loop", "a2f_decode_layout", _LAYOUT_ARGTYPES)(
-            int(biwi), int(bf16_weights), MAX_CLUSTER, ctypes.addressof(layout))
-        want = [N_WEIGHTS_BIWI if biwi else N_WEIGHTS,
-                fixed_smem_bytes(biwi, bf16_weights, MAX_CLUSTER), ROW_BYTES]
-        if list(layout) != want:
-            raise RuntimeError(f"decode kernel layout mismatch: C {list(layout)} vs Python {want}")
+            int(biwi), int(bf16_weights), width, MAX_CLUSTER, ctypes.addressof(got))
+        want = [lay.n_weights_biwi if biwi else lay.n_weights,
+                fixed_smem_bytes(biwi, bf16_weights, MAX_CLUSTER, width), lay.row_bytes]
+        if list(got) != want:
+            raise RuntimeError(f"decode kernel layout mismatch: C {list(got)} vs Python {want}")
         out = (ctypes.c_int * 5)()
         with torch.cuda.device(dev):
             rc = _build.function("decode_loop", "a2f_decode_plan", _PLAN_ARGTYPES)(
-                int(biwi), int(bf16_weights), batch, n_steps, ctypes.addressof(out))
+                int(biwi), int(bf16_weights), width, batch, n_steps, ctypes.addressof(out))
         _build.check(rc, "faceformer_decode_loop: no cluster size fits")
         cl, rows, smem, active, limit = list(out)
-        plan = cluster_plan(n_steps, cl, biwi, bf16_weights, limit)
+        plan = cluster_plan(n_steps, cl, biwi, bf16_weights, limit, width)
         if (plan["rows_per_cta"], plan["smem_bytes"]) != (rows, smem):
             raise RuntimeError(f"decode kernel plan mismatch: C {list(out)} vs Python {plan}")
         _plans[key] = dict(plan, max_active_clusters=active, smem_limit=limit)
@@ -335,19 +399,21 @@ def _decode_loop_cuda(cross, style, pe, weights, period, mem_k=None, mem_v=None)
     biwi = mem_k is not None
     data = mem_k if biwi else cross
     b, dev = data.shape[0], data.device
+    width = style.shape[1]
     t_steps = mem_k.shape[2] // 2 if biwi else cross.shape[1]
     packed, ln = _pack_weights(weights, dev, biwi)
     bf16 = packed.dtype == torch.bfloat16
-    plan = kernel_cluster_plan(b, t_steps, dev, biwi, bf16)
+    plan = kernel_cluster_plan(b, t_steps, dev, biwi, bf16, width)
+    spans.count("decode_rows_spilled", b * (t_steps - plan["rows_resident"]))
     style32 = style.to(device=dev, dtype=torch.float32).contiguous()
     pe32 = pe.to(device=dev, dtype=torch.float32).contiguous()
     slopes = device_alibi_slopes(N_HEADS, dev)
     # rows past the cluster's shared memory: their owner keeps them here
-    kv = torch.empty((b, t_steps, 2 * D), dtype=torch.float32, device=dev)
-    out = torch.empty((b, t_steps, D), dtype=torch.float32, device=dev)
+    kv = torch.empty((b, t_steps, 2 * width), dtype=torch.float32, device=dev)
+    out = torch.empty((b, t_steps, width), dtype=torch.float32, device=dev)
     tail = (
         style32.data_ptr(), pe32.data_ptr(), packed.data_ptr(), ln.data_ptr(), slopes.data_ptr(),
-        kv.data_ptr(), out.data_ptr(), b, t_steps, period, int(bf16), plan["cluster"],
+        kv.data_ptr(), out.data_ptr(), b, t_steps, period, width, int(bf16), plan["cluster"],
         plan["rows_per_cta"], torch.cuda.current_stream(dev).cuda_stream,
     )
     if biwi:
@@ -368,41 +434,43 @@ def _decode_loop_cuda(cross, style, pe, weights, period, mem_k=None, mem_v=None)
 
 
 def faceformer_decode_loop(
-    cross: Optional[torch.Tensor],  # (B, T, 64) precomputed cross term (vocaset)
-    style: torch.Tensor,  # (B, 64)
-    pe: torch.Tensor,  # (period, 64)
+    cross: Optional[torch.Tensor],  # (B, T, d) precomputed cross term (vocaset)
+    style: torch.Tensor,  # (B, d)
+    pe: torch.Tensor,  # (period, d)
     weights: dict,
     *,
     period: int = 60,
-    mem_k: Optional[torch.Tensor] = None,  # (B, 4, 2T, 16) BIWI cross keys
-    mem_v: Optional[torch.Tensor] = None,  # (B, 4, 2T, 16) BIWI cross values
+    mem_k: Optional[torch.Tensor] = None,  # (B, 4, 2T, d / 4) BIWI cross keys
+    mem_v: Optional[torch.Tensor] = None,  # (B, 4, 2T, d / 4) BIWI cross values
 ) -> torch.Tensor:
-    """Run the decode loop; returns hidden states (B, T, 64) in the type of
+    """Run the decode loop; returns hidden states (B, T, d) in the type of
     ``cross`` (BIWI: of ``mem_k``). vocaset passes ``cross``; BIWI passes
     ``cross=None`` with ``mem_k``/``mem_v`` and the ``cq``/``co`` weights.
     CUDA tensors launch the kernel variant (counted in ``launches`` and
-    ``biwi_launches``), which is inference only: with gradients enabled and
-    an input that requires one it raises. CPU tensors run the plain loop."""
+    ``biwi_launches``; widths 64 and 128), which is inference only: with
+    gradients enabled and an input that requires one it raises. CPU tensors
+    run the plain loop. The width d is that of ``style``."""
     biwi = mem_k is not None
+    d = style.shape[-1]
     if biwi:
         if cross is not None or mem_v is None:
             raise ValueError("the BIWI variant takes cross=None with mem_k and mem_v")
         b, nh, s, hd = mem_k.shape
-        if (nh, hd) != (N_HEADS, HD) or s % 2 or mem_v.shape != mem_k.shape:
+        if (nh, hd) != (N_HEADS, d // N_HEADS) or s % 2 or mem_v.shape != mem_k.shape:
             raise ValueError(
                 f"shapes mem_k {tuple(mem_k.shape)} mem_v {tuple(mem_v.shape)}: "
-                f"want (B, {N_HEADS}, 2T, {HD})"
+                f"want (B, {N_HEADS}, 2T, {d // N_HEADS})"
             )
         missing = [k for k in _PACK_ORDER_BIWI[-4:] if k not in weights]
         if missing:
             raise ValueError(f"the BIWI variant needs the weights {missing}")
         data, what = mem_k, f"mem_k {tuple(mem_k.shape)}"
     else:
-        if cross is None or cross.ndim != 3 or cross.shape[2] != D:
-            raise ValueError("the vocaset variant takes cross (B, T, 64)")
+        if cross is None or cross.ndim != 3 or cross.shape[2] != d:
+            raise ValueError(f"the vocaset variant takes cross (B, T, {d})")
         b = cross.shape[0]
         data, what = cross, f"cross {tuple(cross.shape)}"
-    if style.shape != (b, D) or pe.shape != (period, D):
+    if style.shape != (b, d) or pe.shape != (period, d):
         raise ValueError(
             f"shapes {what} style {tuple(style.shape)} pe {tuple(pe.shape)} (period {period})"
         )
@@ -411,6 +479,8 @@ def faceformer_decode_loop(
             cross, style, pe, weights, period=period, mem_k=mem_k, mem_v=mem_v)
     if data.device.type != "cuda":
         raise ValueError(f"faceformer_decode_loop runs on cuda or cpu, not {data.device}")
+    if d not in WIDTHS:
+        raise ValueError(f"the decode kernel runs widths {WIDTHS}, not {d}")
     inputs = (mem_k, mem_v) if biwi else (cross,)
     if torch.is_grad_enabled() and any(
         x.requires_grad for x in (*inputs, style, *weights.values())

@@ -33,7 +33,9 @@ Both run on the card unless ``device="cpu"`` is asked for. Weights come
 from a reference PyTorch/Lightning checkpoint (``from_torch_checkpoint``),
 the port trainer's checkpoint (``from_checkpoint``), carried JAX variables,
 a port state dict, or a seeded random init. ``dataset="biwi"`` serves
-FaceFormer's BIWI mode (25 fps, period 25, 2-way cross softmax). The JAX
+FaceFormer's BIWI mode (25 fps, period 25, 2-way cross softmax). The
+decoder's width (64, or 128 as the published BIWI model has it) is the
+weights' own; a random init is 64 wide. The JAX
 trainer's orbax checkpoints are not read: orbax imports JAX.
 
 ``mesh=`` (``parallel.make_mesh``) serves on every rank of a mesh, each
@@ -259,7 +261,9 @@ class FaceFormerPredictor:
     ):
         """``variables``: the JAX FaceFormer's ``{"params": ...}`` as numpy
         arrays; ``state_dict``: the port's own; neither: random init from
-        ``seed``. ``use_kernels=False`` runs the plain PyTorch versions of
+        ``seed``; the decoder is as wide as the weights'
+        ``audio_feature_map`` outputs, 64 for a random init.
+        ``use_kernels=False`` runs the plain PyTorch versions of
         every kernel (a reference run on the card). ``mesh``: data-parallel
         clip batches over the mesh's ``data`` axis (``max_batch`` rounded
         down to a multiple of it); ``sp_mesh``: each clip's encoder stack
@@ -284,15 +288,17 @@ class FaceFormerPredictor:
         self.unit_scale = float(unit_scale)
         self.bucket_samples = int(bucket_seconds * AUDIO_SR)
         self.use_kernels = use_kernels
+        if variables is not None:
+            state_dict = faceformer_state_dict_from_jax(variables["params"])
         self.model = FaceFormer(
             n_verts=n_verts, n_onehot=n_onehot,
             dtype=torch.bfloat16 if bf16 else None,
             # BIWI animates at 25 fps; the upstream FaceFormer uses the frame
             # rate as the PPE/ALiBi period (matches the trainer's model)
             **({"dataset": "biwi", "period": 25} if dataset == "biwi" else {}),
+            **({} if state_dict is None
+               else {"feature_dim": state_dict["audio_feature_map.weight"].shape[0]}),
         )
-        if variables is not None:
-            state_dict = faceformer_state_dict_from_jax(variables["params"])
         if state_dict is not None:
             # BIWI weights served as vocaset would run frames at the wrong
             # clock and replace the trained 2-way softmax with the diagonal

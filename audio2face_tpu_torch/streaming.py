@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from audio2face_tpu_torch.compat.jax_params import faceformer_state_dict_from_jax
 from audio2face_tpu_torch.models.decoder_step import (
+    check_live_width,
     decoder_step_params,
     make_decoder_step,
     run_decoder_steps,
@@ -72,7 +73,8 @@ def load_live_faceformer(
 ) -> FaceFormer:
     """The vocaset FaceFormer of a live predictor, in eval mode on ``device``:
     weights from the JAX variables (numpy ``{"params": ...}``), a port state
-    dict, or a random init from ``seed``. BIWI weights are refused."""
+    dict, or a random init from ``seed``. BIWI weights are refused, and so
+    is a decoder of another width than 64."""
     if variables is not None and state_dict is not None:
         raise ValueError("pass variables= or state_dict=, not both")
     if variables is not None:
@@ -81,6 +83,8 @@ def load_live_faceformer(
         state_dict = faceformer_state_dict_from_jax(variables["params"])
     if state_dict is not None and "cross_q.weight" in state_dict:
         raise ValueError(_BIWI_MESSAGE)
+    if state_dict is not None:
+        check_live_width(state_dict["audio_feature_map.weight"].shape[0])
     model = FaceFormer(n_verts=n_verts, n_onehot=n_onehot, dtype=dtype)
     if state_dict is not None:
         model.load_state_dict(state_dict)

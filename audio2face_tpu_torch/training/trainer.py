@@ -169,6 +169,8 @@ class Audio2FaceExperiment:
             # BIWI animates at 25 fps; the upstream FaceFormer uses the frame
             # rate as the PPE/ALiBi period on both datasets
             dataset_kwargs = {"dataset": config.dataset, "period": 25}
+        if config.modelname == "faceformer":
+            dataset_kwargs["feature_dim"] = config.feature_dim
         self.accumulate_grad_batches = int(accumulate_grad_batches)
         self.config = config
         if mesh is None:

@@ -16,7 +16,9 @@ which raises (exit code != 0) on failure:
    predictor shapes;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the shapes its main path gives it (the flagship request,
-   60 s x batch 8; the BIWI request, 30 s x batch 8; a transfer batch of 64
+   60 s x batch 8; the BIWI request, 30 s x batch 8, and at the published
+   width 128, 60 s x batch 8, with a served 128-wide request's launches
+   and a 2-clip batch against the plain versions; a transfer batch of 64
    frames of the 5,023-vertex head at 800 x 800), with a stated tolerance;
    times kernel, plain version and (attention) one
    ``scaled_dot_product_attention`` call with CUDA events, and at the
@@ -140,6 +142,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -343,7 +346,7 @@ def kernel_name(mangled: str) -> str:
     anonymous namespace, ``_ZN<len><namespace><len><name>...``, with its
     template arguments: integers and booleans as numbers (the attention
     kernels' head dim: ``flash_fwd_wgmma_kernel<64>``), ``float`` and named
-    types (``decode_cluster_kernel<1, __nv_bfloat16>``)."""
+    types (``decode_cluster_kernel<1, __nv_bfloat16, 64>``)."""
     import re
 
     nested = mangled.startswith("_ZN")
@@ -2262,7 +2265,7 @@ def main() -> int:
         return 1
     from audio2face_tpu_torch.data.synthetic import adversarial_screen_triangles, generate_synthetic_face_obj
     from audio2face_tpu_torch.models.faceformer import (
-        frame_count, normalize_waveform, periodic_positional_encoding)
+        FaceFormer, frame_count, normalize_waveform, periodic_positional_encoding)
     from audio2face_tpu_torch.ops import _build
     from audio2face_tpu_torch.ops import attention as attn_ops
     from audio2face_tpu_torch.ops import conv_encoder as ce
@@ -2465,7 +2468,7 @@ def main() -> int:
         "max_err_less_one_bf16_step": over, "tol": K3_F32_TOL,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, "library_ms": None,
         "us_per_step": 1e3 * ms / t, "cluster_plan": plan,
-        "resources": dc_resources["decode_cluster_kernel<0, __nv_bfloat16>"],
+        "resources": dc_resources["decode_cluster_kernel<0, __nv_bfloat16, 64>"],
     })
     print(json.dumps({"K3 vocaset (8, 3600) bf16": {
         "cluster": plan["cluster"], "max_active_clusters": plan["max_active_clusters"],
@@ -2792,9 +2795,117 @@ def main() -> int:
         "max_err_less_one_bf16_step": over, "tol": K3_F32_TOL, "shape": [b, t, 64],
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, "library_ms": None,
         "us_per_step": 1e3 * ms / t, "cluster_plan": plan,
-        "resources": dc_resources["decode_cluster_kernel<1, __nv_bfloat16>"],
+        "resources": dc_resources["decode_cluster_kernel<1, __nv_bfloat16, 64>"],
     })
     del mem_k, mem_v, out, ref, diff
+    torch.cuda.empty_cache()
+
+    # ---- 3g'. K3's BIWI variant at the published width 128: 8 x 1500 frames
+    # (60 s at 25 fps, the longest bucket of the BIWI cell), each matrix's
+    # rows split over the cluster; a served request counts its launches
+    d, hd = 128, 128 // 4
+    ff128 = FaceFormer(n_verts_biwi, 6, dataset="biwi", period=25, feature_dim=d)
+    ff128.init_parameters(torch.Generator().manual_seed(2))
+    g128 = torch.Generator().manual_seed(3)
+    with torch.no_grad():  # trained-like motion maps and cross biases, as above
+        for lin in (ff128.vertice_map, ff128.vertice_map_r):
+            lin.weight.copy_(torch.randn(lin.weight.shape, generator=g128) * 0.02)
+            lin.bias.copy_(torch.randn(lin.bias.shape, generator=g128) * 0.02)
+        for lin in (ff128.cross_q, ff128.cross_k, ff128.cross_v):
+            lin.bias.copy_(torch.randn(lin.bias.shape, generator=g128) * 0.3)
+    biwi128 = FaceFormerPredictor(n_verts=n_verts_biwi, n_onehot=6, bf16=True, max_batch=8,
+                                  bucket_seconds=5.0, dataset="biwi", state_dict=ff128.state_dict())
+    del ff128
+    m = biwi128.model
+    require(m.feature_dim == d, f"the BIWI predictor's decoder is {m.feature_dim} wide")
+    b, n, t = 8, 960000, 1500
+    x = randn(b, n, scale=0.1)
+    lens = torch.tensor([960000, 960000, 720000, 480000, 960000, 240000, 960000, 48000], device=dev)
+    hidden = m.audio_encoder(normalize_waveform(x, lens), output_len=t, lengths=lens,
+                             dataset="biwi", dtype=bf)
+    hidden = torch.nn.functional.pad(hidden, (0, 0, 0, max(2 * t - hidden.shape[1], 0)))[:, : 2 * t]
+    memory = torch.nn.functional.linear(hidden.float(), m.audio_feature_map.weight, m.audio_feature_map.bias)
+    mem_k, mem_v = (
+        torch.nn.functional.linear(memory, lin.weight, lin.bias).reshape(b, 2 * t, 4, hd)
+        .transpose(1, 2).to(bf) for lin in (m.cross_k, m.cross_v))
+    del x, hidden, memory
+    weights = m.decoder_weights(bf)
+    style = randn(b, d, scale=0.5, dtype=bf)
+    pe128 = torch.as_tensor(periodic_positional_encoding(25, d), device=dev).to(bf)
+    kw = dict(period=25, mem_k=mem_k, mem_v=mem_v)
+    out = dk.faceformer_decode_loop(None, style, pe128, weights, **kw)
+    ref = dk.decode_loop_reference(None, style, pe128, weights, **kw)
+    torch.cuda.synchronize()
+    require(out.dtype == bf and tuple(out.shape) == (b, t, d), f"K3 BIWI 128 output {out.dtype} {tuple(out.shape)}")
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    over = (diff - K3_BF16_STEP * ref.float().abs()).max().item()
+    print(json.dumps({"check": "faceformer_decode_loop BIWI bf16 (8, 1500, 128)", "max_abs_err": err,
+                      "max_err_less_one_bf16_step": over, "tol": K3_F32_TOL}), flush=True)
+    require(over <= K3_F32_TOL and bool(torch.isfinite(out.float()).all()),
+            f"K3 BIWI 128 err beyond one bf16 step {over} > {K3_F32_TOL}")
+    ms = cuda_ms(torch, lambda: dk.faceformer_decode_loop(None, style, pe128, weights, **kw), 5)
+    plain_ms = cuda_ms(torch, lambda: dk.decode_loop_reference(None, style, pe128, weights, **kw), 1)
+    # the products of the 64-wide count above at width d: q | k | v, W_o,
+    # W_1, W_2, W_fb, W_cq, W_co, the 2-way cross attention, and the walk's
+    # 4 d operations a cached row
+    dense_flops = 2.0 * (11 * d * d + 4 * d)
+    flops = b * (t * dense_flops + 4.0 * d * t * (t + 1) / 2)
+    nbytes = (2 * (2 * b * 2 * t * d + b * t * d + b * d + pe128.numel())
+              + sum(w.numel() * w.element_size() for w in weights.values()))
+    bms, bby = bound(nbytes, flops / PEAK_F32_FLOPS)
+    plan = dk.kernel_cluster_plan(b, t, dev, biwi=True, bf16_weights=True, width=d)
+    print(json.dumps({"K3 BIWI (8, 1500, 128) bf16": {
+        "cluster": plan["cluster"], "max_active_clusters": plan["max_active_clusters"],
+        "rows_per_cta": plan["rows_per_cta"], "smem_per_cta": plan["smem_bytes"],
+        "rows_resident": plan["rows_resident"], "us_per_step": 1e3 * ms / t, "ms": ms}}), flush=True)
+    del mem_k, mem_v, out, ref, diff
+    torch.cuda.empty_cache()
+    # a served request of 8 mixed clips (one group, one launch), then 2 clips
+    # against the same weights through the plain versions
+    rng128 = np.random.default_rng(4)
+
+    def clip128(seconds):
+        return (rng128.normal(size=int(seconds * 16000)) * 0.1).astype(np.float32)
+
+    template128 = rng128.normal(size=(n_verts_biwi // 3, 3)).astype(np.float32)
+    biwi128([clip128(1.0)], np.eye(6, dtype=np.float32)[[0]], template128)  # library warm-up
+    torch.cuda.synchronize()
+    dk.faceformer_decode_loop.launches = dk.faceformer_decode_loop.biwi_launches = 0
+    secs = [60.0, 42.5, 30.2, 12.0, 55.0, 3.3, 20.0, 8.8]
+    audios = [clip128(s_) for s_ in secs]
+    res = biwi128(audios, np.eye(6, dtype=np.float32)[[0, 1, 2, 3, 4, 5, 0, 1]], template128)
+    launches = dk.faceformer_decode_loop.biwi_launches
+    require(launches == 1 and dk.faceformer_decode_loop.launches == 0,
+            f"the 128-wide BIWI request launched its decode variant {launches} times and the "
+            f"vocaset one {dk.faceformer_decode_loop.launches} times")
+    for a, y in zip(audios, res):
+        require(y.shape == (frame_count(len(a), 25), n_verts_biwi // 3, 3) and bool(np.isfinite(y).all()),
+                f"BIWI 128 shape {y.shape} or not finite")
+    del res
+    plain = FaceFormerPredictor(n_verts=n_verts_biwi, n_onehot=6, bf16=True, max_batch=8, bucket_seconds=5.0,
+                                dataset="biwi", state_dict=m.state_dict(), use_kernels=False)
+    audios = [clip128(10.0), clip128(7.5)]
+    one_hot = np.eye(6, dtype=np.float32)[[2, 5]]
+    got = biwi128(audios, one_hot, template128)
+    want = plain(audios, one_hot, template128)
+    l2 = max(float(np.linalg.norm(a - b_, axis=-1).max()) for a, b_ in zip(got, want))
+    disp = max(float(np.abs(b_ - template128).max()) for b_ in want)
+    print(json.dumps({"check": "BIWI 128 predictor kernels vs plain, 2 clips", "max_vertex_l2": l2,
+                      "max_offset": disp, "tol": 0.05 * disp}), flush=True)
+    require(l2 <= 0.05 * disp, f"BIWI 128 predictor vs plain: max per-vertex L2 {l2} > {0.05 * disp}")
+    rows.append({
+        # no later phase runs width 128: its launches are the request's above
+        "name": "faceformer_decode_loop_biwi_d128", "route": "cuda",
+        "source": "audio2face_tpu_torch/csrc/decode_loop.cu",
+        "replaces": None,
+        "wrapper": types.SimpleNamespace(launches=0), "launches": launches, "max_abs_err": err,
+        "max_err_less_one_bf16_step": over, "tol": K3_F32_TOL, "shape": [b, t, d],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, "library_ms": None,
+        "us_per_step": 1e3 * ms / t, "cluster_plan": plan,
+        "resources": dc_resources["decode_cluster_kernel<1, __nv_bfloat16, 128>"],
+    })
+    del biwi128, plain, got, want, m, weights
     torch.cuda.empty_cache()
 
     # ---- 3h. K5 tile rasterizer: one transfer batch, 64 frames at 800 x 800 --

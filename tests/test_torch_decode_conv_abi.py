@@ -23,19 +23,29 @@ from tests.test_torch_attention_abi import CSRC, c_parameters, kind_of_c, kind_o
 torch.set_num_threads(1)
 
 
-def c_constants(source: str) -> dict:
-    """The namespace-level ``constexpr int`` constants of ``source`` (lines
-    that start with them), evaluated in order."""
-    text = re.sub(r"//[^\n]*", "", (CSRC / source).read_text())
-    values = {}
-    for body in re.findall(r"^constexpr int (\w+\s*=[^;]+);", text, flags=re.M):
+def _evaluate(bodies, values: dict) -> dict:
+    for body in bodies:
         for item in body.split(","):
             name, expr = (s.strip() for s in item.split("=", 1))
             values[name] = int(eval(expr, {}, dict(values)))  # noqa: S307 (C integer arithmetic)
     return values
 
 
+def c_constants(source: str, width: int = 64) -> dict:
+    """The namespace-level ``constexpr int`` constants of ``source`` (lines
+    that start with them), evaluated in order, then the ``static constexpr
+    int`` members of its ``struct Layout`` at ``D = width``."""
+    text = re.sub(r"//[^\n]*", "", (CSRC / source).read_text())
+    values = _evaluate(re.findall(r"^constexpr int (\w+\s*=[^;]+);", text, flags=re.M), {})
+    struct = re.search(r"^struct Layout \{(.*?)^\};", text, flags=re.M | re.S)
+    if struct:
+        values = _evaluate(re.findall(r"^\s*static constexpr int (\w+\s*=[^;]+);",
+                                      struct.group(1), flags=re.M), dict(values, D=width))
+    return values
+
+
 C = c_constants("decode_loop.cu")
+C128 = c_constants("decode_loop.cu", 128)
 
 
 @pytest.mark.parametrize("source, symbol, argtypes", [
@@ -55,22 +65,40 @@ def test_entry_point_matches_ctypes_binding(source, symbol, argtypes):
 def test_decode_entry_points_take_the_wrappers_argument_order(symbol, first):
     names = [p.split()[-1].lstrip("*") for p in c_parameters("decode_loop.cu", symbol)]
     assert names == first + ["style", "pe", "weights", "ln", "slopes", "kv", "out", "batch",
-                             "n_steps", "period", "bf16", "cluster", "rows_cta", "stream"]
+                             "n_steps", "period", "width", "bf16", "cluster", "rows_cta",
+                             "stream"]
 
 
-def test_python_layout_equals_the_c_constants():
-    assert (dk.N_WEIGHTS, dk.N_WEIGHTS_BIWI) == (C["N_WEIGHTS_VOCASET"], C["N_WEIGHTS_BIWI"])
-    assert (dk.SCRATCH_FLOATS, dk.SCRATCH_FLOATS_BIWI) == (C["SCRATCH_VOCASET"], C["SCRATCH_BIWI"])
-    assert dk.GATHER_FLOATS == C["GATHER_FLOATS"] == 2 * C["NWARPS"] * C["PART"]
-    assert (dk.N_LN, dk.ROW_BYTES, dk.MAX_CLUSTER) == (C["N_LN"], C["ROW_BYTES"], C["MAX_CLUSTER"])
-    assert dk.N_WARPS == C["NWARPS"] == C["NTHREADS"] // 32
+@pytest.mark.parametrize("width", dk.WIDTHS)
+def test_python_layout_equals_the_c_constants(width):
+    c, lay = (C, dk.layout(64)) if width == 64 else (C128, dk.layout(128))
+    if width == 64:
+        assert (dk.N_WEIGHTS, dk.N_WEIGHTS_BIWI) == (C["N_WEIGHTS_VOCASET"], C["N_WEIGHTS_BIWI"])
+        assert (dk.SCRATCH_FLOATS, dk.SCRATCH_FLOATS_BIWI) == (C["SCRATCH_VOCASET"],
+                                                               C["SCRATCH_BIWI"])
+        assert (dk.N_LN, dk.ROW_BYTES, dk.GATHER_FLOATS) == (C["N_LN"], C["ROW_BYTES"],
+                                                             C["GATHER_FLOATS"])
+    assert (lay.n_weights, lay.n_weights_biwi) == (c["N_WEIGHTS_VOCASET"], c["N_WEIGHTS_BIWI"])
+    assert (lay.n_matrix, lay.n_matrix_biwi) == (c["N_MATRIX_VOCASET"], c["N_MATRIX_BIWI"])
+    assert (lay.n_bias, lay.n_bias_biwi) == (c["N_BIAS_VOCASET"], c["N_BIAS_BIWI"])
+    assert lay.n_matrix + lay.n_bias == lay.n_weights
+    assert (lay.scratch, lay.scratch_biwi) == (c["SCRATCH_VOCASET"], c["SCRATCH_BIWI"])
+    assert lay.gather == c["GATHER_FLOATS"] == 2 * c["NWARPS"] * c["PART"]
+    assert (lay.n_ln, lay.row_bytes, lay.exchange) == (c["N_LN"], c["ROW_BYTES"],
+                                                       c["EXCHANGE_FLOATS"])
+    assert dk.MAX_CLUSTER == c["MAX_CLUSTER"]
+    assert dk.N_WARPS == c["NWARPS"] == c["NTHREADS"] // 32
     # every packed matrix starts 16-byte aligned in bf16 and in f32
     for name in ("WQKV", "WO", "W1", "W2", "WFB", "WCQ", "WCO"):
-        assert C[name] % 8 == 0
+        assert c[name] % 8 == 0
     # the scratch rows read as float4 and the latent rows filled by cp.async
-    for name in ("S_ATTN", "S_Y0", "S_Y1", "S_PV", "S_STEP"):
-        assert C[name] % 4 == 0
-    assert C["S_XBAR"] % 2 == 0  # the mbarriers: 8-byte aligned
+    for name in ("S_ATTN", "S_Y0", "S_Y1", "S_PV", "S_STEP", "SCRATCH_VOCASET", "SCRATCH_BIWI"):
+        assert c[name] % 4 == 0
+    assert c["S_XBAR"] % 2 == 0  # the mbarriers: 8-byte aligned
+    # the exchanges' 14 mbarriers, then their float4-read results
+    assert c["EX_BARS"] >= 2 * 7 * 2 and c["EX_BARS"] % 4 == 0
+    for name in ("X_QKV", "X_O", "X_CQ", "X_CO", "X_F1", "X_F2", "X_FB", "X_FLOATS"):
+        assert c[name] % 4 == 0
 
 
 def _weights(rng, biwi, dtype):
@@ -135,6 +163,15 @@ def test_fixed_bytes_mirror_the_c_formula(biwi, bf16, cluster):
     assert dk.fixed_smem_bytes(biwi, bf16, cluster) == want
     assert want % 16 == 0  # the gathered partials and the cache rows start 16-byte aligned
     assert dk.smem_bytes(biwi) == dk.fixed_smem_bytes(biwi, False, 1)
+    # width 128: a CTA holds its rows' share of each matrix and every bias,
+    # and the exchanges after the scratch
+    c = C128
+    n_w = ((c["N_MATRIX_BIWI"] if biwi else c["N_MATRIX_VOCASET"]) // cluster
+           + (c["N_BIAS_BIWI"] if biwi else c["N_BIAS_VOCASET"]))
+    scratch = (c["SCRATCH_BIWI"] if biwi else c["SCRATCH_VOCASET"]) + c["EXCHANGE_FLOATS"]
+    want = n_w * (2 if bf16 else 4) + 4 * c["N_LN"] + 4 * (scratch + cluster * c["GATHER_FLOATS"])
+    assert dk.fixed_smem_bytes(biwi, bf16, cluster, 128) == want
+    assert want % 16 == 0
 
 
 # rows a CTA holds at the H100's 232,448 bytes a block (cluster 16, 8, 1):
@@ -192,3 +229,40 @@ def test_decode_steps_take_the_cached_slopes(monkeypatch):
     assert attn.device_alibi_slopes(dk.N_HEADS, "cpu") is cached
     assert "alibi_slopes(" not in (CSRC.parent / "ops" / "decode_kernel.py").read_text().replace(
         "device_alibi_slopes(", "")
+
+
+def test_width_128_splits_its_weights_over_the_cluster():
+    """Where the weights live (C ``home_of``): all of them in every CTA at
+    width 64, each CTA's rows' share of every matrix at width 128, whose
+    bf16 weights (363 KB) a block's 227 KB cannot hold whole."""
+    text = (CSRC / "decode_loop.cu").read_text()
+    assert "return d == 64 ? HOME_SMEM : HOME_SPLIT;" in text
+    assert not dk.layout(64).split and dk.layout(128).split
+    assert 2 * C128["N_WEIGHTS_BIWI"] > dk.SM90_SMEM_PER_BLOCK
+    for cluster in (1, 2, 4, 8, 16):  # every matrix's outputs split evenly, 4 rows a warp round
+        for n_out in (3 * 128, 128, 256):
+            assert n_out % cluster == 0 and (n_out // cluster) % 4 == 0
+
+
+# width-128 BIWI rows a CTA holds at the H100's 232,448 bytes a block, as
+# the C plan gave them on the card
+@pytest.mark.parametrize("bf16, cluster, capacity", [
+    (True, 16, 142), (True, 8, 137), (True, 2, 18), (False, 8, 91), (False, 4, 11)])
+def test_cluster_plan_capacity_at_width_128(bf16, cluster, capacity):
+    at_capacity = cluster * capacity
+    row = dk.layout(128).row_bytes
+    assert row == 1024
+    for n_steps in (1, at_capacity - 1, at_capacity, at_capacity + 1, 1500):
+        plan = dk.cluster_plan(n_steps, cluster, True, bf16, width=128)
+        assert plan["rows_per_cta"] == min(capacity, -(-n_steps // cluster))
+        assert plan["rows_resident"] == min(n_steps, at_capacity)
+        assert plan["smem_bytes"] <= dk.SM90_SMEM_PER_BLOCK
+    fixed = dk.fixed_smem_bytes(True, bf16, cluster, 128)
+    assert fixed + capacity * row <= dk.SM90_SMEM_PER_BLOCK < fixed + (capacity + 1) * row
+
+
+def test_width_128_f32_weights_need_four_ctas():
+    with pytest.raises(RuntimeError, match="shared memory"):
+        dk.cluster_plan(100, 2, True, False, width=128)
+    with pytest.raises(ValueError, match="widths"):
+        dk.layout(96)

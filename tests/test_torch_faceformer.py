@@ -97,16 +97,16 @@ def test_select_decode_impl(monkeypatch):
     # CUDA picks the kernel (BIWI: its 2-way cross-softmax variant, which
     # needs more shared memory), and raises (no fallback) where its weights
     # do not fit one block's shared memory
-    monkeypatch.setattr(ff.decode_kernel, "smem_fits", lambda device, biwi=False: True)
+    monkeypatch.setattr(ff.decode_kernel, "smem_fits", lambda device, biwi=False, width=64: True)
     assert ff.select_decode_impl(torch.device("cuda")) == "fused"
     assert ff.select_decode_impl(torch.device("cuda"), dataset="biwi") == "fused"
     assert ff.select_decode_impl(torch.device("cuda"), dataset="biwi", train=True) == "steps"
-    monkeypatch.setattr(ff.decode_kernel, "smem_fits", lambda device, biwi=False: not biwi)
+    monkeypatch.setattr(ff.decode_kernel, "smem_fits", lambda device, biwi=False, width=64: not biwi)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda device: "a small card")
     assert ff.select_decode_impl(torch.device("cuda")) == "fused"
     with pytest.raises(RuntimeError, match=str(ff.decode_kernel.SMEM_BYTES_BIWI)):
         ff.select_decode_impl(torch.device("cuda"), dataset="biwi")
-    monkeypatch.setattr(ff.decode_kernel, "smem_fits", lambda device, biwi=False: False)
+    monkeypatch.setattr(ff.decode_kernel, "smem_fits", lambda device, biwi=False, width=64: False)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda device: "a small card")
     with pytest.raises(RuntimeError, match="shared"):
         ff.select_decode_impl(torch.device("cuda"))

@@ -169,7 +169,7 @@ def test_decode_chunk_size(n, chunk):
 
 
 def test_training_never_selects_the_fused_decode_kernel(monkeypatch):
-    monkeypatch.setattr(ff.decode_kernel, "smem_fits", lambda device, biwi=False: True)
+    monkeypatch.setattr(ff.decode_kernel, "smem_fits", lambda device, biwi=False, width=64: True)
     assert ff.select_decode_impl(torch.device("cuda")) == "fused"
     assert ff.select_decode_impl(torch.device("cuda"), train=True) == "steps"
     assert ff.select_decode_impl(torch.device("cpu"), train=True) == "steps"
@@ -188,7 +188,8 @@ def test_eval_takes_the_fused_kernel_whatever_the_autograd_state(monkeypatch):
         return decode_loop_reference(cross, style, pe, weights, period=period)
 
     monkeypatch.setattr(ff, "select_decode_impl",
-                        lambda device, dataset="vocaset", *, train=False: "steps" if train else "fused")
+                        lambda device, dataset="vocaset", *, train=False, feature_dim=64:
+                        "steps" if train else "fused")
     monkeypatch.setattr(ff.decode_kernel, "faceformer_decode_loop", fake_kernel)
     rng = np.random.default_rng(6)
     audio = torch.tensor((rng.normal(size=(1, 3200)) * 0.1).astype(np.float32))

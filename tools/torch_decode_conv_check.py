@@ -1,18 +1,18 @@
 #!/usr/bin/env python3
-"""A short first check of the decode loop (K3, both variants) and the conv
-feature encoder (K2) on one GPU: build the sources, print each kernel's
-registers and spills (``-Xptxas -v``), hold K3 and K2 once against their
-plain versions at small shapes and at the main path's shapes, print K3's
-cluster plan (cluster size, resident clusters, cache rows a CTA, shared
-memory a CTA), time K3 with and without its cache walk, and split K2's
-launches by the profiler.
+"""A short first check of the decode loop (K3, both variants, widths 64 and
+128) and the conv feature encoder (K2) on one GPU: build the sources, print
+each kernel's registers and spills (``-Xptxas -v``), hold K3 and K2 once
+against their plain versions at small shapes and at the main path's shapes,
+print K3's cluster plan (cluster size, resident clusters, cache rows a CTA,
+shared memory a CTA), time K3 with and without its cache walk (and, at
+width 128, its plain loop), and split K2's launches by the profiler.
 
 ``python3 tools/torch_decode_conv_check.py`` from the repository root. It
 prints readings (one JSON object a line) and holds no bars
 (``chip_smoke.py`` does): it is the first, cheap run after an edit of
 ``csrc/decode_loop.cu`` or ``csrc/conv_encoder.cu``. The cache walk is taken
 out in a copy of ``csrc/decode_loop.cu`` built into
-``build/decode_ablation/`` (each CTA then attends to row 0 alone: wrong
+``build/decode_conv_variants/`` (each CTA then attends to row 0 alone: wrong
 results on purpose), which gives the dense chain's own time a step.
 """
 
@@ -53,28 +53,27 @@ VARIANTS = {
             "namespace cg = cooperative_groups;\nconstexpr int N_STAMPED = 512;\n"
             "__device__ long long a2f_stamps[N_STAMPED * 16];",
         "  for (int t = 0; t < n_steps; ++t) {\n": "  for (int t = 0; t < n_steps; ++t) {\n" + stamped("", 0),
-        "    put_row(pv, xa, xb, lane);\n": "    put_row(pv, xa, xb, lane);\n" + stamped("", 1),
-        "    });\n    __syncthreads();\n\n    // this CTA's rows":
-            "    });\n" + stamped("    __syncthreads();\n", 2) + stamped("\n    // this CTA's rows", 3),
+        "    put_row<V>(pv, x, lane);\n": "    put_row<V>(pv, x, lane);\n" + stamped("", 1),
+        "      });\n      __syncthreads();\n      qs = sc + L::S_Q;\n":
+            "      });\n" + stamped("      __syncthreads();\n", 2) + stamped("      qs = sc + L::S_Q;\n", 3),
         "      // the warp's partial: rescale to the warp's max, then plain sums,":
             stamped("      // the warp's partial: rescale to the warp's max, then plain sums,", 4),
         "      __syncwarp();  // the warp's reads of its row (q | k | v) are done":
             stamped("      __syncwarp();  // the warp's reads of its row (q | k | v) are done", 5),
-        "    mbar_wait_cluster(xbar + 8 * (t & 1), (t >> 1) & 1);  // every CTA's partials are here\n":
-            stamped("    mbar_wait_cluster(xbar + 8 * (t & 1), (t >> 1) & 1);\n", 6) + stamped("", 7),
-        "      if (qq == 0) sc[S_ATTN + e] = asum / lsum;\n    }\n    __syncthreads();\n":
-            "      if (qq == 0) sc[S_ATTN + e] = asum / lsum;\n    }\n" + stamped("    __syncthreads();\n", 8)
-            + stamped("", 9),
-        "                    [&](int n, float y) { sc[S_Y0 + n] = y; });\n    __syncthreads();\n    float ha = xa":
-            "                    [&](int n, float y) { sc[S_Y0 + n] = y; });\n" + stamped("    __syncthreads();\n", 10)
-            + stamped("    float ha = xa", 11),
-        "    // h = LN3(h + W_2 relu(W_1 h))\n    put_row(pv, ha, hb, lane);\n":
-            "    // h = LN3(h + W_2 relu(W_1 h))\n    put_row(pv, ha, hb, lane);\n" + stamped("", 12),
-        "fmaxf(y, 0.f); });\n    __syncthreads();\n":
-            "fmaxf(y, 0.f); });\n" + stamped("    __syncthreads();\n", 13) + stamped("", 14),
-        "    ha += sc[S_Y0 + lane];\n    hb += sc[S_Y0 + lane + 32];\n    warp_layer_norm(ha, hb, ln + LN3S":
-            stamped("    ha += sc[S_Y0 + lane];\n    hb += sc[S_Y0 + lane + 32];\n    warp_layer_norm(ha, hb, ln + LN3S",
-                    15),
+        "    mbar_wait_cluster(xbar + 8 * par, phase);  // every CTA's partials are here\n":
+            stamped("    mbar_wait_cluster(xbar + 8 * par, phase);\n", 6) + stamped("", 7),
+        "      if (qq == 0) sc[L::S_ATTN + e] = asum / lsum;\n    }\n    __syncthreads();\n":
+            "      if (qq == 0) sc[L::S_ATTN + e] = asum / lsum;\n    }\n"
+            + stamped("    __syncthreads();\n", 8) + stamped("", 9),
+        "      __syncthreads();\n      y = sc + L::S_Y0;\n    } else {\n      y = split_matvec(KD{}, w_o,":
+            stamped("      __syncthreads();\n", 10) + stamped("      y = sc + L::S_Y0;\n", 11)
+            + "    } else {\n      y = split_matvec(KD{}, w_o,",
+        "    // h = LN3(h + W_2 relu(W_1 h))\n    put_row<V>(pv, h, lane);\n":
+            "    // h = LN3(h + W_2 relu(W_1 h))\n    put_row<V>(pv, h, lane);\n" + stamped("", 12),
+        "fmaxf(v, 0.f); });\n      __syncthreads();\n":
+            "fmaxf(v, 0.f); });\n" + stamped("      __syncthreads();\n", 13) + stamped("", 14),
+        "    warp_layer_norm<V>(h, ln + L::LN3S, ln + L::LN3B, lane);":
+            stamped("    warp_layer_norm<V>(h, ln + L::LN3S, ln + L::LN3B, lane);", 15),
         "// layout[0] = packed weights":
             "extern \"C\" int a2f_read_stamps(long long* host) {\n"
             "  return cudaMemcpyFromSymbol(host, a2f_stamps, sizeof(a2f_stamps));\n}\n\n"
@@ -100,6 +99,7 @@ STAGES = ("x, prefetch, own row", "q|k|v matvec", "its barrier", "walk", "warp m
           "partial pushed", "wait for the partials", "combine", "its barrier", "W_o matvec",
           "its barrier", "LN1, cross, LN2, own row", "W_1 matvec", "its barrier", "W_2 matvec + barrier",
           "LN3, out, W_fb + barrier, emb")
+WIDTHS = (64, 128)
 
 
 def build_variants(out_dir: Path) -> dict[str, Path]:
@@ -156,7 +156,7 @@ def forced_cluster(dk, key, planned: dict, cluster):
         yield
         return
     dk._plans[key] = dict(planned, **dk.cluster_plan(key[1], cluster, key[2], key[3],
-                                                     planned["smem_limit"]))
+                                                     planned["smem_limit"], key[5]))
     try:
         yield
     finally:
@@ -194,69 +194,91 @@ def main() -> int:
     def randn(*shape, scale=1.0, dtype=torch.float32):
         return (torch.randn(*shape, generator=g) * scale).to(device=dev, dtype=dtype)
 
-    w32 = {}
-    for name, shape in [("q", (64, 64)), ("k", (64, 64)), ("v", (64, 64)), ("o", (64, 64)),
-                        ("cq", (64, 64)), ("co", (64, 64)), ("f1", (64, 128)), ("f2", (128, 64)),
-                        ("fb", (64, 64))]:
-        # a weak feedback: the autoregression does not amplify rounding differences
-        w32[f"{name}_kernel"] = randn(*shape, scale=0.05 if name == "fb" else 0.125)
-        w32[f"{name}_bias"] = randn(shape[1], scale=0.1)
-    for i in (1, 2, 3):
-        w32[f"ln{i}_scale"], w32[f"ln{i}_bias"] = 1 + randn(64, scale=0.1), randn(64, scale=0.1)
-    w16 = {k: (v if k.startswith("ln") else v.to(torch.bfloat16)) for k, v in w32.items()}
+    def weights_for(d):
+        w32 = {}
+        for name, shape in [("q", (d, d)), ("k", (d, d)), ("v", (d, d)), ("o", (d, d)),
+                            ("cq", (d, d)), ("co", (d, d)), ("f1", (d, 2 * d)), ("f2", (2 * d, d)),
+                            ("fb", (d, d))]:
+            # a weak feedback: the autoregression does not amplify rounding differences
+            w32[f"{name}_kernel"] = randn(*shape, scale=0.4 / d ** 0.5 if name == "fb" else d ** -0.5)
+            w32[f"{name}_bias"] = randn(shape[1], scale=0.1)
+        for i in (1, 2, 3):
+            w32[f"ln{i}_scale"], w32[f"ln{i}_bias"] = 1 + randn(d, scale=0.1), randn(d, scale=0.1)
+        w16 = {k: (v if k.startswith("ln") else v.to(torch.bfloat16)) for k, v in w32.items()}
+        return {torch.float32: w32, torch.bfloat16: w16}
 
-    def decode_inputs(b, t, biwi, dtype):
+    weights = {d: weights_for(d) for d in WIDTHS}
+
+    def decode_inputs(b, t, biwi, dtype, d=64):
         kw = dict(period=25 if biwi else 60)
-        pe = torch.as_tensor(periodic_positional_encoding(kw["period"]), device=dev).to(dtype)
+        pe = torch.as_tensor(periodic_positional_encoding(kw["period"], d), device=dev).to(dtype)
         if biwi:
-            kw.update(mem_k=randn(b, 4, 2 * t, 16, scale=0.5, dtype=dtype),
-                      mem_v=randn(b, 4, 2 * t, 16, scale=0.5, dtype=dtype))
+            kw.update(mem_k=randn(b, 4, 2 * t, d // 4, scale=0.5, dtype=dtype),
+                      mem_v=randn(b, 4, 2 * t, d // 4, scale=0.5, dtype=dtype))
             cross = None
         else:
-            cross = randn(b, t, 64, scale=0.5, dtype=dtype)
-        return cross, randn(b, 64, scale=0.5, dtype=dtype), pe, kw
+            cross = randn(b, t, d, scale=0.5, dtype=dtype)
+        return cross, randn(b, d, scale=0.5, dtype=dtype), pe, kw
 
-    # ---- K3: plans and agreement with the plain version
-    cases = [(False, 2, 150, torch.float32), (False, 8, 3600, torch.bfloat16),
-             (False, 1, 7200, torch.bfloat16), (False, 2, 3600, torch.float32),
-             (False, 20, 200, torch.bfloat16), (True, 2, 150, torch.float32),
-             (True, 8, 750, torch.bfloat16), (True, 1, 6300, torch.bfloat16)]
-    for biwi, b, t, dtype in cases:
-        w = w16 if dtype == torch.bfloat16 else w32
-        cross, style, pe, kw = decode_inputs(b, t, biwi, dtype)
-        plan = dk.kernel_cluster_plan(b, t, dev, biwi, dtype == torch.bfloat16)
-        out = dk.faceformer_decode_loop(cross, style, pe, w, **kw)
+    # ---- K3: plans and agreement with the plain version (width 128: its
+    # cluster sizes forced too, the exchanges at 16, 8, 4 and 2 CTAs)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(False, 2, 150, f32, 64, None), (False, 8, 3600, bf16, 64, None),
+             (False, 1, 7200, bf16, 64, None), (False, 2, 3600, f32, 64, None),
+             (False, 20, 200, bf16, 64, None), (True, 2, 150, f32, 64, None),
+             (True, 8, 750, bf16, 64, None), (True, 1, 6300, bf16, 64, None),
+             (True, 2, 150, f32, 128, None), (False, 2, 150, f32, 128, None),
+             (True, 8, 1500, bf16, 128, None), (True, 8, 1500, f32, 128, None),
+             (False, 8, 1500, bf16, 128, None), (True, 1, 6000, bf16, 128, None),
+             (True, 20, 200, bf16, 128, None), (True, 3, 400, bf16, 128, 16),
+             (True, 3, 400, f32, 128, 4), (True, 3, 400, bf16, 128, 2)]
+    for biwi, b, t, dtype, d, cl in cases:
+        w = weights[d][dtype]
+        cross, style, pe, kw = decode_inputs(b, t, biwi, dtype, d)
+        plan = dk.kernel_cluster_plan(b, t, dev, biwi, dtype == bf16, d)
+        with forced_cluster(dk, (b, t, biwi, dtype == bf16, style.device, d), plan, cl):
+            out = dk.faceformer_decode_loop(cross, style, pe, w, **kw)
+            torch.cuda.synchronize()
+            used = dk._plans[(b, t, biwi, dtype == bf16, style.device, d)]
         ref = dk.decode_loop_reference(cross, style, pe, w, **kw)
         diff = (out.float() - ref.float()).abs()
-        over = (diff - (cs.K3_BF16_STEP if dtype == torch.bfloat16 else 0.0) * ref.float().abs()).max().item()
-        print(json.dumps({"K3": "biwi" if biwi else "vocaset", "shape": [b, t], "dtype": str(dtype)[6:],
-                          "plan": plan, "max_abs_err": diff.max().item(),
-                          "err_beyond_one_bf16_step" if dtype == torch.bfloat16 else "err": over,
+        over = (diff - (cs.K3_BF16_STEP if dtype == bf16 else 0.0) * ref.float().abs()).max().item()
+        print(json.dumps({"K3": "biwi" if biwi else "vocaset", "width": d, "shape": [b, t],
+                          "dtype": str(dtype)[6:], "plan": used, "max_abs_err": diff.max().item(),
+                          "err_beyond_one_bf16_step" if dtype == bf16 else "err": over,
                           "tol": cs.K3_F32_TOL, "finite": bool(torch.isfinite(out.float()).all())}),
               flush=True)
 
     # ---- K3 with and without the cache walk, at the serving shapes; the
     # walk-free kernel also at forced cluster sizes (cl: the plan's, 4, 1),
-    # whose difference is the cluster barrier's and the partials' exchange
+    # whose difference is the cluster barrier's and the partials' exchange;
+    # at width 128 the plain loop
     libs = build_variants(REPO / "build" / "decode_conv_variants")
     times = {}
-    variants = (("full", None), ("no_walk", None), ("no_walk", 4), ("no_walk", 1))
-    for biwi, b, t in ((False, 8, 3600), (True, 8, 750)):
-        cross, style, pe, kw = decode_inputs(b, t, biwi, torch.bfloat16)
-        key = f"{'biwi' if biwi else 'vocaset'} ({b}, {t})"
-        planned = dk.kernel_cluster_plan(b, t, dev, biwi, True)
+    shapes = ((False, 8, 3600, 64, (("full", None), ("no_walk", None), ("no_walk", 4), ("no_walk", 1))),
+              (True, 8, 750, 64, (("full", None), ("no_walk", None), ("no_walk", 4), ("no_walk", 1))),
+              (True, 8, 1500, 128, (("full", None), ("no_walk", None))))
+    for biwi, b, t, d, variants in shapes:
+        cross, style, pe, kw = decode_inputs(b, t, biwi, bf16, d)
+        w16 = weights[d][bf16]
+        key = f"{'biwi' if biwi else 'vocaset'} ({b}, {t}, {d})"
+        pkey = (b, t, biwi, True, style.device, d)
+        planned = dk.kernel_cluster_plan(b, t, dev, biwi, True, d)
         for rnd in range(2):
             for label, cl in variants:
-                ctx = library("decode_loop", libs["no_walk"]) if label == "no_walk" else contextlib.nullcontext()
-                with ctx, forced_cluster(dk, (b, t, biwi, True, style.device), planned, cl):
+                ctx = library("decode_loop", libs[label]) if label != "full" else contextlib.nullcontext()
+                with ctx, forced_cluster(dk, pkey, planned, cl):
                     ms = cs.cuda_ms(torch, lambda: dk.faceformer_decode_loop(cross, style, pe, w16, **kw), 3)
                 times.setdefault(f"{key} {label} cl={cl or planned['cluster']}", []).append(
                     {"ms": ms, "us_per_step": 1e3 * ms / t})
+        if d == 128:
+            ref_ms = cs.cuda_ms(torch, lambda: dk.decode_loop_reference(cross, style, pe, w16, **kw), 1)
+            times[f"{key} plain loop"] = [{"ms": ref_ms}]
     print(json.dumps({"K3_ms": times, "card": card}), flush=True)
     # the SM clocks between the stages of a step, CTA 0 of item 0, steps 64-511
-    cross, style, pe, kw = decode_inputs(8, 3600, False, torch.bfloat16)
+    cross, style, pe, kw = decode_inputs(8, 3600, False, bf16)
     with library("decode_loop", libs["stamps"]):
-        dk.faceformer_decode_loop(cross, style, pe, w16, **kw)
+        dk.faceformer_decode_loop(cross, style, pe, weights[64][bf16], **kw)
     torch.cuda.synchronize()
     stamps = (ctypes.c_longlong * (512 * N_STAMPS))()
     fn = ctypes.CDLL(str(libs["stamps"])).a2f_read_stamps
