@@ -15,7 +15,6 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from audio2face_tpu_torch.models.layers import (
@@ -23,6 +22,7 @@ from audio2face_tpu_torch.models.layers import (
     TorchConv,
     VertexDecoderMLP,
     add_conv_blocks,
+    conv_block,
     conv_stack,
     init_frame_model,
     tile_onehot_rows,
@@ -69,8 +69,8 @@ class Audio2Mesh(nn.Module):
         h = conv_stack(self, h, ANALYSIS_BLOCKS, train, cdt)  # (B, 256, 64, 1)
         # articulation: conv/bn/relu x3, then bn, conv, relu, bn, conv, relu
         h = conv_stack(self, h, ARTIC_BLOCKS, train, cdt)
-        h = F.relu(self.artic3(self.artic3_pre_bn(h, train), cdt))
-        h = F.relu(self.artic4(self.artic4_pre_bn(h, train), cdt))
+        h = conv_block(self.artic3, None, self.artic3_pre_bn(h, train), train, cdt)
+        h = conv_block(self.artic4, None, self.artic4_pre_bn(h, train), train, cdt)
 
         h = h.reshape(bs, -1)  # (B, 256)
         h = torch.cat([h, one_hot.to(h.dtype)], dim=1)

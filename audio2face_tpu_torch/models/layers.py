@@ -11,13 +11,15 @@ the JAX modules: ``{name}.conv.weight`` for flax ``{name}/conv/kernel``,
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from audio2face_tpu_torch.models.wav2vec2 import _lecun_normal_, dense
+from audio2face_tpu_torch.ops.frame_epilogue import frame_epilogue
+from audio2face_tpu_torch.utils import spans
 
 BN_MOMENTUM = 0.1  # torch-style: new = (1 - m) * old + m * batch (flax: momentum 0.9)
 BN_EPS = 1e-5
@@ -33,10 +35,10 @@ class TorchConv(nn.Module):
         self.conv = nn.Conv2d(in_channels, features, tuple(kernel_size), stride=tuple(strides),
                               padding=tuple(padding), bias=use_bias)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, add_bias: bool = True) -> torch.Tensor:
         c = self.conv
         x, w = x.to(dtype), c.weight.to(dtype)
-        bias = None if c.bias is None else c.bias.to(dtype)
+        bias = None if c.bias is None or not add_bias else c.bias.to(dtype)
         if x.device.type == "cpu" and dtype != torch.float32:
             # the CPU's bf16 conv (oneDNN) returns wrong values, even NaN, at
             # some of these shapes (a (1, 3)/stride-2 conv of a 2-wide
@@ -45,6 +47,17 @@ class TorchConv(nn.Module):
                            stride=c.stride, padding=c.padding)
             return out.to(dtype)
         return F.conv2d(x, w, bias, stride=c.stride, padding=c.padding)
+
+
+def _one_pass(x: torch.Tensor, train: bool, *modules: nn.Module) -> bool:
+    """Whether a block's epilogue (conv bias, BatchNorm, ReLU) runs as one
+    pass of ``ops/frame_epilogue.py``: on CUDA, in eval, where autograd would
+    record nothing (the kernel has no backward). Elsewhere (training, the
+    CPU, eval under autograd) the per-op composition runs."""
+    if x.device.type != "cuda" or train:
+        return False
+    return not torch.is_grad_enabled() or not (
+        x.requires_grad or any(p.requires_grad for m in modules for p in m.parameters()))
 
 
 class _BatchNormState(nn.Module):
@@ -71,7 +84,8 @@ class TorchBatchNorm(nn.Module):
       Audio2Mesh's ``artic4_pre_bn`` (H x W = 4) and Song2Face's ``reg*_bn``
       (H x W <= 8) n is little more than the batch, so the two running
       variances part by up to a factor 2 at batch 2;
-    - eval mode normalizes with the running statistics.
+    - eval mode normalizes with the running statistics (``eval_affine``), in
+      one kernel pass where ``_one_pass`` allows.
 
     The output is in the input's dtype. ``sync_group`` is None, or the
     data-parallel group whose ranks each hold a share of the batch: the
@@ -84,7 +98,16 @@ class TorchBatchNorm(nn.Module):
         self.bn = _BatchNormState(channels)
         self.sync_group = None
 
+    def eval_affine(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Eval mode's ``(mean, mul, beta)``, f32 (C,) each: ``y = (x - mean) *
+        mul + beta``."""
+        bn = self.bn
+        return bn.running_mean, torch.rsqrt(bn.running_var + BN_EPS) * bn.weight, bn.bias
+
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        if _one_pass(x, train, self):
+            spans.count("conv_epilogues_fused", 1)
+            return frame_epilogue(x.contiguous(), bn=self.eval_affine())
         bn = self.bn
         if train:
             xf = x.float()
@@ -104,9 +127,9 @@ class TorchBatchNorm(nn.Module):
             with torch.no_grad():
                 bn.running_mean.mul_(1.0 - BN_MOMENTUM).add_(BN_MOMENTUM * mean.detach())
                 bn.running_var.mul_(1.0 - BN_MOMENTUM).add_(BN_MOMENTUM * var.detach())
+            mul = torch.rsqrt(var + BN_EPS) * bn.weight
         else:
-            mean, var = bn.running_mean, bn.running_var
-        mul = torch.rsqrt(var + BN_EPS) * bn.weight
+            mean, mul, _ = self.eval_affine()
         y = (x.float() - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
         return y.to(x.dtype)
 
@@ -187,15 +210,30 @@ def add_conv_blocks(module: nn.Module, in_channels: int, blocks: Sequence[dict])
     return in_channels
 
 
+def conv_block(conv: TorchConv, bn: Optional[TorchBatchNorm], x: torch.Tensor, train: bool,
+               dtype: torch.dtype, relu: bool = True) -> torch.Tensor:
+    """``conv``, then ``bn`` unless it is None, then ReLU if ``relu``. Where
+    ``_one_pass`` allows, the conv runs without its bias, and the bias, the
+    BatchNorm and the ReLU follow in one pass over its output, in place; the
+    counter ``conv_epilogues_fused`` counts such blocks."""
+    if _one_pass(x, train, conv, *([] if bn is None else [bn])):
+        y = conv(x.contiguous(), dtype, add_bias=False)
+        b = conv.conv.bias
+        spans.count("conv_epilogues_fused", 1)
+        return frame_epilogue(y, None if b is None else b.to(dtype),
+                              None if bn is None else bn.eval_affine(), relu, out=y)
+    x = conv(x, dtype)
+    if bn is not None:
+        x = bn(x, train)
+    return F.relu(x) if relu else x
+
+
 def conv_stack(module: nn.Module, x: torch.Tensor, blocks: Sequence[dict], train: bool,
                dtype: torch.dtype) -> torch.Tensor:
     """Apply the conv/bn/relu blocks that ``add_conv_blocks`` registered."""
     for blk in blocks:
-        x = getattr(module, blk["name"])(x, dtype)
-        if blk.get("bn", True):
-            x = getattr(module, blk["name"] + "_bn")(x, train)
-        if blk.get("relu", True):
-            x = F.relu(x)
+        bn = getattr(module, blk["name"] + "_bn") if blk.get("bn", True) else None
+        x = conv_block(getattr(module, blk["name"]), bn, x, train, dtype, blk.get("relu", True))
     return x
 
 

@@ -2,11 +2,12 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds, not
-minutes). All sources compile in parallel, one ``nvcc`` process each, into
-``build/torch_kernels/`` at the repository root; a library's file name
-carries a digest of its sources and flags, so an edited source rebuilds.
-Importing this module builds nothing. A missing ``nvcc`` or a failed build
-raises.
+minutes). At the first launch all sources compile in parallel, one
+``nvcc`` process each, into ``build/torch_kernels/`` at the repository
+root; a source in ``ALONE`` builds alone at its own first launch. A
+library's file name carries a digest of its sources and flags, so an
+edited source rebuilds. Importing this module builds nothing. A missing
+``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -18,10 +19,15 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("flash_attention", "flash_attention_bwd", "conv_encoder", "decode_loop", "rasterizer")
+SOURCES = ("flash_attention", "flash_attention_bwd", "conv_encoder", "decode_loop", "rasterizer",
+           "frame_epilogue")
+# frame models on MFCC features launch no other kernel; the others take ~20 s
+# to build
+ALONE = ("frame_epilogue",)
 NVCC_FLAGS = (
     "-O3",
     "-std=c++17",
@@ -62,15 +68,16 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> dict[str, Path]:
-    """Compile every source not yet built (in parallel) and load them all.
+def build_all(names: Sequence[str] = SOURCES) -> dict[str, Path]:
+    """Compile every source of ``names`` not yet built (in parallel) and load
+    them.
 
     Returns each library's path. The nvcc log of each source, including
     ``-Xptxas -v``'s register and shared-memory report, is left beside it
     as ``<name>.log``."""
     with _lock:
-        paths = {name: _library_path(name) for name in SOURCES}
-        todo = [n for n in SOURCES if n not in _libs and not paths[n].exists()]
+        paths = {name: _library_path(name) for name in names}
+        todo = [n for n in names if n not in _libs and not paths[n].exists()]
         if todo:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             nvcc = _nvcc()
@@ -96,7 +103,7 @@ def build_all() -> dict[str, Path]:
                 raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
             for name, _, tmp, _ in jobs:
                 os.replace(tmp, paths[name])
-        for name in SOURCES:
+        for name in names:
             if name not in _libs:
                 _libs[name] = ctypes.CDLL(str(paths[name]))
         return paths
@@ -108,7 +115,7 @@ def function(lib: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     Every entry point returns its ``cudaError_t`` as an int."""
     key = (lib, symbol)
     if key not in _fns:
-        build_all()
+        build_all((lib,) if lib in ALONE else SOURCES)
         fn = getattr(_libs[lib], symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

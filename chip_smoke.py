@@ -64,15 +64,18 @@ which raises (exit code != 0) on failure:
    (``config.yaml``: Audio2Mesh, MFCC at 22 kHz, bf16, 15069-wide head)
    through FramePredictor (``max_batch`` 8, ``frame_batch`` 128) on 8 x 60 s
    of synthetic speech, wall time and frames/s, then the bf16 predictor
-   against its f32 run on 2 clips; (b) VOCA and Song2Face (``configs/``), 2 x 10 s
+   against its f32 run on 2 clips; the one-pass conv epilogue's launches in
+   that request (12 a chunk), and the epilogue at each block's shape at
+   1,024 rows against its plain version, bit for bit, timed beside its
+   bound and its plain version; (b) VOCA and Song2Face (``configs/``), 2 x 10 s
    each, against their f32 runs; (c) Audio2Mesh with the wav2vec2
    extractor, 2 x 10 s, which must launch the flash-attention kernel and
-   nothing else, and that kernel in f32 at the frame-window shape (B x 128,
+   no other ported TPU kernel, and that kernel in f32 at the frame-window shape (B x 128,
    12, 25, 64) against its plain version, timed beside its bound, its plain
    version and SDPA; (d) two Audio2Mesh training steps on 128 fragments
-   (bf16), the BatchNorm running variance moving, a ``save_checkpoint``
-   loaded by ``FramePredictor.from_checkpoint`` equal to the trainer's
-   ``predict``; (e) FaceFormer trainer checkpoints (vocaset and BIWI) into
+   (bf16, no conv-epilogue launch), the BatchNorm running variance moving,
+   a ``save_checkpoint`` loaded by ``FramePredictor.from_checkpoint`` equal
+   to the trainer's ``predict``; (e) FaceFormer trainer checkpoints (vocaset and BIWI) into
    ``FaceFormerPredictor.from_checkpoint`` (dataset detected) giving the
    same vertices as the predictor built from the same weights, through the
    forward kernels;
@@ -639,6 +642,52 @@ def frame_bf16_vs_f32(torch, cfg, predictor, audios, one_hot, template, label: s
     return check
 
 
+# Audio2Mesh's one-pass conv epilogues in order: (conv or None, BatchNorm or
+# None, (C, H, W) of the block's output, ReLU)
+A2M_EPILOGUES = [(f"analysis{i}", f"analysis{i}_bn", (c, 64, 16 >> i), True)
+                 for i, c in enumerate((72, 108, 162, 243, 256))] + [
+    (f"artic{i}", f"artic{i}_bn", (256, 32 >> i, 1), True) for i in range(3)] + [
+    (None, "artic3_pre_bn", (256, 8, 1), False), ("artic3", None, (256, 4, 1), True),
+    (None, "artic4_pre_bn", (256, 4, 1), False), ("artic4", None, (256, 1, 1), True)]
+
+
+def frame_epilogue_readings(torch, model, launches: int, smi: str) -> dict:
+    """The one-pass conv epilogue (``ops/frame_epilogue.py``) at each of
+    Audio2Mesh's blocks at the predictor's 1,024 rows (8 clips x 128 frames)
+    in bf16, with the model's biases and BatchNorm statistics: against its
+    plain version bit for bit, its time (CUDA events, out of place, the
+    input warm in L2 where it fits, as the conv leaves it) beside its bound
+    (each element read and written once at 3.35 TB/s) and the plain
+    version's time (the per-op composition it replaced)."""
+    from audio2face_tpu_torch.ops.frame_epilogue import frame_epilogue, frame_epilogue_reference
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    blocks, total = [], {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0}
+    for conv, bn, (c, h, w), relu in A2M_EPILOGUES:
+        x = torch.randn(1024, c, h, w, generator=g, device="cuda").to(torch.bfloat16)
+        bias = None if conv is None else getattr(model, conv).conv.bias.to(torch.bfloat16)
+        aff = None if bn is None else getattr(model, bn).eval_affine()
+        y = torch.empty_like(x)
+        got = frame_epilogue(x, bias, aff, relu)
+        want = frame_epilogue_reference(x, bias, aff, relu)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"frame_epilogue at {conv or bn}: differs from its plain version")
+        n_bytes = 2 * x.numel() * x.element_size() + c * (2 + 12)
+        row = {"block": conv or bn, "shape": [1024, c, h, w], "bias": conv is not None,
+               "bn": bn is not None, "relu": relu,
+               "ms": cuda_ms(torch, lambda: frame_epilogue(x, bias, aff, relu, out=y), 20),
+               "bound_ms": bound(n_bytes, 0.0)[0],
+               "plain_ms": cuda_ms(torch, lambda: frame_epilogue_reference(x, bias, aff, relu), 5)}
+        for k in total:
+            total[k] += row[k]
+        blocks.append(row)
+        del x, y, got, want
+    report = {"check": "frame_epilogue at Audio2Mesh's blocks, bf16, 1,024 rows: bit-equal",
+              "launches_in_request": launches, "blocks": blocks, "chunk": total, "card": smi}
+    print(json.dumps({"frame_epilogue": report}), flush=True)
+    return report
+
+
 def frame_model_phases(torch, rows, by_name, smi, pred, biwi_state, n_verts_biwi) -> None:
     """9a-9e: the default frame configuration's request, VOCA and Song2Face,
     the wav2vec2 extractor (K1 at the frame-window shape), two training
@@ -651,6 +700,7 @@ def frame_model_phases(torch, rows, by_name, smi, pred, biwi_state, n_verts_biwi
     from audio2face_tpu_torch.data.synthetic import synthesize_speech_like
     from audio2face_tpu_torch.ops import attention as attn_ops
     from audio2face_tpu_torch.ops import dsp
+    from audio2face_tpu_torch.ops.frame_epilogue import frame_epilogue
     from audio2face_tpu_torch.serving import FaceFormerPredictor, FramePredictor
     from audio2face_tpu_torch.training.trainer import Audio2FaceExperiment
 
@@ -679,10 +729,12 @@ def frame_model_phases(torch, rows, by_name, smi, pred, biwi_state, n_verts_biwi
     a2m([s_[:sr] for s_ in speech], one_hot, template)  # warm-up: the request's chunk shapes
     torch.cuda.synchronize()
     reset_counts(rows)
+    frame_epilogue.launches = 0
     tic = time.perf_counter()
     res = a2m(speech, one_hot, template)
     wall = time.perf_counter() - tic
     add_frame_launches()
+    epilogue_launches = frame_epilogue.launches
     frames = sum(y.shape[0] for y in res)
     for a, y in zip(speech, res):
         require(y.shape == (len(a) * 60 // sr, n_v // 3, 3) and bool(np.isfinite(y).all()),
@@ -697,6 +749,11 @@ def frame_model_phases(torch, rows, by_name, smi, pred, biwi_state, n_verts_biwi
     }}), flush=True)
     clips2 = [speech[0][: 10 * sr], speech[1][: int(7.5 * sr)]]
     frame_bf16_vs_f32(torch, cfg, a2m, clips2, one_hot[:2], template, "audio2mesh mfcc")
+    # one launch of the one-pass conv epilogue a block a chunk: 29 chunks of
+    # 128 of the 3,600 frames a clip
+    require(epilogue_launches == len(A2M_EPILOGUES) * 29,
+            f"the frame request launched the conv epilogue {epilogue_launches} times")
+    frame_epilogue_readings(torch, a2m.model, epilogue_launches, smi)
     del a2m, speech
     torch.cuda.empty_cache()
 
@@ -794,6 +851,7 @@ def frame_model_phases(torch, rows, by_name, smi, pred, biwi_state, n_verts_biwi
     bn = exp.model.artic4_pre_bn.bn
     var_before = bn.running_var.clone()
     reset_counts(rows)
+    frame_epilogue.launches = 0
     step_s, losses = [], []
     with torch.enable_grad():
         for _ in range(2):
@@ -804,7 +862,8 @@ def frame_model_phases(torch, rows, by_name, smi, pred, biwi_state, n_verts_biwi
             losses.append(float(metrics["loss"]))
     add_frame_launches()
     require(all(math.isfinite(x) for x in losses), f"frame training losses {losses}")
-    require(all(read_count(r) == 0 for r in rows), "the MFCC frame-model step launched a kernel")
+    require(all(read_count(r) == 0 for r in rows) and frame_epilogue.launches == 0,
+            "the MFCC frame-model step launched a kernel")
     var_change = float((bn.running_var - var_before).abs().max())
     require(var_change > 0, "BatchNorm running variance did not change in train mode")
     path = exp.save_checkpoint(epoch=0)
