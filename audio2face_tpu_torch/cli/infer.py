@@ -117,20 +117,11 @@ def main(argv=None) -> None:
             images_to_video(images, os.path.join(args.output, stem), fps=predictor.fps)
 
 
-def _resampled(audio: np.ndarray, sr: int, target: int, device) -> np.ndarray:
-    if sr == target:
-        return audio
-    import torch
-
-    from audio2face_tpu_torch.ops.dsp import resample
-
-    return resample(torch.as_tensor(audio, device=device), sr, target).cpu().numpy()
-
-
 def _stream_frames(predictor, audios, one_hot, template, sr):
     """Live frame-model path: each clip in 100 ms packets through a
     FrameStreamPool slot, with the compute latency per packet."""
     from audio2face_tpu_torch.frame_stream import FrameStreamPool
+    from audio2face_tpu_torch.serving import _resampled
 
     pool = FrameStreamPool(
         predictor.config, state_dict=predictor.model.state_dict(),
@@ -141,7 +132,7 @@ def _stream_frames(predictor, audios, one_hot, template, sr):
     model_sr = predictor.config.sample_rate
     feed = int(0.1 * model_sr)
     for clip_i, audio in enumerate(audios):
-        audio = _resampled(audio, sr, model_sr, predictor.device)
+        audio = _resampled([audio], sr, model_sr, predictor.device)[0]
         slot = pool.open_stream(one_hot[clip_i], template)
         outs, n_pk, lat = [], 0, 0.0
         for off in range(0, len(audio), feed):
@@ -165,6 +156,7 @@ def _stream(predictor, audios, one_hot, template, sr, args):
     import torch
 
     from audio2face_tpu_torch.models.faceformer import AUDIO_SR
+    from audio2face_tpu_torch.serving import _resampled
     from audio2face_tpu_torch.streaming import StreamingFaceFormerPredictor
 
     stream = StreamingFaceFormerPredictor(
@@ -178,7 +170,7 @@ def _stream(predictor, audios, one_hot, template, sr, args):
     results = []
     feed = int(0.1 * AUDIO_SR)  # simulated 100 ms microphone packets
     for clip_i, audio in enumerate(audios):
-        audio = _resampled(audio, sr, AUDIO_SR, predictor.device)
+        audio = _resampled([audio], sr, AUDIO_SR, predictor.device)[0]
         stream.start_stream(one_hot[clip_i], template)
         outs, n_chunks, lat = [], 0, 0.0
         for off in range(0, len(audio), feed):

@@ -27,8 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-FPS = 60
-FRAGMENT_SECONDS = 0.52
+from audio2face_tpu_torch.serving import FPS, FRAGMENT_SECONDS, FramePredictor
 
 
 class _FrameSlot:
@@ -92,8 +91,6 @@ class FrameStreamPool:
         mesh=None,
         device="cuda",
     ):
-        from audio2face_tpu_torch.serving import FramePredictor
-
         if mesh is not None:
             from audio2face_tpu_torch.parallel.mesh import DATA_AXIS, axis_size
 
@@ -124,7 +121,6 @@ class FrameStreamPool:
         self.n_onehot = config.one_hot_size
         self.n_streams = int(n_streams)
         self.fb = int(frame_batch)
-        self.unit_scale = float(unit_scale)
         self.n_pad = int(self.sr * FRAGMENT_SECONDS / 2)
         # fixed window covering fb frames at any offset (floor-div jitter + 1)
         self.span = (self.fb - 1) * self.sr // FPS + 2 * self.n_pad + 1
@@ -271,16 +267,14 @@ class FrameStreamPool:
                 f0: np.ndarray) -> torch.Tensor:
         """(S, fb, V, 3) f32 vertices in data units, on the device, of frames
         f0[i] .. f0[i] + fb - 1 of every slot i, from the slots' audio
-        ``windows`` (S, span) whose sample 0 is frame f0's window start."""
-        dev, fb, scale = self.device, self.fb, self.unit_scale
-        window = 2 * self.n_pad
+        ``windows`` (S, span) whose sample 0 is frame f0's window start:
+        each frame's window gathered here, then ``FramePredictor``'s frame
+        step."""
+        base, dev, fb = self._base, self.device, self.fb
+        window = base.window
         windows = torch.as_tensor(windows, device=dev)
         s = windows.shape[0]
         rel = window_offsets(torch.as_tensor(f0, device=dev), fb, self.sr)  # (S, fb)
         gather = rel[..., None] + torch.arange(window, device=dev)[None, None, :]
         frags = torch.gather(windows, 1, gather.reshape(s, fb * window)).reshape(s * fb, window)
-        feats = self._base.extractor(frags)
-        oh = torch.as_tensor(one_hot, device=dev).repeat_interleave(fb, dim=0)
-        tmpl = (torch.as_tensor(template, device=dev) * scale).repeat_interleave(fb, dim=0)
-        out = self._base.model(feats, oh, tmpl, train=False)
-        return out.reshape(s, fb, -1, 3) / scale
+        return base.frame_vertices(frags, *base.style_rows(one_hot, template))

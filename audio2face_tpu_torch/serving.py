@@ -1,15 +1,15 @@
 """Inference/serving API: bucketed, batched prediction.
 
 Port of ``audio2face_tpu/serving.py``: ``FaceFormerPredictor`` and, for the
-frame models (Audio2Mesh, VOCA, Song2Face), ``FramePredictor``.
-``FaceFormerPredictor``:
+frame models (Audio2Mesh, VOCA, Song2Face), ``FramePredictor``, over one
+request loop (``_BucketedPredictor``):
 
 - clips are sorted by length and grouped up to ``max_batch``; each group is
   padded to an audio bucket (seconds rounded up to a grid) and to a batch
-  size on the power-of-two grid, with per-item ``lengths`` masking inside
-  the model (exact: the fps adapter and group norm are length-aware);
-- the vertex head runs per time chunk of at most 512 MB of output, so
-  device memory stays bounded whatever the clip length;
+  size on the power-of-two grid; FaceFormer masks by per-item ``lengths``
+  inside the model (exact: the fps adapter and group norm are length-aware);
+- FaceFormer's vertex head runs per time chunk of at most 512 MB of output,
+  so device memory stays bounded whatever the clip length;
 - outputs are in data units: checkpoints are trained with the x100 vertex
   convention, so the predictor feeds ``template * 100`` and returns
   ``output / 100`` (``unit_scale``).
@@ -133,24 +133,22 @@ def _serving_device(device, mesh, what: str) -> torch.device:
     return mesh_device(mesh, device, what)
 
 
-def _warmup_predictor(predictor, max_seconds: float, batches: Optional[Sequence[int]],
-                      sample_rate: int) -> int:
-    """Run every (batch, bucket) shape a deployment will hit once on zero
-    audio: builds the kernels and warms the library kernels' caches before
-    live traffic. ``batches=None`` covers the full batch grid. Returns the
-    number of warm calls made."""
-    if batches is None:
-        batches = _batch_grid(predictor.max_batch, _n_data(predictor.mesh))
-    bucket = predictor.bucket_samples
-    n_buckets = max(1, -(-int(max_seconds * sample_rate) // bucket))
-    template = np.zeros((predictor.n_verts // 3, 3), np.float32)
-    calls = 0
-    for b in batches:
-        for k in range(1, n_buckets + 1):
-            audios = [np.zeros(k * bucket, np.float32)] * b
-            predictor(audios, np.zeros((b, predictor.n_onehot), np.float32), template)
-            calls += 1
-    return calls
+def load_model(make, variables: Optional[dict], state_dict: Optional[dict], convert,
+               seed: int, device: torch.device) -> torch.nn.Module:
+    """The model ``make(state_dict)`` builds, in eval mode on ``device``,
+    with its weights from ``variables`` (the JAX model's, as numpy arrays,
+    through ``convert``), from ``state_dict`` (the port's), or, given
+    neither, a random init from ``seed``; ``make`` gets None then."""
+    if variables is not None and state_dict is not None:
+        raise ValueError("pass variables= or state_dict=, not both")
+    if variables is not None:
+        state_dict = convert(variables)
+    model = make(state_dict)
+    if state_dict is None:
+        model.init_parameters(torch.Generator().manual_seed(seed))
+    else:
+        model.load_state_dict(state_dict)
+    return model.eval().to(device)
 
 
 def _resampled(audios, sample_rate: int, target: int, device) -> list:
@@ -235,7 +233,86 @@ class _CopyOut:
         return [r.numpy() for r in results]
 
 
-class FaceFormerPredictor:
+class _BucketedPredictor:
+    """The offline request loop of both predictors: the clips sorted by
+    length and cut into groups of ``max_batch``, each group padded to its
+    audio bucket and to the batch grid (``_pad_group``) and run by the
+    predictor's ``_run_group``, every result copied out by one
+    ``_CopyOut``. A predictor sets ``device``, ``mesh``, ``sample_rate``,
+    ``max_batch``, ``bucket_samples``, ``n_verts``, ``n_onehot`` and
+    ``fps``."""
+
+    def __call__(
+        self,
+        audios: Sequence[np.ndarray],
+        one_hot: np.ndarray,
+        template: np.ndarray,
+        sample_rate: Optional[int] = None,
+    ) -> list[np.ndarray]:
+        """Decode a batch of clips.
+
+        audios: 1-D float waveforms (any lengths) at ``sample_rate`` (default:
+        the predictor's own rate; other rates are resampled); one_hot: (N,
+        n_onehot); template: (N, V, 3) or (V, 3) shared. Returns per-clip
+        (T_i, V, 3) vertex animations at ``self.fps`` in data units."""
+        n = len(audios)
+        if one_hot.shape[0] != n:
+            raise ValueError(f"one_hot batch {one_hot.shape[0]} != {n} clips")
+        if template.ndim == 2:
+            template = np.broadcast_to(template[None], (n, *template.shape))
+        with spans.span("predict"):
+            if sample_rate is not None:
+                audios = _resampled(audios, sample_rate, self.sample_rate, self.device)
+            copy_out = _CopyOut(self.device)
+            results: list[Optional[torch.Tensor]] = [None] * n
+            order = sorted(range(n), key=lambda i: len(audios[i]))
+            for lo in range(0, n, self.max_batch):
+                idx = order[lo : lo + self.max_batch]
+                self._run_group([audios[i] for i in idx], idx, one_hot, template, results,
+                                copy_out)
+            return copy_out.finish(results)
+
+    def _pad_group(self, group: Sequence[np.ndarray], one_hot: np.ndarray,
+                   template: np.ndarray) -> tuple:
+        """A group's host inputs: the clips zero-padded to their audio bucket
+        and every row to the batch grid's size ``b_pad``: audio (b_pad,
+        samples) f32, lengths (b_pad,) int64, one_hot (b_pad, n) and
+        template (b_pad, V, 3) f32 from the group's rows."""
+        b = len(group)
+        samples = _round_up(max(max(len(a) for a in group), self.bucket_samples),
+                            self.bucket_samples)
+        b_pad = _pad_batch(b, self.max_batch, _n_data(self.mesh))
+        audio = np.zeros((b_pad, samples), np.float32)
+        # dummy rows (batch-grid and mesh padding) get a short valid length:
+        # 800 samples decode 3 FaceFormer frames each (BIWI: 1), discarded
+        lengths = np.full((b_pad,), min(800, samples), np.int64)
+        for j, a in enumerate(group):
+            audio[j, : len(a)] = a
+            lengths[j] = len(a)
+        oh = np.zeros((b_pad, one_hot.shape[1]), np.float32)
+        tmpl = np.zeros((b_pad,) + template.shape[1:], np.float32)
+        oh[:b] = one_hot
+        tmpl[:b] = template
+        return audio, lengths, oh, tmpl
+
+    def warmup(self, max_seconds: float = 60.0, *, batches: Optional[Sequence[int]] = None) -> int:
+        """Run every (batch, bucket) shape a deployment will hit once on zero
+        audio: builds the kernels and warms the library kernels' caches
+        before live traffic. ``batches=None`` covers the full batch grid.
+        Returns the number of warm calls made."""
+        if batches is None:
+            batches = _batch_grid(self.max_batch, _n_data(self.mesh))
+        bucket = self.bucket_samples
+        n_buckets = max(1, -(-int(max_seconds * self.sample_rate) // bucket))
+        template = np.zeros((self.n_verts // 3, 3), np.float32)
+        for b in batches:
+            for k in range(1, n_buckets + 1):
+                audios = [np.zeros(k * bucket, np.float32)] * b
+                self(audios, np.zeros((b, self.n_onehot), np.float32), template)
+        return len(batches) * n_buckets
+
+
+class FaceFormerPredictor(_BucketedPredictor):
     """Batched speech -> vertex-animation inference for FaceFormer."""
 
     # device-memory budget for one (B, chunk, V, 3) f32 vertex-head output
@@ -269,8 +346,6 @@ class FaceFormerPredictor:
         down to a multiple of it); ``sp_mesh``: each clip's encoder stack
         time-sharded over its ``data`` axis; the two exclude each other.
         On a mesh the first rank's weights serve on every rank."""
-        if variables is not None and state_dict is not None:
-            raise ValueError("pass variables= or state_dict=, not both")
         if mesh is not None and sp_mesh is not None:
             raise ValueError(
                 "mesh= (data-parallel clip batches) and sp_mesh= "
@@ -282,39 +357,40 @@ class FaceFormerPredictor:
         # animation clock of the returned (T, V, 3) tracks: VOCASET animates
         # at 60 fps, BIWI at 25
         self.fps = 25 if dataset == "biwi" else 60
+        self.sample_rate = AUDIO_SR
         self.n_onehot = n_onehot
         self.n_verts = n_verts
         self.max_batch = max_batch if mesh is None else _fit_max_batch(max_batch, _n_data(mesh))
         self.unit_scale = float(unit_scale)
         self.bucket_samples = int(bucket_seconds * AUDIO_SR)
         self.use_kernels = use_kernels
-        if variables is not None:
-            state_dict = faceformer_state_dict_from_jax(variables["params"])
-        self.model = FaceFormer(
-            n_verts=n_verts, n_onehot=n_onehot,
-            dtype=torch.bfloat16 if bf16 else None,
-            # BIWI animates at 25 fps; the upstream FaceFormer uses the frame
-            # rate as the PPE/ALiBi period (matches the trainer's model)
-            **({"dataset": "biwi", "period": 25} if dataset == "biwi" else {}),
-            **({} if state_dict is None
-               else {"feature_dim": state_dict["audio_feature_map.weight"].shape[0]}),
-        )
-        if state_dict is not None:
-            # BIWI weights served as vocaset would run frames at the wrong
-            # clock and replace the trained 2-way softmax with the diagonal
-            # cross attention, so the mismatch is an error either way
-            has_cross = "cross_q.weight" in state_dict
-            if has_cross != (dataset == "biwi"):
-                want = "biwi" if has_cross else "vocaset"
-                raise ValueError(
-                    f"the weights are a dataset={want!r} FaceFormer (cross_q/cross_k "
-                    f"{'present' if has_cross else 'absent'}) but the predictor was "
-                    f"built with dataset={dataset!r}: pass dataset={want!r}"
-                )
-            self.model.load_state_dict(state_dict)
-        else:
-            self.model.init_parameters(torch.Generator().manual_seed(seed))
-        self.model.eval().to(self.device)
+
+        def make(state_dict):
+            if state_dict is not None:
+                # BIWI weights served as vocaset would run frames at the wrong
+                # clock and replace the trained 2-way softmax with the diagonal
+                # cross attention, so the mismatch is an error either way
+                has_cross = "cross_q.weight" in state_dict
+                if has_cross != (dataset == "biwi"):
+                    want = "biwi" if has_cross else "vocaset"
+                    raise ValueError(
+                        f"the weights are a dataset={want!r} FaceFormer (cross_q/cross_k "
+                        f"{'present' if has_cross else 'absent'}) but the predictor was "
+                        f"built with dataset={dataset!r}: pass dataset={want!r}"
+                    )
+            return FaceFormer(
+                n_verts=n_verts, n_onehot=n_onehot,
+                dtype=torch.bfloat16 if bf16 else None,
+                # BIWI animates at 25 fps; the upstream FaceFormer uses the frame
+                # rate as the PPE/ALiBi period (matches the trainer's model)
+                **({"dataset": "biwi", "period": 25} if dataset == "biwi" else {}),
+                **({} if state_dict is None
+                   else {"feature_dim": state_dict["audio_feature_map.weight"].shape[0]}),
+            )
+
+        self.model = load_model(make, variables, state_dict,
+                                lambda v: faceformer_state_dict_from_jax(v["params"]), seed,
+                                self.device)
         if mesh is not None or sp_mesh is not None:
             from audio2face_tpu_torch.parallel.mesh import replicate
 
@@ -401,68 +477,24 @@ class FaceFormerPredictor:
             copy_out.send(out, lo - start, lo, dsts, frames)
             del out  # its block is reused once its copies are done
 
-    def __call__(
-        self,
-        audios: Sequence[np.ndarray],
-        one_hot: np.ndarray,
-        template: np.ndarray,
-        sample_rate: int = AUDIO_SR,
-    ) -> list[np.ndarray]:
-        """Decode a batch of clips.
-
-        audios: list of 1-D float waveforms (any lengths); one_hot: (N, 12);
-        template: (N, V, 3) or (V, 3) shared. Returns per-clip (T_i, V, 3)
-        vertex animations at ``self.fps`` (60; BIWI 25)."""
-        n = len(audios)
-        if one_hot.shape[0] != n:
-            raise ValueError(f"one_hot batch {one_hot.shape[0]} != {n} clips")
-        if template.ndim == 2:
-            template = np.broadcast_to(template[None], (n, *template.shape))
-
-        with spans.span("predict"):
-            audios = _resampled(audios, sample_rate, AUDIO_SR, self.device)
-            copy_out = _CopyOut(self.device)
-            results: list[Optional[torch.Tensor]] = [None] * n
-            order = sorted(range(n), key=lambda i: len(audios[i]))
-            for lo in range(0, n, self.max_batch):
-                idx = order[lo : lo + self.max_batch]
-                group = [audios[i] for i in idx]
-                b = len(group)
-                dev = self.device
-                with spans.span("predict.upload"):
-                    max_len = max(len(a) for a in group)
-                    samples = _round_up(max(max_len, self.bucket_samples), self.bucket_samples)
-                    b_pad = _pad_batch(b, self.max_batch, _n_data(self.mesh))
-                    audio_pad = np.zeros((b_pad, samples), np.float32)
-                    # dummy rows (batch-grid and mesh padding) get a short valid
-                    # length: 800 samples decode 3 frames each (BIWI: 1), discarded below
-                    lengths = np.full((b_pad,), min(800, samples), np.int64)
-                    oh = np.zeros((b_pad, one_hot.shape[1]), np.float32)
-                    tmpl = np.zeros((b_pad,) + template.shape[1:], np.float32)
-                    for j, a in enumerate(group):
-                        audio_pad[j, : len(a)] = a
-                        lengths[j] = len(a)
-                    oh[:b] = one_hot[idx]
-                    tmpl[:b] = template[idx].astype(np.float32)
-                    inputs = [torch.as_tensor(x, device=dev) for x in (audio_pad, oh, lengths)]
-                with spans.span("predict.model"):
-                    hs, mask = self._hidden_fn(*inputs)
-                del inputs  # freed before the vertex head runs
-                with spans.span("predict.sync"):
-                    # the host waits here for the model's device work
-                    n_valid = mask.sum(dim=1).cpu().numpy().astype(int)
-                spans.count("frames_valid", int(n_valid[:b].sum()))
-                spans.count("frames_computed", b_pad * hs.shape[1])
-                with spans.span("predict.upload"):
-                    tmpl_d = torch.as_tensor(tmpl, device=dev)
-                self._emit_vertices(hs, tmpl_d, idx, n_valid, results, copy_out)
-                del tmpl_d  # freed before the next group's model call
-            return copy_out.finish(results)
-
-    def warmup(self, max_seconds: float = 60.0, *, batches: Optional[Sequence[int]] = None) -> int:
-        """Run every (batch, bucket) shape a deployment will hit once on zero
-        audio (``_warmup_predictor``). Returns the number of warm calls."""
-        return _warmup_predictor(self, max_seconds, batches, AUDIO_SR)
+    def _run_group(self, group, idx, one_hot, template, results, copy_out) -> None:
+        """One group of clips (rows ``idx`` of the request): the model call
+        to hidden states, the valid frame counts, and the vertex head into
+        the clips' results."""
+        with spans.span("predict.upload"):
+            audio, lengths, oh, tmpl = self._pad_group(group, one_hot[idx], template[idx])
+            inputs = [torch.as_tensor(x, device=self.device) for x in (audio, oh, lengths)]
+        with spans.span("predict.model"):
+            hs, mask = self._hidden_fn(*inputs)
+        del inputs  # freed before the vertex head runs
+        with spans.span("predict.sync"):
+            # the host waits here for the model's device work
+            n_valid = mask.sum(dim=1).cpu().numpy().astype(int)
+        spans.count("frames_valid", int(n_valid[: len(group)].sum()))
+        spans.count("frames_computed", len(audio) * hs.shape[1])
+        with spans.span("predict.upload"):
+            tmpl_d = torch.as_tensor(tmpl, device=self.device)
+        self._emit_vertices(hs, tmpl_d, idx, n_valid, results, copy_out)
 
     def realtime_factor(self, seconds: float = 60.0, batch: Optional[int] = None) -> float:
         """Measured decode throughput in multiples of real time (one warm
@@ -485,7 +517,7 @@ FPS = 60
 FRAGMENT_SECONDS = 0.52
 
 
-class FramePredictor:
+class FramePredictor(_BucketedPredictor):
     """Batched speech -> per-frame vertex inference for the frame models
     (audio2mesh, voca, song2face: every registry model except faceformer).
 
@@ -526,8 +558,6 @@ class FramePredictor:
 
         if config.modelname == "faceformer":
             raise ValueError("use FaceFormerPredictor for faceformer")
-        if variables is not None and state_dict is not None:
-            raise ValueError("pass variables= or state_dict=, not both")
         self.mesh = mesh
         self.device = _serving_device(device, mesh, "FramePredictor")
         self.config = config
@@ -543,15 +573,11 @@ class FramePredictor:
         self.window = 2 * self.n_pad
 
         dtype = torch.bfloat16 if config.bf16_compute else None
-        self.model = get_model(config.modelname)(
-            n_verts=config.vertex_count, n_onehot=config.one_hot_size, dtype=dtype)
-        if variables is not None:
-            state_dict = frame_model_state_dict_from_jax(config.modelname, variables)
-        if state_dict is not None:
-            self.model.load_state_dict(state_dict)
-        else:
-            self.model.init_parameters(torch.Generator().manual_seed(seed))
-        self.model.eval().to(self.device)
+        self.model = load_model(
+            lambda _: get_model(config.modelname)(
+                n_verts=config.vertex_count, n_onehot=config.one_hot_size, dtype=dtype),
+            variables, state_dict,
+            lambda v: frame_model_state_dict_from_jax(config.modelname, v), seed, self.device)
         self.extractor = get_extractor(config.feature_extractor)(
             sample_rate=config.sample_rate, n_feature=config.n_feature, out_dim=config.out_dim,
             win_length=config.win_length, hop_length=config.hop_length, n_fft=1024,
@@ -595,84 +621,58 @@ class FramePredictor:
         clip, (B, frame_batch, V, 3) f32 in data units, on the device.
 
         ``padded``: (B, n_pad + samples + window) clips with ``n_pad`` zeros
-        before and a window of zeros after; ``one_hot``: (B * frame_batch,
-        n); ``template``: (B * frame_batch, V, 3), already scaled by
-        ``unit_scale``."""
+        before and a window of zeros after; ``one_hot``, ``template``: the
+        clips' ``style_rows``."""
         b = padded.shape[0]
         fb = self.frame_batch
         f = frame0 + torch.arange(fb, device=padded.device)
         starts = fragment_starts(f, self.fps, self.sample_rate)
         idx = starts[:, None] + torch.arange(self.window, device=padded.device)[None, :]
         frags = padded[:, idx.clamp(max=padded.shape[1] - 1)].reshape(b * fb, self.window)
-        feats = self.extractor(frags)
-        out = self.model(feats, one_hot, template, train=False)
-        return out.reshape(b, fb, -1, 3) / self.unit_scale
+        return self.frame_vertices(frags, one_hot, template)
+
+    @torch.inference_mode()
+    def frame_vertices(self, frags: torch.Tensor, one_hot: torch.Tensor,
+                       template: torch.Tensor) -> torch.Tensor:
+        """The frame step: (B * frame_batch, window) audio fragments, each
+        clip's ``frame_batch`` rows together, to (B, frame_batch, V, 3) f32
+        vertices in data units (features, the model in eval, the unit
+        division). ``one_hot``, ``template``: the clips' ``style_rows``."""
+        out = self.model(self.extractor(frags), one_hot, template, train=False)
+        return out.reshape(-1, self.frame_batch, self.n_verts // 3, 3) / self.unit_scale
+
+    def style_rows(self, one_hot, template) -> tuple:
+        """(B, n) one-hots and (B, V, 3) templates, on the host or the device,
+        as the frame step's (B * frame_batch, ...) rows on the device, the
+        templates scaled by ``unit_scale``."""
+        dev, fb = self.device, self.frame_batch
+        oh = torch.as_tensor(one_hot, device=dev).repeat_interleave(fb, dim=0)
+        tmpl = (torch.as_tensor(template, device=dev) * self.unit_scale).repeat_interleave(fb, dim=0)
+        return oh, tmpl
 
     def prepare(self, group: Sequence[np.ndarray], one_hot: np.ndarray,
                 template: np.ndarray) -> tuple:
         """One group's device inputs: the clips padded to their audio bucket
-        and the batch grid, uploaded once, plus the one-hot and scaled
-        template rows of ``forward_chunk``."""
-        b = len(group)
-        samples = _round_up(max(max(len(a) for a in group), self.bucket_samples),
-                            self.bucket_samples)
-        b_pad = _pad_batch(b, self.max_batch, _n_data(self.mesh))
-        audio = np.zeros((b_pad, samples), np.float32)
-        for j, a in enumerate(group):
-            audio[j, : len(a)] = a
-        oh = np.zeros((b_pad, one_hot.shape[1]), np.float32)
-        tmpl = np.zeros((b_pad,) + template.shape[1:], np.float32)
-        oh[:b] = one_hot
-        tmpl[:b] = template
-        dev, fb = self.device, self.frame_batch
-        padded = F.pad(torch.as_tensor(audio, device=dev), (self.n_pad, self.window))
-        oh_rows = torch.as_tensor(oh, device=dev).repeat_interleave(fb, dim=0)
-        tmpl_rows = (torch.as_tensor(tmpl, device=dev) * self.unit_scale).repeat_interleave(fb, dim=0)
-        return padded, oh_rows, tmpl_rows
+        and the batch grid (``_pad_group``), uploaded once, and their
+        ``style_rows``: ``forward_chunk``'s arguments but the frame."""
+        audio, _, oh, tmpl = self._pad_group(group, one_hot, template)
+        padded = F.pad(torch.as_tensor(audio, device=self.device), (self.n_pad, self.window))
+        return (padded, *self.style_rows(oh, tmpl))
 
-    def warmup(self, max_seconds: float = 60.0, *, batches: Optional[Sequence[int]] = None) -> int:
-        """Run every (batch, bucket) shape once (``_warmup_predictor``).
-        Returns the number of warm calls."""
-        return _warmup_predictor(self, max_seconds, batches, self.sample_rate)
-
-    def __call__(
-        self,
-        audios: Sequence[np.ndarray],
-        one_hot: np.ndarray,
-        template: np.ndarray,
-        sample_rate: Optional[int] = None,
-    ) -> list[np.ndarray]:
-        """Decode a batch of clips to per-frame vertices.
-
-        audios: 1-D float waveforms (any lengths) at ``sample_rate`` (default:
-        the config's rate; other rates are resampled); one_hot: (N,
-        one_hot_size); template: (N, V, 3) or (V, 3) shared. Returns per-clip
-        (T_i, V, 3) vertex animations at 60 fps in data units."""
-        n = len(audios)
-        if one_hot.shape[0] != n:
-            raise ValueError(f"one_hot batch {one_hot.shape[0]} != {n} clips")
-        if template.ndim == 2:
-            template = np.broadcast_to(template[None], (n, *template.shape))
-        with spans.span("predict"):
-            if sample_rate is not None:
-                audios = _resampled(audios, sample_rate, self.sample_rate, self.device)
-            copy_out = _CopyOut(self.device)
-            results: list[Optional[torch.Tensor]] = [None] * n
-            order = sorted(range(n), key=lambda i: len(audios[i]))
-            for lo in range(0, n, self.max_batch):
-                idx = order[lo : lo + self.max_batch]
-                group = [audios[i] for i in idx]
-                n_frames = [len(a) * self.fps // self.sample_rate for a in group]
-                dsts = copy_out.results(n_frames, self.n_verts)
-                for j, i in enumerate(idx):
-                    results[i] = dsts[j]
-                with spans.span("predict.upload"):
-                    inputs = self.prepare(group, one_hot[idx], template[idx].astype(np.float32))
-                spans.count("frames_valid", sum(n_frames))
-                for f0 in range(0, max(n_frames), self.frame_batch):
-                    with spans.span("predict.model"):
-                        out = self._chunk_fn(*inputs, f0)
-                    spans.count("frames_computed", out.shape[0] * out.shape[1])
-                    copy_out.send(out, 0, f0, dsts, n_frames)
-                    del out  # its block is reused once its copies are done
-            return copy_out.finish(results)
+    def _run_group(self, group, idx, one_hot, template, results, copy_out) -> None:
+        """One group of clips (rows ``idx`` of the request): its results,
+        its device inputs, then each chunk of ``frame_batch`` frames through
+        ``_chunk_fn`` and its valid rows into the results."""
+        n_frames = [len(a) * self.fps // self.sample_rate for a in group]
+        dsts = copy_out.results(n_frames, self.n_verts)
+        for j, i in enumerate(idx):
+            results[i] = dsts[j]
+        with spans.span("predict.upload"):
+            inputs = self.prepare(group, one_hot[idx], template[idx])
+        spans.count("frames_valid", sum(n_frames))
+        for f0 in range(0, max(n_frames), self.frame_batch):
+            with spans.span("predict.model"):
+                out = self._chunk_fn(*inputs, f0)
+            spans.count("frames_computed", out.shape[0] * out.shape[1])
+            copy_out.send(out, 0, f0, dsts, n_frames)
+            del out  # its block is reused once its copies are done

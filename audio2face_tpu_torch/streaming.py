@@ -48,6 +48,7 @@ from audio2face_tpu_torch.models.faceformer import (
     FaceFormer,
     frame_count,
 )
+from audio2face_tpu_torch.serving import load_model
 from audio2face_tpu_torch.utils.device import resolve_device
 
 # frame-exact granularity: 800 samples == 3 frames (800 * 60 / 16000)
@@ -67,30 +68,30 @@ def _ceil_grain(n: int) -> int:
     return ((n + GRAIN - 1) // GRAIN) * GRAIN
 
 
+def _live_state_dict(variables: dict) -> dict:
+    """The port's state dict of JAX FaceFormer variables; BIWI's are refused."""
+    if "cross_q_kernel" in variables["params"]:
+        raise ValueError(_BIWI_MESSAGE)
+    return faceformer_state_dict_from_jax(variables["params"])
+
+
 def load_live_faceformer(
     variables: Optional[dict], state_dict: Optional[dict], n_verts: int, n_onehot: int,
     dtype: Optional[torch.dtype], seed: int, device: torch.device,
 ) -> FaceFormer:
     """The vocaset FaceFormer of a live predictor, in eval mode on ``device``:
     weights from the JAX variables (numpy ``{"params": ...}``), a port state
-    dict, or a random init from ``seed``. BIWI weights are refused, and so
-    is a decoder of another width than 64."""
-    if variables is not None and state_dict is not None:
-        raise ValueError("pass variables= or state_dict=, not both")
-    if variables is not None:
-        if "cross_q_kernel" in variables["params"]:
-            raise ValueError(_BIWI_MESSAGE)
-        state_dict = faceformer_state_dict_from_jax(variables["params"])
-    if state_dict is not None and "cross_q.weight" in state_dict:
-        raise ValueError(_BIWI_MESSAGE)
-    if state_dict is not None:
-        check_live_width(state_dict["audio_feature_map.weight"].shape[0])
-    model = FaceFormer(n_verts=n_verts, n_onehot=n_onehot, dtype=dtype)
-    if state_dict is not None:
-        model.load_state_dict(state_dict)
-    else:
-        model.init_parameters(torch.Generator().manual_seed(seed))
-    return model.eval().to(device)
+    dict, or a random init from ``seed`` (``serving.load_model``). BIWI
+    weights are refused, and so is a decoder of another width than 64."""
+
+    def make(state_dict):
+        if state_dict is not None:
+            if "cross_q.weight" in state_dict:
+                raise ValueError(_BIWI_MESSAGE)
+            check_live_width(state_dict["audio_feature_map.weight"].shape[0])
+        return FaceFormer(n_verts=n_verts, n_onehot=n_onehot, dtype=dtype)
+
+    return load_model(make, variables, state_dict, _live_state_dict, seed, device)
 
 
 @torch.inference_mode()

@@ -130,6 +130,26 @@ def test_streaming_server_fronts_frame_pool(stack):
     np.testing.assert_allclose(np.concatenate(got), want, atol=1e-6, rtol=0)
 
 
+def test_pool_forward_is_the_predictors_frame_step(stack):
+    """The pool's batched forward is ``FramePredictor``'s frame step on the
+    windows cut on the host at each frame's exact start: bit-equal."""
+    _, pool, _ = stack
+    rng = np.random.default_rng(8)
+    windows = (rng.normal(size=(pool.n_streams, pool.span)) * 0.1).astype(np.float32)
+    one_hot = np.eye(12, dtype=np.float32)[: pool.n_streams]
+    template = (rng.normal(size=(pool.n_streams, N_VERTS // 3, 3)) * 0.01).astype(np.float32)
+    f0 = np.asarray([0, 23, 1001], np.int64)
+    window = 2 * pool.n_pad
+    frags = np.stack([windows[i, s : s + window] for i in range(pool.n_streams)
+                      for s in ((f0[i] + j) * SR // FPS - f0[i] * SR // FPS
+                                for j in range(pool.fb))])
+    base = pool._base
+    want = base.frame_vertices(torch.as_tensor(frags), *base.style_rows(one_hot, template))
+    got = pool.forward(windows, one_hot, template, f0)
+    assert got.shape == (pool.n_streams, pool.fb, N_VERTS // 3, 3)
+    assert got.numpy().tobytes() == want.numpy().tobytes()
+
+
 def test_window_gather_depends_only_on_f0_mod_fps(stack):
     """The gather's offsets are exact in int64 and a function of f0 % 60 only:
     equal windows at f0 and f0 + k * 60 (past the int32 wrap of f0 * sr)

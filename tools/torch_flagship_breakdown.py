@@ -1,28 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time of the port's flagship request, or of one training step,
-goes on one GPU.
+"""Where the time of one full-width training step, or of one render, goes
+on one GPU. The serving requests are split by the benchmark's traced cells
+(``benchmark/run.py --trace 1``, ``benchmark/program_trace.py``) and the
+predictors' own spans (``utils/spans.py``).
 
-``python3 tools/torch_flagship_breakdown.py`` (no argument) serves 8 clips x 60 s through the full-width bf16 FaceFormerPredictor of
-audio2face_tpu_torch (random weights from a seed), then:
-
-1. times one request on the host clock, split into the model call that
-   returns decoder hidden states (``_hidden``) and the chunked vertex head
-   with its device-to-host copies (``_emit_vertices``), each ending in
-   ``torch.cuda.synchronize()``;
-2. traces one more request with ``torch.profiler`` and sums device time by
-   kernel, grouped into the port's kernels, the library calls around them
-   and the copies; the device's idle share is 1 - (device busy time / wall
-   time), with and without the copies counted as busy.
-
-Prints the profiler's table of the 25 kernels with the most device time,
-then, last, one JSON line ``{"breakdown": {...}}``.
-
-``python3 tools/torch_flagship_breakdown.py biwi`` does the same for the
-BIWI request: 8 clips x 30 s through ``FaceFormerPredictor(dataset="biwi")``
-with its 70110-wide vertex head, ``{"breakdown": {...}}`` last.
-
-``python3 tools/torch_flagship_breakdown.py train`` does the same for one
-full-width training step: it builds the port's ``Audio2FaceExperiment``
+``python3 tools/torch_flagship_breakdown.py train`` splits one full-width
+training step: it builds the port's ``Audio2FaceExperiment``
 (same model, bf16 compute, random weights from a seed) and a batch of 8
 clips x 10 s with mixed lengths and synthetic vertices, then
 
@@ -119,83 +102,6 @@ def profile_table(prof, rows: int = 25) -> str:
         return prof.key_averages().table(sort_by="self_device_time_total", row_limit=rows)
     except (KeyError, AttributeError, ValueError):  # older profilers name it cuda
         return prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=rows)
-
-
-def main(biwi: bool = False) -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("torch_flagship_breakdown: CUDA is not available", file=sys.stderr)
-        return 1
-    from audio2face_tpu_torch.serving import FaceFormerPredictor
-
-    card = card_line()
-    # the flagship: vocaset, 8 x 60 s; BIWI: 70110-wide head, 8 x 30 s at 25 fps
-    n_verts, seconds, fps = (70110, 30, 25) if biwi else (15069, 60, 60)
-    pred = FaceFormerPredictor(n_verts=n_verts, bf16=True, max_batch=8, bucket_seconds=5.0, seed=0,
-                               dataset="biwi" if biwi else "vocaset")
-    g = torch.Generator().manual_seed(1)
-    with torch.no_grad():
-        for lin in (pred.model.vertice_map, pred.model.vertice_map_r):
-            lin.weight.copy_(torch.randn(lin.weight.shape, generator=g) * 0.02)
-            lin.bias.copy_(torch.randn(lin.bias.shape, generator=g) * 0.02)
-    rng = np.random.default_rng(0)
-    audios = [(rng.normal(size=16000 * seconds) * 0.1).astype(np.float32) for _ in range(8)]
-    one_hot = np.eye(12, dtype=np.float32)[rng.integers(0, 12, 8)]
-    template = rng.normal(size=(n_verts // 3, 3)).astype(np.float32)
-    pred(audios, one_hot, template)  # builds the kernels, warms the libraries
-
-    spans: dict[str, float] = {}
-
-    def timed(name, fn):
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            tic = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            spans[name] = spans.get(name, 0.0) + time.perf_counter() - tic
-            return out
-        return wrapper
-
-    pred._hidden = timed("hidden_states_s", pred._hidden)
-    pred._emit_vertices = timed("vertex_head_and_copy_out_s", pred._emit_vertices)
-    torch.cuda.synchronize()
-    tic = time.perf_counter()
-    pred(audios, one_hot, template)
-    wall = time.perf_counter() - tic
-    frames = 8 * seconds * fps
-    del pred._hidden, pred._emit_vertices  # the class's own methods again
-
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        tic = time.perf_counter()
-        pred(audios, one_hot, template)
-        torch.cuda.synchronize()
-        traced_wall = time.perf_counter() - tic
-    by_group, busy_us = device_ms_by_group(prof)
-    copy_us = 1e3 * by_group.get("copies", 0.0)
-    print(profile_table(prof))
-
-    result = {
-        "card": card,
-        "request": f"8 clips x {seconds} s, bf16, {n_verts}-wide vertex head"
-                   + (", BIWI" if biwi else ""),
-        "wall_s": wall,
-        "mesh_frames_per_s": frames / wall,
-        "realtime_factor": 8 * seconds / wall,
-        **spans,
-        "host_other_s": wall - sum(spans.values()),
-        "traced_wall_s": traced_wall,
-        "device_busy_ms": busy_us / 1e3 if busy_us else None,
-        "device_idle_share": (1.0 - busy_us / 1e6 / traced_wall) if busy_us else None,
-        "device_kernel_ms": (busy_us - copy_us) / 1e3 if busy_us else None,
-        "kernel_idle_share": (1.0 - (busy_us - copy_us) / 1e6 / traced_wall) if busy_us else None,
-        "device_ms_by_group": by_group,
-    }
-    print(json.dumps({"breakdown": result}))
-    return 0
 
 
 def train_main() -> int:
@@ -324,6 +230,8 @@ def train_main() -> int:
     }
     print(json.dumps({"train_breakdown": result}))
     return 0
+
+
 def render_main() -> int:
     import torch
 
@@ -428,8 +336,7 @@ def render_main() -> int:
 
 
 if __name__ == "__main__":
-    modes = {(): main, ("biwi",): lambda: main(biwi=True), ("train",): train_main,
-             ("render",): render_main}
+    modes = {("train",): train_main, ("render",): render_main}
     if tuple(sys.argv[1:]) not in modes:
-        sys.exit("usage: torch_flagship_breakdown.py [biwi|train|render]")
+        sys.exit("usage: torch_flagship_breakdown.py train|render")
     sys.exit(modes[tuple(sys.argv[1:])]())
