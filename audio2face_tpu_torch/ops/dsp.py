@@ -6,15 +6,19 @@ Port of ``audio2face_tpu/ops/dsp.py``. ``mfcc`` follows
 reflect pad, periodic Hann window of ``win_length`` zero-padded centred to
 ``n_fft``) -> power -> HTK mel filterbank (128 mels, 0 to sr/2, no norm) ->
 power to dB -> orthonormal DCT-II. The DFT is ``torch.fft.rfft`` on strided
-views of the padded signal. The window, filterbank and DCT basis are numpy
-constants built in float64 on the host, as the JAX package builds them, and
-copied to each device once (``device_constant``).
+views of the padded signal. The window, filterbank and DCT basis, and the
+linear interpolation's gather indices and weights, are numpy constants built
+in float64 on the host, as the JAX package builds them, and copied to each
+device once (``device_constant``): after the first call with a shape, no
+call copies from the host, so none waits for the device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
@@ -113,23 +117,64 @@ def _stft_window(win_length: int, n_fft: int) -> np.ndarray:
     return window
 
 
+def _interp_weights(in_size: int, out_size: int, align_corners: bool):
+    """Gather indices and weights for 1-D linear interp: ``lo``, ``hi``
+    (int64) and ``w_hi`` (f32), from source coordinates in host float64, as
+    the JAX package computes them."""
+    if out_size == 1:
+        src = np.zeros(1)
+    elif align_corners:
+        src = np.arange(out_size) * (in_size - 1) / (out_size - 1)
+    else:
+        src = (np.arange(out_size) + 0.5) * in_size / out_size - 0.5
+    src = np.clip(src, 0.0, in_size - 1)
+    lo = np.floor(src).astype(np.int64)
+    hi = np.minimum(lo + 1, in_size - 1)
+    w_hi = (src - lo).astype(np.float32)
+    return lo, hi, w_hi
+
+
 _CONSTANTS = {
     "stft_window": _stft_window,
     "mel_filterbank": mel_filterbank,
     "dct_matrix": dct_matrix,
+    "interp_weights": _interp_weights,
 }
+_held: Optional[list] = None  # see held_constants
 
 
 @functools.lru_cache(maxsize=64)
-def _device_constant(name: str, args: tuple, device: str) -> torch.Tensor:
-    return torch.as_tensor(_CONSTANTS[name](*args), device=device)
+def _device_constant(name: str, args: tuple, device: str):
+    host = _CONSTANTS[name](*args)
+    # ordinary tensors even when first asked for in inference mode: a
+    # training step may differentiate through them later
+    with torch.inference_mode(False):
+        if isinstance(host, tuple):
+            return tuple(torch.as_tensor(a, device=device) for a in host)
+        return torch.as_tensor(host, device=device)
 
 
-def device_constant(name: str, *args, device) -> torch.Tensor:
-    """The numpy constant ``name(*args)`` (``stft_window``, ``mel_filterbank``
-    or ``dct_matrix``) as a tensor on ``device``, built and copied once per
-    (arguments, device)."""
-    return _device_constant(name, tuple(args), str(torch.device(device)))
+def device_constant(name: str, *args, device):
+    """The numpy constant ``name(*args)`` (``stft_window``, ``mel_filterbank``,
+    ``dct_matrix``, or ``interp_weights``'s tuple) as a tensor, or a tuple of
+    them, on ``device``, built and copied once per (arguments, device)."""
+    value = _device_constant(name, tuple(args), str(torch.device(device)))
+    if _held is not None:
+        _held.append(value)
+    return value
+
+
+@contextlib.contextmanager
+def held_constants() -> Iterator[list]:
+    """Collects every device constant handed out inside the block. A CUDA
+    graph captured there reads them by address, so its owner keeps the list:
+    a constant the cache evicts later then stays allocated."""
+    global _held
+    outer, _held = _held, []
+    try:
+        yield _held
+    finally:
+        _held = outer
 
 
 # ---------------------------------------------------------------------------
@@ -242,34 +287,20 @@ def mfcc(
 # ---------------------------------------------------------------------------
 
 
-def _interp_weights(in_size: int, out_size: int, align_corners: bool):
-    """Source coordinates + gather indices/weights for 1-D linear interp
-    (host float64, as the JAX package computes them)."""
-    if out_size == 1:
-        src = np.zeros(1)
-    elif align_corners:
-        src = np.arange(out_size) * (in_size - 1) / (out_size - 1)
-    else:
-        src = (np.arange(out_size) + 0.5) * in_size / out_size - 0.5
-    src = np.clip(src, 0.0, in_size - 1)
-    lo = np.floor(src).astype(np.int64)
-    hi = np.minimum(lo + 1, in_size - 1)
-    w_hi = (src - lo).astype(np.float32)
-    return lo, hi, w_hi
-
-
 def interp_linear(x: torch.Tensor, out_size: int, *, axis: int, align_corners: bool) -> torch.Tensor:
-    """Linear interpolation along ``axis`` to ``out_size``."""
+    """Linear interpolation along ``axis`` to ``out_size``; the indices and
+    weights are ``device_constant``s."""
     axis = axis % x.dim()
     in_size = x.shape[axis]
     if in_size == out_size and align_corners:
         return x
-    lo, hi, w_hi = _interp_weights(in_size, out_size, align_corners)
-    x_lo = x.index_select(axis, torch.as_tensor(lo, device=x.device))
-    x_hi = x.index_select(axis, torch.as_tensor(hi, device=x.device))
+    lo, hi, w_hi = device_constant("interp_weights", in_size, int(out_size), bool(align_corners),
+                                   device=x.device)
+    x_lo = x.index_select(axis, lo)
+    x_hi = x.index_select(axis, hi)
     shape = [1] * x.dim()
     shape[axis] = out_size
-    w = torch.as_tensor(w_hi, device=x.device).reshape(shape)
+    w = w_hi.reshape(shape)
     return x_lo * (1.0 - w) + x_hi * w
 
 

@@ -27,7 +27,8 @@ the valid frame counts), ``predict.head`` (FaceFormer's vertex head),
 them) and ``predict.unpack`` (the results' allocation), and counts
 ``frames_valid``, ``frames_computed``, ``vertex_bytes_copied``,
 ``vertex_bytes_returned``, ``vertex_bytes_pinned`` and
-``host_alloc_misses``.
+``host_alloc_misses``; ``FramePredictor`` also counts
+``frame_graph_captures`` and ``frame_graph_replays`` (``_FrameGraph``).
 
 Both run on the card unless ``device="cpu"`` is asked for. Weights come
 from a reference PyTorch/Lightning checkpoint (``from_torch_checkpoint``),
@@ -63,6 +64,7 @@ from audio2face_tpu_torch.compat.jax_params import (
     frame_model_state_dict_from_jax,
 )
 from audio2face_tpu_torch.models.faceformer import AUDIO_SR, FaceFormer
+from audio2face_tpu_torch.ops import dsp
 from audio2face_tpu_torch.ops.dsp import fragment_starts, resample
 from audio2face_tpu_torch.utils import spans
 from audio2face_tpu_torch.utils.device import resolve_device
@@ -517,6 +519,41 @@ FPS = 60
 FRAGMENT_SECONDS = 0.52
 
 
+class _FrameGraph:
+    """A frame model's eval forward at one features shape, captured as a
+    CUDA graph: a call copies the features, the one-hot rows and the
+    template rows into the graph's static inputs and replays the graph,
+    which writes the model's (rows, V, 3) f32 vertices into its static
+    output.
+
+    The capture follows an eager forward at the same shape, so cuDNN and
+    cuBLAS have chosen their algorithms. Kernel wrappers count the launches
+    they record into the capture (``frame_epilogue.launches``,
+    ``conv_epilogues_fused``) and nothing at a replay; a replay counts
+    itself in ``frame_graph_replays``. The graph reads the model's weights
+    and the device constants it was handed (``dsp.held_constants``, kept
+    here) by address."""
+
+    def __init__(self, model: torch.nn.Module, feats: torch.Tensor, one_hot: torch.Tensor,
+                 template: torch.Tensor):
+        self.inputs = (feats.clone(), one_hot.clone(), template.clone())
+        self.graph = torch.cuda.CUDAGraph()
+        with dsp.held_constants() as self.constants, torch.cuda.graph(
+                self.graph, capture_error_mode="thread_local"):
+            self.out = model(*self.inputs, train=False)
+        spans.count("frame_graph_captures", 1)
+
+    def __call__(self, feats: torch.Tensor, one_hot: torch.Tensor,
+                 template: torch.Tensor) -> torch.Tensor:
+        """The model's vertices of these rows: the static output, which the
+        next call overwrites."""
+        for static, x in zip(self.inputs, (feats, one_hot, template)):
+            static.copy_(x)
+        self.graph.replay()
+        spans.count("frame_graph_replays", 1)
+        return self.out
+
+
 class FramePredictor(_BucketedPredictor):
     """Batched speech -> per-frame vertex inference for the frame models
     (audio2mesh, voca, song2face: every registry model except faceformer).
@@ -531,7 +568,14 @@ class FramePredictor(_BucketedPredictor):
       ``bucket_seconds`` grid, batches padded to the power-of-two grid;
     - units: checkpoints train against x100 vertices, so templates feed
       ``* 100`` and outputs return ``/ 100`` (``unit_scale``);
-    - each chunk is copied to the host as it is done.
+    - each chunk is copied to the host as it is done;
+    - on the card, off a mesh, ``warmup`` captures the model's forward at
+      each row count it runs as a CUDA graph (``_FrameGraph``), and every
+      later offline chunk of that row count replays it: the features and
+      the unit division stay eager around the replay, and the chunk's
+      constants are on the device, so the host never waits inside a chunk.
+      A predictor that was not warmed (the live pool's), a mesh and every
+      other row count run eagerly.
 
     Weights: ``variables`` (the JAX model's ``{"params", "batch_stats"}``
     as numpy arrays), ``state_dict`` (the port's), or a random init from
@@ -582,6 +626,8 @@ class FramePredictor(_BucketedPredictor):
             sample_rate=config.sample_rate, n_feature=config.n_feature, out_dim=config.out_dim,
             win_length=config.win_length, hop_length=config.hop_length, n_fft=1024,
         ).to(self.device)
+        self._graphs: dict = {}  # {features' shape: _FrameGraph}
+        self._capture = False  # set by warmup: a new shape's chunk captures
         self._chunk_fn = self.forward_chunk
         if mesh is not None:
             from audio2face_tpu_torch.parallel.mesh import DATA_AXIS, replicate, shard_map_data
@@ -622,7 +668,8 @@ class FramePredictor(_BucketedPredictor):
 
         ``padded``: (B, n_pad + samples + window) clips with ``n_pad`` zeros
         before and a window of zeros after; ``one_hot``, ``template``: the
-        clips' ``style_rows``."""
+        clips' ``style_rows``. Off a mesh, the model runs as a replay where
+        ``warmup`` captured a graph (``frame_vertices``)."""
         b = padded.shape[0]
         fb = self.frame_batch
         f = frame0 + torch.arange(fb, device=padded.device)
@@ -637,9 +684,32 @@ class FramePredictor(_BucketedPredictor):
         """The frame step: (B * frame_batch, window) audio fragments, each
         clip's ``frame_batch`` rows together, to (B, frame_batch, V, 3) f32
         vertices in data units (features, the model in eval, the unit
-        division). ``one_hot``, ``template``: the clips' ``style_rows``."""
-        out = self.model(self.extractor(frags), one_hot, template, train=False)
+        division). ``one_hot``, ``template``: the clips' ``style_rows``.
+
+        The model replays the graph that ``warmup`` captured at the
+        features' shape, if any; inside ``warmup`` on the card, off a mesh,
+        a shape with none runs eagerly and then captures one. The unit
+        division makes each answer a new tensor, so a replay never
+        overwrites one that is still being copied out."""
+        feats = self.extractor(frags)
+        graph = self._graphs.get(feats.shape)
+        if graph is not None:
+            out = graph(feats, one_hot, template)
+        else:
+            out = self.model(feats, one_hot, template, train=False)
+            if self._capture and feats.is_cuda:
+                self._graphs[feats.shape] = _FrameGraph(self.model, feats, one_hot, template)
         return out.reshape(-1, self.frame_batch, self.n_verts // 3, 3) / self.unit_scale
+
+    def warmup(self, max_seconds: float = 60.0, *, batches: Optional[Sequence[int]] = None) -> int:
+        """``_BucketedPredictor.warmup``; on the card, off a mesh, the first
+        chunk of each row count also captures its ``_FrameGraph``. Only
+        warmup captures, so no request pays for a capture."""
+        self._capture = self.mesh is None
+        try:
+            return super().warmup(max_seconds, batches=batches)
+        finally:
+            self._capture = False
 
     def style_rows(self, one_hot, template) -> tuple:
         """(B, n) one-hots and (B, V, 3) templates, on the host or the device,

@@ -63,11 +63,14 @@ which raises (exit code != 0) on failure:
 9. the frame models and checkpoint I/O: (a) the default configuration
    (``config.yaml``: Audio2Mesh, MFCC at 22 kHz, bf16, 15069-wide head)
    through FramePredictor (``max_batch`` 8, ``frame_batch`` 128) on 8 x 60 s
-   of synthetic speech, wall time and frames/s, then the bf16 predictor
-   against its f32 run on 2 clips; the one-pass conv epilogue's launches in
-   that request (12 a chunk), and the epilogue at each block's shape at
-   1,024 rows against its plain version, bit for bit, timed beside its
-   bound and its plain version; (b) VOCA and Song2Face (``configs/``), 2 x 10 s
+   of synthetic speech after ``warmup``, so each chunk is a CUDA graph
+   replay (29 of them, no capture), wall time and frames/s; the request
+   bit-equal to an eager predictor's, then the bf16 predictor replayed
+   against its f32 run on 8 clips; the one-pass conv epilogue's launches in
+   that request by the profiler (12 a chunk, none counted by the wrapper),
+   and the epilogue at each block's shape at 1,024 rows against its plain
+   version, bit for bit, timed beside its bound and its plain version;
+   (b) VOCA and Song2Face (``configs/``), 2 x 10 s
    each, against their f32 runs; (c) Audio2Mesh with the wav2vec2
    extractor, 2 x 10 s, which must launch the flash-attention kernel and
    no other ported TPU kernel, and that kernel in f32 at the frame-window shape (B x 128,
@@ -703,6 +706,9 @@ def frame_model_phases(torch, rows, by_name, smi, pred, biwi_state, n_verts_biwi
     from audio2face_tpu_torch.ops.frame_epilogue import frame_epilogue
     from audio2face_tpu_torch.serving import FaceFormerPredictor, FramePredictor
     from audio2face_tpu_torch.training.trainer import Audio2FaceExperiment
+    from audio2face_tpu_torch.utils import spans
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda")
     for r in rows:
@@ -726,33 +732,57 @@ def frame_model_phases(torch, rows, by_name, smi, pred, biwi_state, n_verts_biwi
     template = (rng.normal(size=(n_v // 3, 3)) * 0.1).astype(np.float32)
     one_hot = np.eye(12, dtype=np.float32)[rng.integers(0, 12, 8)]
     a2m = FramePredictor(cfg, max_batch=8, frame_batch=128, seed=0)
-    a2m([s_[:sr] for s_ in speech], one_hot, template)  # warm-up: the request's chunk shapes
+    eager = FramePredictor(cfg, max_batch=8, frame_batch=128, state_dict=a2m.model.state_dict())
+    eager([s_[:sr] for s_ in speech], one_hot, template)  # warm-up: the request's chunk shapes
+    with spans.recording() as warm:
+        a2m.warmup(60.0, batches=[8])  # captures the chunk's graph at 8 x 128 rows
+    require(warm.counters.get("frame_graph_captures") == 1,
+            f"warmup captured {warm.counters.get('frame_graph_captures')} frame graphs, not 1")
     torch.cuda.synchronize()
     reset_counts(rows)
     frame_epilogue.launches = 0
     tic = time.perf_counter()
-    res = a2m(speech, one_hot, template)
+    with spans.recording() as rec:
+        res = a2m(speech, one_hot, template)
     wall = time.perf_counter() - tic
     add_frame_launches()
-    epilogue_launches = frame_epilogue.launches
+    replays, wrapper_launches = rec.counters.get("frame_graph_replays", 0), frame_epilogue.launches
     frames = sum(y.shape[0] for y in res)
     for a, y in zip(speech, res):
         require(y.shape == (len(a) * 60 // sr, n_v // 3, 3) and bool(np.isfinite(y).all()),
                 f"frame request: shape {y.shape} or not finite")
     require(frames == 28800, f"frame request: {frames} frames")
-    del res
+    # one replay a chunk: 29 chunks of 128 of the 3,600 frames a clip; no
+    # capture, and the wrapper counts no launch at a replay
+    require(replays == 29 and not rec.counters.get("frame_graph_captures") and wrapper_launches == 0,
+            f"frame request: {replays} replays, {rec.counters.get('frame_graph_captures')} captures, "
+            f"{wrapper_launches} epilogue launches counted by the wrapper")
+    want = eager(speech, one_hot, template)
+    require(all(a.tobytes() == b.tobytes() for a, b in zip(res, want)),
+            "the replayed frame request differs from the eager one")
+    del res, want, eager
+    # the epilogue's launches in the replayed request, by the profiler
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        a2m(speech, one_hot, template)
+        torch.cuda.synchronize()
+    epilogue_launches = sum(1 for e in prof.events() if getattr(e, "device_type", None) == DeviceType.CUDA
+                            and "frame_epilogue_kernel" in e.name)
+    del prof
     print(json.dumps({"frame_request": {
         "model": "audio2mesh", "extractor": "mfcc", "clips": 8, "seconds_each": 60, "frames": frames,
         "max_batch": 8, "frame_batch": 128, "wall_s": wall, "mesh_frames_per_s": frames / wall,
         "realtime_factor": 8 * 60.0 / wall,
         "output_bytes": frames * n_v * 4, "card": smi,
     }}), flush=True)
-    clips2 = [speech[0][: 10 * sr], speech[1][: int(7.5 * sr)]]
-    frame_bf16_vs_f32(torch, cfg, a2m, clips2, one_hot[:2], template, "audio2mesh mfcc")
+    clips8 = [s_[: int((10 - i / 2) * sr)] for i, s_ in enumerate(speech)]
+    with spans.recording() as rec:
+        frame_bf16_vs_f32(torch, cfg, a2m, clips8, one_hot, template, "audio2mesh mfcc, replayed")
+    require(rec.counters.get("frame_graph_replays", 0) == 5, "the bf16 side of 8 x 10 s did not replay")
     # one launch of the one-pass conv epilogue a block a chunk: 29 chunks of
     # 128 of the 3,600 frames a clip
     require(epilogue_launches == len(A2M_EPILOGUES) * 29,
-            f"the frame request launched the conv epilogue {epilogue_launches} times")
+            f"the replayed frame request ran the conv epilogue {epilogue_launches} times")
     frame_epilogue_readings(torch, a2m.model, epilogue_launches, smi)
     del a2m, speech
     torch.cuda.empty_cache()

@@ -114,6 +114,86 @@ def test_interp_bilinear_matches_jax(shape, out, align_corners):
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
+def _interp_uncached(x, out_size, axis, align_corners):
+    """``interp_linear`` as it computed before its constants were cached:
+    the host's indices and weights copied to the device on every call."""
+    axis = axis % x.dim()
+    in_size = x.shape[axis]
+    if in_size == out_size and align_corners:
+        return x
+    lo, hi, w_hi = dsp._interp_weights(in_size, out_size, align_corners)
+    x_lo = x.index_select(axis, torch.as_tensor(lo, device=x.device))
+    x_hi = x.index_select(axis, torch.as_tensor(hi, device=x.device))
+    shape = [1] * x.dim()
+    shape[axis] = out_size
+    w = torch.as_tensor(w_hi, device=x.device).reshape(shape)
+    return x_lo * (1.0 - w) + x_hi * w
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_cached_interp_is_bit_equal_to_the_uncached_formula(align_corners):
+    """On the golden MFCC images (resized as the Audio2Mesh and VOCA
+    extractors resize them) and on other shapes, axes and sizes."""
+    goldens = np.load(os.path.join(os.path.dirname(__file__), "fixtures", "mfcc_goldens.npz"))
+    images = [(goldens["audio2mesh"], (52, 32)), (goldens["voca"], (29, 16)),
+              (_wave(11, (2, 768, 25)), (52, 32)), (_wave(12, (1, 5, 7)), (9, 3)),
+              (_wave(13, (3, 4, 4)), (1, 1))]
+    for image, (out_h, out_w) in images:
+        x = torch.tensor(np.swapaxes(image, -1, -2).astype(np.float32))
+        want = _interp_uncached(_interp_uncached(x, out_h, -2, align_corners), out_w, -1,
+                                align_corners)
+        got = dsp.interp_bilinear(x, out_h, out_w, align_corners=align_corners)
+        assert got.numpy().tobytes() == want.numpy().tobytes()
+    x = torch.tensor(_wave(14, (2, 256, 256)))
+    for axis, out in ((2, 32), (1, 60), (0, 5), (-1, 256)):
+        want = _interp_uncached(x, out, axis, align_corners)
+        got = dsp.interp_linear(x, out, axis=axis, align_corners=align_corners)
+        assert got.numpy().tobytes() == want.numpy().tobytes()
+
+
+def test_interp_constants_are_copied_once(monkeypatch):
+    """A repeated size reuses the cached index and weight tensors: one host
+    build and copy, then none."""
+    built = []
+    real = dsp._CONSTANTS["interp_weights"]
+    monkeypatch.setitem(dsp._CONSTANTS, "interp_weights",
+                        lambda *args: built.append(args) or real(*args))
+    dsp._device_constant.cache_clear()
+    x = torch.tensor(_wave(15, (4, 53, 32)))
+    first = dsp.interp_bilinear(x, 52, 32)
+    consts = dsp.device_constant("interp_weights", 53, 52, False, device="cpu")
+    for _ in range(3):
+        assert dsp.interp_bilinear(x, 52, 32).numpy().tobytes() == first.numpy().tobytes()
+    again = dsp.device_constant("interp_weights", 53, 52, False, device="cpu")
+    assert [a.data_ptr() for a in again] == [a.data_ptr() for a in consts]
+    # 53 -> 52 and 32 -> 32, each built once over four calls
+    assert built == [(53, 52, False), (32, 32, False)]
+    assert dsp._device_constant.cache_info().misses == 2
+
+
+def test_constants_first_made_in_inference_mode_serve_autograd():
+    """A serving call (inference mode) makes the constants; a training
+    step then differentiates through them."""
+    dsp._device_constant.cache_clear()
+    x = _wave(17, (2, 256, 256))
+    with torch.inference_mode():
+        dsp.interp_linear(torch.tensor(x), 32, axis=2, align_corners=False)
+    leaf = torch.tensor(x, requires_grad=True)
+    dsp.interp_linear(leaf, 32, axis=2, align_corners=False).sum().backward()
+    assert leaf.grad is not None and torch.isfinite(leaf.grad).all()
+
+
+def test_held_constants_collects_what_a_capture_reads():
+    x = torch.tensor(_wave(16, (2, 256, 256)))
+    outside = dsp.device_constant("interp_weights", 256, 32, False, device="cpu")
+    with dsp.held_constants() as held:
+        dsp.interp_linear(x, 32, axis=2, align_corners=False)
+    assert len(held) == 1 and all(a is b for a, b in zip(held[0], outside))
+    assert dsp._held is None
+    dsp.interp_linear(x, 32, axis=2, align_corners=False)
+    assert len(held) == 1
+
+
 def test_batched_audio_fragments_matches_jax():
     audio = _wave(7, (22000,))
     idx = np.asarray([0, 1, 17, 59, 60], np.int32)
