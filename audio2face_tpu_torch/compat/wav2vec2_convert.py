@@ -8,6 +8,14 @@ inference. Names follow HF ``Wav2Vec2Model``; keys may carry a
 ``wav2vec2.`` or ``audio_encoder.`` prefix, which the caller strips
 (``strip_prefix``). Outbound (``export_wav2vec2``): the exact inverse, with
 the positional conv re-parameterized into torch's weight-norm form.
+
+HF ``WavLMModel`` names convert too: a LayerNorm after every conv
+(``feature_extractor.conv_layers.{i}.layer_norm``, to the port's
+``feature_encoder.layer_norms.{i}``), each layer's gate
+(``attention.gru_rel_pos_linear``, ``attention.gru_rel_pos_const`` of shape
+(1, heads, 1, 1), to (heads,)) and layer 0's relative-position table
+(``attention.rel_attn_embed``, to the encoder's ``rel_attn_embed``, which
+every layer shares). The layer count is the weights' own.
 """
 
 from __future__ import annotations
@@ -38,8 +46,17 @@ def _pos_conv_weight(sd: Mapping) -> torch.Tensor:
     return (g.double() * v.double() / norm.clamp(min=1e-12)).float()
 
 
-def convert_wav2vec2(sd: Mapping, num_layers: int = 12) -> dict[str, torch.Tensor]:
-    """HF Wav2Vec2Model state dict -> the port's Wav2Vec2Encoder state dict."""
+def _count(sd: Mapping, pattern: str) -> int:
+    """How many i make ``pattern.format(i)`` a key of ``sd``, counting from 0."""
+    n = 0
+    while pattern.format(n) in sd:
+        n += 1
+    return n
+
+
+def convert_wav2vec2(sd: Mapping) -> dict[str, torch.Tensor]:
+    """HF Wav2Vec2Model (or WavLMModel) state dict -> the port's
+    Wav2Vec2Encoder state dict."""
     out: dict = {}
 
     def put(dst: str, src: str, bias: bool = True) -> None:
@@ -47,25 +64,33 @@ def convert_wav2vec2(sd: Mapping, num_layers: int = 12) -> dict[str, torch.Tenso
         if bias:
             out[f"{dst}.bias"] = _t(sd[f"{src}.bias"])
 
-    n_convs = sum(1 for k in sd if k.startswith("feature_extractor.conv_layers")
-                  and k.endswith("conv.weight"))
+    n_convs = _count(sd, "feature_extractor.conv_layers.{}.conv.weight")
     for i in range(n_convs):
         src = f"feature_extractor.conv_layers.{i}.conv"
         put(f"feature_encoder.conv_layers.{i}", src, bias=f"{src}.bias" in sd)
-    put("feature_encoder.group_norm", "feature_extractor.conv_layers.0.layer_norm")
+    if "feature_extractor.conv_layers.1.layer_norm.weight" in sd:  # a norm after every conv
+        for i in range(n_convs):
+            put(f"feature_encoder.layer_norms.{i}", f"feature_extractor.conv_layers.{i}.layer_norm")
+    else:
+        put("feature_encoder.group_norm", "feature_extractor.conv_layers.0.layer_norm")
     put("feature_projection.layer_norm", "feature_projection.layer_norm")
     put("feature_projection.projection", "feature_projection.projection")
     out["pos_conv_embed.conv.weight"] = _pos_conv_weight(sd)
     out["pos_conv_embed.conv.bias"] = _t(sd["encoder.pos_conv_embed.conv.bias"])
     put("layer_norm", "encoder.layer_norm")
-    for i in range(num_layers):
+    for i in range(_count(sd, "encoder.layers.{}.attention.q_proj.weight")):
         p = f"encoder.layers.{i}"
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             put(f"layers.{i}.{name}", f"{p}.attention.{name}")
+        if f"{p}.attention.gru_rel_pos_linear.weight" in sd:
+            put(f"layers.{i}.gru_rel_pos_linear", f"{p}.attention.gru_rel_pos_linear")
+            out[f"layers.{i}.gru_rel_pos_const"] = _t(sd[f"{p}.attention.gru_rel_pos_const"]).reshape(-1)
         put(f"layers.{i}.layer_norm", f"{p}.layer_norm")
         for name in ("intermediate_dense", "output_dense"):
             put(f"layers.{i}.{name}", f"{p}.feed_forward.{name}")
         put(f"layers.{i}.final_layer_norm", f"{p}.final_layer_norm")
+    if "encoder.layers.0.attention.rel_attn_embed.weight" in sd:
+        out["rel_attn_embed.weight"] = _t(sd["encoder.layers.0.attention.rel_attn_embed.weight"])
     if "masked_spec_embed" in sd:
         out["masked_spec_embed"] = _t(sd["masked_spec_embed"])
     else:
@@ -87,8 +112,9 @@ def _np32(x) -> np.ndarray:
 
 
 def export_wav2vec2(sd: Mapping) -> dict[str, np.ndarray]:
-    """The port's Wav2Vec2Encoder state dict -> HF ``Wav2Vec2Model`` state
-    dict (numpy f32), every layer ``sd`` holds.
+    """The port's Wav2Vec2Encoder state dict -> HF ``Wav2Vec2Model`` (or,
+    with WavLM's weights, ``WavLMModel``) state dict (numpy f32), every
+    layer ``sd`` holds.
 
     The exact inverse of :func:`convert_wav2vec2`: the positional conv kernel
     is re-parameterized into torch's ``parametrizations.weight.original{0,1}``
@@ -103,11 +129,13 @@ def export_wav2vec2(sd: Mapping) -> dict[str, np.ndarray]:
         if f"{src}.bias" in sd:
             out[f"{dst}.bias"] = _np32(sd[f"{src}.bias"])
 
-    i = 0
-    while f"feature_encoder.conv_layers.{i}.weight" in sd:
+    n_convs = _count(sd, "feature_encoder.conv_layers.{}.weight")
+    for i in range(n_convs):
         put(f"feature_extractor.conv_layers.{i}.conv", f"feature_encoder.conv_layers.{i}")
-        i += 1
-    put("feature_extractor.conv_layers.0.layer_norm", "feature_encoder.group_norm")
+        if "feature_encoder.layer_norms.0.weight" in sd:
+            put(f"feature_extractor.conv_layers.{i}.layer_norm", f"feature_encoder.layer_norms.{i}")
+    if "feature_encoder.group_norm.weight" in sd:
+        put("feature_extractor.conv_layers.0.layer_norm", "feature_encoder.group_norm")
     put("feature_projection.layer_norm", "feature_projection.layer_norm")
     put("feature_projection.projection", "feature_projection.projection")
 
@@ -131,14 +159,19 @@ def export_wav2vec2(sd: Mapping) -> dict[str, np.ndarray]:
     out[f"{base}.bias"] = _np32(sd["pos_conv_embed.conv.bias"])
 
     put("encoder.layer_norm", "layer_norm")
-    num_layers = sum(1 for k in sd if k.startswith("layers.") and k.endswith(".q_proj.weight"))
-    for i in range(num_layers):
+    for i in range(_count(sd, "layers.{}.q_proj.weight")):
         p = f"encoder.layers.{i}"
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             put(f"{p}.attention.{name}", f"layers.{i}.{name}")
+        if f"layers.{i}.gru_rel_pos_linear.weight" in sd:
+            put(f"{p}.attention.gru_rel_pos_linear", f"layers.{i}.gru_rel_pos_linear")
+            out[f"{p}.attention.gru_rel_pos_const"] = _np32(
+                sd[f"layers.{i}.gru_rel_pos_const"]).reshape(1, -1, 1, 1)
         for name in ("intermediate_dense", "output_dense"):
             put(f"{p}.feed_forward.{name}", f"layers.{i}.{name}")
         put(f"{p}.layer_norm", f"layers.{i}.layer_norm")
         put(f"{p}.final_layer_norm", f"layers.{i}.final_layer_norm")
+    if "rel_attn_embed.weight" in sd:
+        out["encoder.layers.0.attention.rel_attn_embed.weight"] = _np32(sd["rel_attn_embed.weight"])
     out["masked_spec_embed"] = _np32(sd["masked_spec_embed"])
     return out

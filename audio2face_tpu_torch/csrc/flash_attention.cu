@@ -33,6 +33,20 @@
 // this tile's P V, so that its softmax runs while the tensor cores work. No
 // score or accumulator tile touches shared memory.
 //
+// WavLM's gated relative-position bias (flash_fwd_wgmma_kernel<D, true>,
+// a2f_flash_attention_fwd_relpos; no TPU counterpart): each scaled score
+// gains gate[b, h, row] * tab[h, clamp(col - row, -R, R) + R] before the
+// max, in log2 units, so no (T, T) bias exists. The head's 2R + 1 entries
+// (6.2 KB at R = 778) sit in shared memory behind the K/V ring, loaded once
+// a block before the first barrier; a thread's two rows' gates sit in
+// registers. Per tile a thread's 32 scores span 18 distinct key - query
+// offsets (its second row is its first shifted by one column block), so it
+// reads 18 table entries, conflict-free (a warp's offsets are consecutive
+// words), and adds each with one FMA. What bounds it: the bias adds about
+// a third to the softmax's per-score instructions, which at D = 64 already
+// take as long as the products. The unbiased instantiation compiles as
+// before (the bias is a template parameter).
+//
 // f32 (the wav2vec2 frame windows, f32 models and the gradient checks):
 // CUDA-core FMAs, so that f32 keeps f32 accuracy, on two paths chosen by
 // t_k: flash_fwd_f32_short_kernel for t_k <= 64 (persistent blocks, whole
@@ -92,13 +106,47 @@ struct SoftmaxArgs {
   float keep_scale;
 };
 
+// WavLM's bias for one thread: the head's table in shared memory at its
+// centre (tab[o] is the bias at key - query = o, |o| <= radius) and the
+// gates of rows r0 and r0 + 8 times log2 e
+struct RelArgs {
+  const float* tab;
+  float gate2[2];
+  int radius;
+};
+
+template <bool REL>
 __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m_run)[2], float (&l_run)[2],
-                                             float (&alpha)[2], int k0, const SoftmaxArgs& a) {
+                                             float (&alpha)[2], int k0, const SoftmaxArgs& a,
+                                             const RelArgs& rel) {
   // per-element work (bias, mask) only where it is needed: the bias when
   // there is one, the mask on tiles that straddle the KV length or the diagonal
   const bool edge = k0 + BK > a.kvlen || (a.causal && k0 + BK - 1 > a.wg_row0);
   float ce = a.c;
-  if (!a.fused || edge) {
+  if constexpr (REL) {
+    // score i = 4 j + 2 h + e (column block j, row r0 + 8 h, column e of
+    // the pair) sits at key - query = o0 + 8 (j - h) + e: the entry at
+    // o0 + 8 (m - 1) + e serves row r0 in block m - 1 and row r0 + 8 in m
+    const int o0 = k0 + a.cq - a.r0;
+#pragma unroll
+    for (int m = 0; m <= BK / 8; ++m) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float t = rel.tab[min(max(o0 + 8 * (m - 1) + e, -rel.radius), rel.radius)];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = m - 1 + h;
+          if (j < 0 || j >= BK / 8) continue;
+          const int i = 4 * j + 2 * h + e;
+          const int row = a.r0 + 8 * h, col = k0 + 8 * j + a.cq + e;
+          float x = fmaf(rel.gate2[h], t, s[i] * a.c);
+          if (edge) x = (col < a.kvlen && (!a.causal || col <= row)) ? x : MASK2;
+          s[i] = x;
+        }
+      }
+    }
+    ce = 1.f;
+  } else if (!a.fused || edge) {
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
       const int row = a.r0 + 8 * ((i >> 1) & 1), col = k0 + 8 * (i >> 2) + a.cq + (i & 1);
@@ -144,14 +192,16 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m_run)[
   }
 }
 
-template <int D>
+template <int D, bool REL>
 __global__ void __launch_bounds__(WgmmaFwd<D>::NT, 1)
 flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                        float* __restrict__ lse, const int* __restrict__ kv_len,
                        const float* __restrict__ slopes, int heads, int t_q, int t_k,
                        int causal, int period, float sm_scale, const int* __restrict__ seed,
-                       uint32_t drop_thr, float keep_scale, HashIndex hix) {
+                       uint32_t drop_thr, float keep_scale, HashIndex hix,
+                       const float* __restrict__ rel_tab, const float* __restrict__ rel_gate,
+                       int rel_radius) {
   using C = WgmmaFwd<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t s_q = smem_u32(smem);
@@ -170,7 +220,7 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   sa.period = period;
   sa.bh = hix.of(bh, heads);
   sa.c = sm_scale * LOG2E;
-  sa.slope2 = slopes[bh % heads] * LOG2E;
+  sa.slope2 = REL ? 0.f : slopes[bh % heads] * LOG2E;  // the biased launch passes no slopes
   sa.fused = period == 0 && sm_scale > 0.f;
   sa.seed = drop_thr > 0 ? (uint32_t)seed[0] : 0u;
   sa.drop_thr = drop_thr;
@@ -179,6 +229,21 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   sa.wg_row0 = q0 + 64 * wg;
   sa.r0 = sa.wg_row0 + 16 * w + l / 4;
   sa.cq = 2 * (l % 4);
+  RelArgs rel{};
+  if constexpr (REL) {
+    // the head's table behind the ring, everyone's after next_tile(0)'s barrier
+    float* tab = reinterpret_cast<float*>(smem + C::BYTES);
+    const int n_tab = 2 * rel_radius + 1;
+    const float* src = rel_tab + (size_t)(bh % heads) * n_tab;
+    for (int i = tid; i < n_tab; i += C::NT) tab[i] = src[i];
+    rel.tab = tab + rel_radius;
+    rel.radius = rel_radius;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = sa.r0 + 8 * h;
+      rel.gate2[h] = row < t_q ? rel_gate[(size_t)bh * t_q + row] * LOG2E : 0.f;
+    }
+  }
 
   int last = (max(sa.kvlen - 1, 0)) / BK;
   last = min(last, (t_k + BK - 1) / BK - 1);
@@ -230,7 +295,7 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(s);
-  softmax_tile(s, m_run, l_run, alpha, 0, sa);
+  softmax_tile<REL>(s, m_run, l_run, alpha, 0, sa, rel);
   pack_frags<BK>(s, pa);
   uint32_t s_v_prev = s_ring + C::KV_BYTES;
 
@@ -253,7 +318,7 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     wgmma_commit();
     wgmma_wait<1>();  // the scores; the value product may still run
     fence_regs(s);
-    softmax_tile(s, m_run, l_run, alpha, kt * BK, sa);
+    softmax_tile<REL>(s, m_run, l_run, alpha, kt * BK, sa, rel);
     wgmma_wait<0>();
     fence_regs(acc);
     fence_frags(pa);
@@ -688,20 +753,31 @@ struct Args {
   float keep_scale;
   HashIndex hix;
   cudaStream_t stream;
+  // WavLM's bias (the relpos entry point only)
+  const float* rel_tab;
+  const float* rel_gate;
+  int rel_radius;
 };
 
-template <int D>
+// the biased kernel's shared memory: the table's 2R + 1 floats behind the ring
+template <int D, bool REL>
+int bf16_smem_bytes(int rel_radius) {
+  return WgmmaFwd<D>::BYTES + (REL ? align128((2 * rel_radius + 1) * 4) : 0);
+}
+
+template <int D, bool REL = false>
 cudaError_t launch_bf16(const Args& a) {
   using C = WgmmaFwd<D>;
+  const int bytes = bf16_smem_bytes<D, REL>(a.rel_radius);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
+      flash_fwd_wgmma_kernel<D, REL>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((a.t_q + C::BQ - 1) / C::BQ, a.bh);
-  flash_fwd_wgmma_kernel<D><<<grid, C::NT, C::BYTES, a.stream>>>(
+  flash_fwd_wgmma_kernel<D, REL><<<grid, C::NT, bytes, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.o), a.lse, a.kv_len,
       a.slopes, a.heads, a.t_q, a.t_k, a.causal, a.period, a.sm_scale, a.seed, a.drop_thr,
-      a.keep_scale, a.hix);
+      a.keep_scale, a.hix, a.rel_tab, a.rel_gate, a.rel_radius);
   return cudaGetLastError();
 }
 
@@ -786,11 +862,11 @@ template <int D>
 cudaError_t occupancy(int* info) {
   using C = WgmmaFwd<D>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
+      flash_fwd_wgmma_kernel<D, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
   if (err != cudaSuccess) return err;
   info[0] = C::BYTES;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[1], flash_fwd_wgmma_kernel<D>, C::NT,
-                                                       C::BYTES);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[1], flash_fwd_wgmma_kernel<D, false>,
+                                                       C::NT, C::BYTES);
 }
 
 }  // namespace
@@ -862,4 +938,37 @@ extern "C" int a2f_flash_attention_fwd(const void* q, const void* k,
     case 128: return launch<128>(bf16, a);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The bf16 forward with WavLM's gated relative-position bias (head_dim 64
+// only): rel_tab (heads, 2 radius + 1) f32, entry [h, r + radius] the bias
+// of head h at key - query = clamp(r, -radius, radius); rel_gate (batch,
+// heads, t_q) f32. kv_len as above; no causal mask, ALiBi or dropout.
+extern "C" int a2f_flash_attention_fwd_relpos(const void* q, const void* k, const void* v,
+                                              void* o, float* lse, const int* kv_len,
+                                              const float* rel_tab, const float* rel_gate,
+                                              int batch, int heads, int t_q, int t_k,
+                                              int head_dim, int radius, float sm_scale,
+                                              void* stream) {
+  if (head_dim != 64 || radius < 0 || bf16_smem_bytes<64, true>(radius) > 227 * 1024)
+    return cudaErrorInvalidValue;
+  Args a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.lse = lse;
+  a.kv_len = kv_len;
+  a.bh = batch * heads;
+  a.heads = heads;
+  a.t_q = t_q;
+  a.t_k = t_k;
+  a.sm_scale = sm_scale;
+  a.keep_scale = 1.f;
+  a.hix = {0, 0, heads};
+  a.stream = static_cast<cudaStream_t>(stream);
+  a.rel_tab = rel_tab;
+  a.rel_gate = rel_gate;
+  a.rel_radius = radius;
+  return launch_bf16<64, true>(a);
 }

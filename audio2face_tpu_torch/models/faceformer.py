@@ -19,6 +19,8 @@ loop:
 
 The decoder width d is ``feature_dim``: 64 by default (the repo's models),
 128 for FaceFormer's published BIWI decoder (4 heads of d / 4, FFN 2d).
+The audio encoder is ``encoder_config``'s: wav2vec2-base by default, or
+WavLM Large (``models/wav2vec2.py``), inside the span ``predict.encode``.
 ``FaceFormer.decode`` is the decoder: the latents' cross projections and
 the decode loop, inside the span ``predict.decode`` (``utils/spans.py``),
 counting ``decode_steps`` (batch rows x steps) and, in the kernel,
@@ -283,13 +285,14 @@ class FaceFormer(nn.Module):
         if encoder_hidden is not None:
             hidden = encoder_hidden
         else:
-            hidden = self.audio_encoder(
-                normalize_waveform(audio, lengths), output_len=n_frames, lengths=lengths,
-                output_lengths=None if biwi else frame_lengths, dataset=self.dataset,
-                dtype=cdt, use_kernels=use_kernels,
-                train=train, apply_spec_augment=train, generator=generator,
-                differentiable=differentiable, batch_rows=batch_rows,
-            )  # (B, T, 768); biwi: (B, <= 2T, 768), the 50 fps latents untouched
+            with spans.span("predict.encode"):
+                hidden = self.audio_encoder(
+                    normalize_waveform(audio, lengths), output_len=n_frames, lengths=lengths,
+                    output_lengths=None if biwi else frame_lengths, dataset=self.dataset,
+                    dtype=cdt, use_kernels=use_kernels,
+                    train=train, apply_spec_augment=train, generator=generator,
+                    differentiable=differentiable, batch_rows=batch_rows,
+                )  # (B, T, 768); biwi: (B, <= 2T, 768), the 50 fps latents untouched
         if biwi and hidden.shape[1] != 2 * n_frames:
             # the 2-way alignment needs exactly 2 latents per frame: a short
             # encode is zero-padded at the end, a long one trimmed

@@ -1,4 +1,5 @@
-"""wav2vec2-base encoder with the FaceFormer fps adapter.
+"""wav2vec2-base encoder with the FaceFormer fps adapter, and the WavLM
+Large encoder in the same slot.
 
 Port of ``audio2face_tpu/models/wav2vec2.py``:
 
@@ -7,6 +8,32 @@ Port of ``audio2face_tpu/models/wav2vec2.py``:
   -> feature projection (LayerNorm + 512->768)
   -> grouped positional conv embedding (k=128, 16 groups)
   -> 12 post-LN transformer layers (768 d, 12 heads, 3072 ffn, exact GELU)
+
+WavLM (Chen et al., arXiv:2110.13900; HF ``WavLMModel``, the Large config:
+``feat_extract_norm="layer"``, ``do_stable_layer_norm=True``, 320 relative
+position buckets) is the same pipeline with three changes, each a field of
+``Wav2Vec2Config`` whose default keeps wav2vec2-base as it is:
+
+- the conv stack: a LayerNorm over channels (f32 statistics) after every
+  conv, then GELU, on the per-layer ``conv1d`` path (the fused conv-encoder
+  kernel computes the group norm only);
+- pre-LN layers (``do_stable_layer_norm``): no LayerNorm before the stack,
+  one after it (``layer_norm`` keeps its name and moves there);
+- the gated relative-position bias (``relative_position_buckets``, in
+  pre-LN layers only): the score of query i and key j in head h of layer l
+  gains
+  ``g_l[b, h, i] * E[bucket(j - i), h]``. ``E`` is one (buckets, heads)
+  table (``rel_attn_embed``, HF's layer 0 table) that every layer shares;
+  the bucket saturates past ``R`` (778 at 320 buckets and distance 800), so
+  a head's bias is a (2R + 1)-entry Toeplitz table (``relative_position_
+  table``), which ``flash_attention`` reads inside K1: no (T, T) tensor
+  exists. The gate ``g = a (b c_{l,h} - 1) + 2``, with ``(a, b)`` the
+  sigmoid of the layer's ``gru_rel_pos_linear`` (64 -> 8, the (2, 4) sum
+  folded into its weight here) on each head's 64 channels of the layer's
+  layer-normed input, is one small f32 product a layer
+  (``EncoderLayer.position_gate``). Each biased layer counts
+  ``gated_bias_layers`` (``utils/spans.py``). The WavLM encoder serves
+  only: training, the live paths and the parallel hooks refuse it.
 
 Parameters stay f32; each layer computes in the caller's ``dtype`` (f32,
 or bf16 for serving), casting weights at use as the JAX modules do. The
@@ -53,6 +80,7 @@ from torch.utils.checkpoint import checkpoint
 from audio2face_tpu_torch.ops import conv_encoder as ce
 from audio2face_tpu_torch.ops.attention import flash_attention, mha_reference
 from audio2face_tpu_torch.ops.dsp import interp_linear_per_item, linear_interpolation_fps
+from audio2face_tpu_torch.utils import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +108,23 @@ class Wav2Vec2Config:
     # attention probabilities and stochastic layer skipping (LayerDrop)
     attention_dropout: float = 0.1
     layerdrop: float = 0.1
+    # WavLM (module note): "group" norm after conv 0 or a "layer" norm after
+    # every conv; pre-LN layers; relative position buckets (0: no bias),
+    # which only pre-LN layers take
+    feat_extract_norm: str = "group"
+    do_stable_layer_norm: bool = False
+    relative_position_buckets: int = 0
+
+    def __post_init__(self):
+        if self.relative_position_buckets > 0 and not self.do_stable_layer_norm:
+            raise ValueError("the gated relative-position bias runs in pre-LN layers only "
+                             "(do_stable_layer_norm), as WavLM Large has them")
+
+    @property
+    def wavlm(self) -> bool:
+        """Whether the layers take the WavLM path (pre-LN, with or without
+        the gated bias): inference only."""
+        return self.do_stable_layer_norm
 
     def feat_extract_output_length(self, input_length: int) -> int:
         length = input_length
@@ -89,6 +134,54 @@ class Wav2Vec2Config:
 
 
 HIDDEN_DROPOUT = 0.1  # the rate of every nn.Dropout in the JAX modules
+# WavLM's bucket distance: logarithmic buckets up to it (Base and Large)
+MAX_BUCKET_DISTANCE = 800
+
+
+def relative_position_bucket(rel: torch.Tensor, num_buckets: int) -> torch.Tensor:
+    """WavLM's bucket of each relative position ``rel = key - query`` (int
+    tensor): T5's bidirectional buckets, half of them for keys after the
+    query, exact below a quarter of ``num_buckets``, logarithmic up to
+    ``MAX_BUCKET_DISTANCE``; HF ``WavLMAttention._relative_positions_bucket`` in its
+    own float32 operations, so that the boundaries fall where HF's do."""
+    half = num_buckets // 2
+    buckets = (rel > 0).to(torch.long) * half
+    rel = rel.abs()
+    exact = half // 2
+    large = torch.log(rel.float() / exact) / math.log(MAX_BUCKET_DISTANCE / exact) * (half - exact)
+    large = torch.clamp((exact + large).to(torch.long), max=half - 1)
+    return buckets + torch.where(rel < exact, rel, large)
+
+
+def relative_position_radius(num_buckets: int) -> int:
+    """The least R from which ``relative_position_bucket`` is constant on
+    each side: every |key - query| >= R shares the bucket of R (778 at 320
+    buckets)."""
+    rel = torch.arange(MAX_BUCKET_DISTANCE + 1)
+    b = relative_position_bucket(rel, num_buckets)
+    return int(torch.nonzero(b != b[-1]).max()) + 1
+
+
+_rel_index: dict[tuple, torch.Tensor] = {}
+
+
+def relative_position_index(num_buckets: int, device) -> torch.Tensor:
+    """(2R + 1,) int64 on ``device``: the bucket of ``r = -R .. R``, built
+    once on the host per (buckets, device) and then reused."""
+    key = (num_buckets, torch.device(device))
+    if key not in _rel_index:
+        r = relative_position_radius(num_buckets)
+        rel = torch.arange(-r, r + 1)
+        _rel_index[key] = relative_position_bucket(rel, num_buckets).to(device)
+    return _rel_index[key]
+
+
+def relative_position_table(embed: torch.Tensor) -> torch.Tensor:
+    """WavLM's table ``embed`` (buckets, heads) as the (heads, 2R + 1) f32
+    Toeplitz table that attention reads: entry ``[h, r + R]`` is the bias
+    of head h at ``key - query = clamp(r, -R, R)``."""
+    idx = relative_position_index(embed.shape[0], embed.device)
+    return embed.float()[idx].t().contiguous()
 
 
 def dropout(
@@ -195,10 +288,15 @@ class FeatureEncoder(nn.Module):
     bf16 without conv bias (the wav2vec2-base stack) goes through
     ``fused_conv_encoder``; f32, and every dtype when ``train`` is set (the
     fused kernel has no backward), runs the per-layer ``conv1d`` path with
-    the masked group norm after layer 0."""
+    the masked group norm after layer 0. A "layer"-norm stack (WavLM) always
+    runs the ``conv1d`` path, each conv followed by a LayerNorm over its
+    channels: position-wise, so padded batches need no mask."""
 
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
+        if config.feat_extract_norm not in ("group", "layer"):
+            raise ValueError(
+                f"feat_extract_norm {config.feat_extract_norm!r}: want 'group' or 'layer'")
         self.config = config
         c_in = 1
         convs = []
@@ -206,12 +304,19 @@ class FeatureEncoder(nn.Module):
             convs.append(nn.Conv1d(c_in, dim, k, stride=s, bias=config.conv_bias))
             c_in = dim
         self.conv_layers = nn.ModuleList(convs)
-        self.group_norm = MaskedGroupNorm(config.conv_dim[0], config.layer_norm_eps)
+        if config.feat_extract_norm == "layer":
+            self.layer_norms = nn.ModuleList(
+                nn.LayerNorm(dim, eps=config.layer_norm_eps) for dim in config.conv_dim)
+        else:
+            self.group_norm = MaskedGroupNorm(config.conv_dim[0], config.layer_norm_eps)
 
     def _fused_ok(self, dtype: torch.dtype) -> bool:
+        """Whether the fused kernel computes this stack: the wav2vec2-base
+        shape in bf16 with the group norm (the kernel has no layer norm)."""
         cfg = self.config
         return (
-            not cfg.conv_bias
+            cfg.feat_extract_norm == "group"
+            and not cfg.conv_bias
             and cfg.conv_kernel == ce.CONV_KERNEL
             and cfg.conv_stride == ce.CONV_STRIDE
             and all(d == ce.C for d in cfg.conv_dim)
@@ -236,7 +341,12 @@ class FeatureEncoder(nn.Module):
             if feat_lengths is not None:
                 k, s = conv.kernel_size[0], conv.stride[0]
                 feat_lengths = torch.div(feat_lengths - k, s, rounding_mode="floor") + 1
-            if i == 0:
+            if self.config.feat_extract_norm == "layer":
+                # over channels; F.layer_norm keeps f32 statistics for bf16
+                ln = self.layer_norms[i]
+                h = F.layer_norm(h.transpose(1, 2), ln.normalized_shape, ln.weight.to(dtype),
+                                 ln.bias.to(dtype), ln.eps).transpose(1, 2)
+            elif i == 0:
                 h = self.group_norm(h.transpose(1, 2), feat_lengths).transpose(1, 2)
             h = F.gelu(h)
         return h.transpose(1, 2)
@@ -279,7 +389,10 @@ class PositionalConvEmbedding(nn.Module):
 
 
 class EncoderLayer(nn.Module):
-    """Post-LN transformer layer (do_stable_layer_norm=False, base config).
+    """Post-LN transformer layer (do_stable_layer_norm=False, base config),
+    or WavLM Large's pre-LN layer (``_forward_wavlm``), with relative
+    position buckets the gate of the shared bias table
+    (``gru_rel_pos_linear``, ``gru_rel_pos_const``, one constant a head).
 
     ``tp_group`` is None, or the tensor-parallel group of the layer's
     Megatron form, set by ``parallel/mesh.py shard_params_tensor_parallel``
@@ -289,6 +402,10 @@ class EncoderLayer(nn.Module):
         super().__init__()
         d = config.hidden_size
         self.num_heads = config.num_heads
+        self.wavlm = config.wavlm
+        if config.relative_position_buckets > 0:
+            self.gru_rel_pos_linear = nn.Linear(d // config.num_heads, 8)
+            self.gru_rel_pos_const = nn.Parameter(torch.ones(config.num_heads))
         self.tp_group = None
         self.attention_dropout = config.attention_dropout
         self.q_proj = nn.Linear(d, d)
@@ -304,13 +421,22 @@ class EncoderLayer(nn.Module):
         self, x: torch.Tensor, kv_lengths: Optional[torch.Tensor] = None, *,
         dtype: torch.dtype = torch.float32, use_kernels: bool = True, train: bool = False,
         generator: Optional[torch.Generator] = None, time_group=None, batch_rows=None,
+        rel_table: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """``time_group``: ``x`` is this rank's slice of the time axis
         (sequence parallelism): K and V are all-gathered along time over the
         group (rank order is time order) and the local queries attend every
         key; ``kv_lengths`` are global counts. ``batch_rows=(offset,
         total)``: ``x`` holds those rows of the batch (dropout and the
-        attention hash as in the module's note)."""
+        attention hash as in the module's note). ``rel_table``: the
+        encoder's (heads, 2R + 1) relative-position table, for a layer with
+        the gate (WavLM)."""
+        if self.wavlm:
+            if train or time_group is not None or self.tp_group is not None:
+                raise ValueError(
+                    "the WavLM encoder layer (pre-LN, gated relative-position bias) serves "
+                    "only: no training, sequence- or tensor-parallel form")
+            return self._forward_wavlm(x, kv_lengths, dtype, use_kernels, rel_table)
         b, s, d = x.shape
         tp = self.tp_group
         m, r = (1, 0) if tp is None else (dist.get_world_size(tp), dist.get_rank(tp))
@@ -351,6 +477,47 @@ class EncoderLayer(nn.Module):
         ff = drop(ff, cols=None if tp is None else (r * ff.shape[-1], m * ff.shape[-1]))
         ff = drop(self._row_split(ff, self.output_dense, dtype))
         return layer_norm(x + ff, self.final_layer_norm, dtype)
+
+    def position_gate(self, xa: torch.Tensor) -> torch.Tensor:
+        """(B, T, d) f32 attention input -> the (B, heads, T) f32 gate of the
+        bias: ``a (b c_h - 1) + 2`` with ``(a, b)`` the sigmoid of each
+        head's 64 channels through ``gru_rel_pos_linear``, whose 8 outputs
+        HF sums in two groups of 4 before the sigmoid: the sum is folded
+        into a (2, 64) weight, one small product."""
+        b, s, d = xa.shape
+        nh = self.num_heads
+        lin = self.gru_rel_pos_linear
+        w = lin.weight.view(2, 4, -1).sum(dim=1)
+        ab = torch.sigmoid(F.linear(xa.view(b, s, nh, d // nh), w, lin.bias.view(2, 4).sum(dim=1)))
+        gate = ab[..., 0] * (ab[..., 1] * self.gru_rel_pos_const - 1.0) + 2.0  # (B, T, heads)
+        return gate.transpose(1, 2).contiguous()
+
+    def _forward_wavlm(self, x: torch.Tensor, kv_lengths, dtype: torch.dtype, use_kernels: bool,
+                       rel_table: Optional[torch.Tensor]) -> torch.Tensor:
+        """WavLM Large's layer (HF ``WavLMEncoderLayerStableLayerNorm``):
+        pre-LN, the gate from the layer-normed input, in f32."""
+        b, s, d = x.shape
+        nh, hd = self.num_heads, d // self.num_heads
+        xa = F.layer_norm(x.float(), self.layer_norm.normalized_shape, self.layer_norm.weight,
+                          self.layer_norm.bias, self.layer_norm.eps)
+        gate = None
+        if rel_table is not None:
+            gate = self.position_gate(xa)
+            spans.count("gated_bias_layers", 1)
+        xin = xa.to(dtype)
+
+        def split_heads(t):
+            return t.reshape(b, s, nh, hd).transpose(1, 2)
+
+        q = split_heads(dense(xin, self.q_proj, dtype))
+        k = split_heads(dense(xin, self.k_proj, dtype))
+        v = split_heads(dense(xin, self.v_proj, dtype))
+        attend = flash_attention if use_kernels else mha_reference
+        attn = attend(q, k, v, kv_lengths=kv_lengths, rel_table=rel_table, rel_gate=gate)
+        x = x + dense(attn.transpose(1, 2).reshape(b, s, d), self.out_proj, dtype)
+        ff = F.gelu(dense(layer_norm(x, self.final_layer_norm, dtype), self.intermediate_dense,
+                          dtype))
+        return x + dense(ff, self.output_dense, dtype)
 
     def _column_input(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` as the replicated input of a column-parallel product: in the
@@ -401,8 +568,12 @@ class Wav2Vec2Encoder(nn.Module):
         self.feature_projection = FeatureProjection(config)
         self.masked_spec_embed = nn.Parameter(torch.zeros(config.hidden_size))
         self.pos_conv_embed = PositionalConvEmbedding(config)
+        # before the layers, or after them with do_stable_layer_norm
         self.layer_norm = nn.LayerNorm(config.hidden_size, eps=config.layer_norm_eps)
         self.layers = nn.ModuleList(EncoderLayer(config) for _ in range(config.num_layers))
+        if config.relative_position_buckets > 0:
+            # HF's layer 0 table, shared by every layer
+            self.rel_attn_embed = nn.Embedding(config.relative_position_buckets, config.num_heads)
 
     @torch.no_grad()
     def init_parameters(self, generator: torch.Generator) -> None:
@@ -417,6 +588,10 @@ class Wav2Vec2Encoder(nn.Module):
             elif isinstance(m, (nn.LayerNorm, MaskedGroupNorm)):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+            elif isinstance(m, nn.Embedding):
+                m.weight.normal_(0.0, 1.0, generator=generator)
+            elif isinstance(m, EncoderLayer) and hasattr(m, "gru_rel_pos_const"):
+                m.gru_rel_pos_const.fill_(1.0)
         self.masked_spec_embed.uniform_(0.0, 1.0, generator=generator)
 
     def forward(
@@ -502,6 +677,12 @@ class Wav2Vec2Encoder(nn.Module):
             valid = torch.arange(h.shape[1], device=h.device)[None, :] < feat_lengths.to(h.device)[:, None]
             h = h * valid[..., None].to(h.dtype)
         h = h + self.pos_conv_embed(h, dtype)
+        if cfg.wavlm:
+            if train or pre_layers_only:
+                raise ValueError(
+                    "the WavLM encoder (pre-LN layers, gated relative-position bias) serves "
+                    "only: no training and no sequence-parallel split")
+            return self._wavlm_layers(h, feat_lengths, dtype, use_kernels)
         h = layer_norm(h, self.layer_norm, dtype)
         if train:
             h = dropout(h, HIDDEN_DROPOUT, generator, rows=batch_rows)
@@ -523,3 +704,55 @@ class Wav2Vec2Encoder(nn.Module):
                 generator=generator, batch_rows=batch_rows,
             )
         return h
+
+    def _wavlm_layers(self, h: torch.Tensor, feat_lengths, dtype: torch.dtype,
+                      use_kernels: bool) -> torch.Tensor:
+        """WavLM Large's stack: each pre-LN layer with the shared
+        relative-position table (made once a call), the LayerNorm after the
+        stack."""
+        table = None
+        if self.config.relative_position_buckets > 0:
+            table = relative_position_table(self.rel_attn_embed.weight)
+        for layer in self.layers:
+            h = layer(h, kv_lengths=feat_lengths, dtype=dtype, use_kernels=use_kernels,
+                      rel_table=table)
+        return layer_norm(h, self.layer_norm, dtype)
+
+
+def config_from_state_dict(sd, prefix: str = "") -> Wav2Vec2Config:
+    """The encoder config of a port state dict (its keys under ``prefix``):
+    widths, depth, conv kernels and the positional conv from the weights'
+    shapes; a per-conv LayerNorm (``feature_encoder.layer_norms``) makes the
+    stack a "layer"-norm one and the layers pre-LN (the pairing of every
+    public wav2vec2, HuBERT and WavLM config); the relative-position table
+    (``rel_attn_embed``) gives the buckets and the heads, else heads are 64
+    wide, as every wav2vec2 and WavLM size has them. The rest (conv
+    strides) is the default, so wav2vec2-base weights give
+    ``Wav2Vec2Config()`` back; a table without the per-conv LayerNorms
+    (WavLM Base's post-LN layout) is refused."""
+
+    def get(key):
+        return sd[prefix + key]
+
+    n_convs = n_layers = 0
+    while prefix + f"feature_encoder.conv_layers.{n_convs}.weight" in sd:
+        n_convs += 1
+    while prefix + f"layers.{n_layers}.q_proj.weight" in sd:
+        n_layers += 1
+    convs = [get(f"feature_encoder.conv_layers.{i}.weight").shape for i in range(n_convs)]
+    hidden = get("feature_projection.projection.weight").shape[0]
+    pos = get("pos_conv_embed.conv.weight").shape
+    layer_norms = prefix + "feature_encoder.layer_norms.0.weight" in sd
+    table = sd.get(prefix + "rel_attn_embed.weight")
+    return dataclasses.replace(
+        Wav2Vec2Config(),
+        conv_dim=tuple(c[0] for c in convs), conv_kernel=tuple(c[2] for c in convs),
+        conv_bias=prefix + "feature_encoder.conv_layers.0.bias" in sd,
+        hidden_size=hidden, num_layers=n_layers,
+        num_heads=hidden // 64 if table is None else table.shape[1],
+        intermediate_size=get("layers.0.intermediate_dense.weight").shape[0],
+        pos_conv_kernel=pos[2], pos_conv_groups=hidden // pos[1],
+        feat_extract_norm="layer" if layer_norms else "group",
+        do_stable_layer_norm=layer_norms,
+        relative_position_buckets=0 if table is None else table.shape[0],
+    )

@@ -33,6 +33,16 @@ register-tiled kernels. ``flash_attention.f32_launches`` and
 ``flash_attention_bwd.f32_launches`` count the f32 launches among
 ``launches``.
 
+``rel_table`` (H, 2R + 1) and ``rel_gate`` (B, H, Tq), both f32, add
+WavLM's gated relative-position bias ``gate[b, h, i] * table[h, clamp(j -
+i, -R, R) + R]`` to each scaled score (no TPU counterpart: the JAX package
+has no WavLM). bf16 CUDA launches compute it inside the wgmma forward
+(``a2f_flash_attention_fwd_relpos``, head dim 64) from the table in shared
+memory and two gate values a thread, so no (Tq, Tk) tensor exists;
+``mha_reference`` builds the dense bias. The bias serves only: a call
+under autograd, with dropout, a causal mask or ALiBi, an f32 launch, and
+the backward refuse it.
+
 ``decode_step_attention`` (one KV-cached decode step of the live decoders)
 is plain torch operations, as the JAX package's is XLA einsums.
 """
@@ -171,7 +181,38 @@ def _acc_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
-def _masked_scores(q, k, causal, alibi_period, kv_lengths, sm_scale):
+def relative_position_bias(rel_table: torch.Tensor, rel_gate: torch.Tensor, t_k: int
+                           ) -> torch.Tensor:
+    """Dense (B, H, Tq, Tk) gated relative-position bias: ``gate[b, h, i] *
+    table[h, clamp(j - i, -R, R) + R]``, for the plain versions."""
+    r = (rel_table.shape[1] - 1) // 2
+    t_q = rel_gate.shape[2]
+    dev = rel_table.device
+    off = torch.arange(t_k, device=dev)[None, :] - torch.arange(t_q, device=dev)[:, None]
+    toeplitz = rel_table[:, off.clamp(-r, r) + r]  # (H, Tq, Tk)
+    return rel_gate[..., None] * toeplitz[None]
+
+
+def _check_rel_bias(q, rel_table, rel_gate, causal, alibi_period, dropout_rate):
+    """Refuse what the gated relative-position bias is not for, and shapes
+    that do not fit q."""
+    if (rel_table is None) != (rel_gate is None):
+        raise ValueError("rel_table and rel_gate go together")
+    if rel_table is None:
+        return
+    b, h, t_q, _ = q.shape
+    if causal or alibi_period is not None or dropout_rate > 0.0:
+        raise ValueError("the gated relative-position bias takes no causal mask, ALiBi or dropout")
+    if rel_table.dim() != 2 or rel_table.shape[0] != h or rel_table.shape[1] % 2 != 1:
+        raise ValueError(f"rel_table {tuple(rel_table.shape)}: want ({h}, 2R + 1)")
+    if tuple(rel_gate.shape) != (b, h, t_q):
+        raise ValueError(f"rel_gate {tuple(rel_gate.shape)}: want {(b, h, t_q)}")
+    if rel_table.dtype != torch.float32 or rel_gate.dtype != torch.float32:
+        raise TypeError("rel_table and rel_gate are f32")
+
+
+def _masked_scores(q, k, causal, alibi_period, kv_lengths, sm_scale, rel_table=None,
+                   rel_gate=None):
     """Scaled, biased scores (B, H, Tq, Tk) in the accumulation type, masked
     positions at ``DEFAULT_MASK_VALUE``, and the boolean validity mask."""
     b, h, t_q, _ = q.shape
@@ -182,6 +223,8 @@ def _masked_scores(q, k, causal, alibi_period, kv_lengths, sm_scale):
     j = torch.arange(t_k, device=q.device)[None, :]
     if alibi_period is not None:
         s = s + alibi_period_bias(h, t_q, t_k, alibi_period, q.device)[None].to(acc)
+    if rel_table is not None:
+        s = s + relative_position_bias(rel_table, rel_gate, t_k).to(acc)
     mask = torch.ones((t_q, t_k), dtype=torch.bool, device=q.device)
     if causal:
         mask = mask & (j <= i)
@@ -204,6 +247,8 @@ def mha_reference(
     dropout_rate: float = 0.0,
     dropout_seed=None,
     hash_index=None,
+    rel_table: Optional[torch.Tensor] = None,
+    rel_gate: Optional[torch.Tensor] = None,
 ):
     """Plain multi-head attention. q, k, v: (B, H, T, D) -> (B, H, Tq, D).
 
@@ -212,13 +257,16 @@ def mha_reference(
     per-row logsumexp (B, H, Tq) f32. With ``dropout_rate`` > 0 and an int32
     ``dropout_seed`` (int or one-element tensor) the normalized
     probabilities are multiplied by the hash mask of ``dropout_keep_mask``
-(``hash_index`` as in ``hash_batch_heads``)."""
+    (``hash_index`` as in ``hash_batch_heads``). ``rel_table`` and
+    ``rel_gate``: the gated relative-position bias (module note), dense."""
     b, h, t_q, d = q.shape
     t_k = k.shape[2]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
+    _check_rel_bias(q, rel_table, rel_gate, causal, alibi_period,
+                    dropout_rate if dropout_seed is not None else 0.0)
     acc = _acc_dtype(q)
-    s, _ = _masked_scores(q, k, causal, alibi_period, kv_lengths, sm_scale)
+    s, _ = _masked_scores(q, k, causal, alibi_period, kv_lengths, sm_scale, rel_table, rel_gate)
     p = torch.softmax(s, dim=-1)
     if dropout_rate > 0.0 and dropout_seed is not None:
         p = p * attention_keep_mask(
@@ -281,6 +329,10 @@ _TAIL_ARGTYPES = [ctypes.c_int] * 8 + [
 _FWD_ARGTYPES = [ctypes.c_void_p] * 7 + _TAIL_ARGTYPES
 # q, k, v, out, dout, lse, delta, dq, dk, dv, kv_len, slopes
 _BWD_ARGTYPES = [ctypes.c_void_p] * 12 + _TAIL_ARGTYPES
+# q, k, v, o, lse, kv_len, rel_table, rel_gate; batch, heads, t_q, t_k,
+# head_dim, radius; sm_scale; stream
+_RELPOS_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                    + [ctypes.c_float, ctypes.c_void_p])
 # head_dim, int info[4]
 _OCCUPANCY_ARGTYPES = [ctypes.c_int, ctypes.c_void_p]
 # head_dim, batch_heads, t_q, t_k, int info[5]
@@ -351,6 +403,34 @@ def _flash_attention_cuda(
     _build.check(rc, "flash_attention")
     flash_attention.launches += 1
     flash_attention.f32_launches += int(q.dtype == torch.float32)
+    return out, lse
+
+
+def _flash_attention_relpos_cuda(q, k, v, kv_lengths, sm_scale, rel_table, rel_gate):
+    """(out, lse) of the bf16 forward with the gated relative-position bias
+    computed in the kernel."""
+    _check_kernel_inputs("flash_attention", q, k, v)
+    b, h, t_q, d = q.shape
+    t_k = k.shape[2]
+    if q.dtype != torch.bfloat16 or d != 64:
+        raise ValueError(
+            "the gated relative-position bias runs in the bf16 kernel at head dim 64, "
+            f"not {q.dtype} at {d}")
+    qf, kf, vf = _kernel_layout(q), _kernel_layout(k), _kernel_layout(v)
+    kvlen = _kernel_side_inputs(q, t_k, kv_lengths, 0.0, None)[0]
+    table, gate = rel_table.contiguous(), rel_gate.contiguous()
+    out = torch.empty((b, h, t_q, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device)
+    fn = _build.function("flash_attention", "a2f_flash_attention_fwd_relpos", _RELPOS_ARGTYPES)
+    rc = fn(
+        qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        kvlen.data_ptr(), table.data_ptr(), gate.data_ptr(), b, h, t_q, t_k, d,
+        (table.shape[1] - 1) // 2, float(sm_scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(rc, "flash_attention")
+    flash_attention.launches += 1
+    flash_attention.relpos_launches += 1
     return out, lse
 
 
@@ -442,13 +522,19 @@ def flash_attention_bwd(
     dropout_rate: float = 0.0,
     dropout_seed=None,
     hash_index=None,
+    rel_table: Optional[torch.Tensor] = None,
+    rel_gate: Optional[torch.Tensor] = None,
 ):
     """Backward of ``flash_attention``: (dq, dk, dv) in q's dtype from the
     forward's ``out`` and ``lse`` and the output gradient ``g``.
 
     CUDA tensors launch the two backward kernels (dq with delta, then dk/dv)
     for every shape; CPU tensors run ``flash_attention_bwd_reference``. With
-    dropout, ``dropout_seed`` and ``hash_index`` must be the forward's."""
+    dropout, ``dropout_seed`` and ``hash_index`` must be the forward's. The
+    gated relative-position bias has no backward: ``rel_table`` or
+    ``rel_gate`` raises."""
+    if rel_table is not None or rel_gate is not None:
+        raise ValueError("the gated relative-position bias serves only: it has no backward")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -499,16 +585,20 @@ class _FlashAttentionFunction(torch.autograd.Function):
 
 def _flash_attention_forward(
     q, k, v, causal, alibi_period, kv_lengths, sm_scale, dropout_rate, dropout_seed, hash_index,
+    rel_table=None, rel_gate=None,
 ):
     """(out, lse): the kernel for CUDA tensors, the plain version for CPU."""
     if q.device.type == "cpu":
         return mha_reference(
             q, k, v, causal=causal, alibi_period=alibi_period, kv_lengths=kv_lengths,
             sm_scale=sm_scale, return_lse=True, dropout_rate=dropout_rate,
-            dropout_seed=dropout_seed, hash_index=hash_index,
+            dropout_seed=dropout_seed, hash_index=hash_index, rel_table=rel_table,
+            rel_gate=rel_gate,
         )
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if rel_table is not None:
+        return _flash_attention_relpos_cuda(q, k, v, kv_lengths, sm_scale, rel_table, rel_gate)
     return _flash_attention_cuda(
         q, k, v, causal, alibi_period, kv_lengths, sm_scale, dropout_rate, dropout_seed,
         hash_index)
@@ -527,6 +617,8 @@ def flash_attention(
     dropout_rate: float = 0.0,
     dropout_seed=None,
     hash_index=None,
+    rel_table: Optional[torch.Tensor] = None,
+    rel_gate: Optional[torch.Tensor] = None,
 ):
     """Fused MHA. q, k, v: (B, H, T, D) f32 or bf16 -> (B, H, Tq, D).
 
@@ -539,7 +631,9 @@ def flash_attention(
     attention probabilities by the hash mask; ``hash_index=(batch offset,
     head offset, total heads)`` places this call's batch and heads in a
     larger call's (``hash_batch_heads``). Differentiable in q, k and v: the
-    backward is ``flash_attention_bwd``."""
+    backward is ``flash_attention_bwd``. ``rel_table`` (H, 2R + 1) and
+    ``rel_gate`` (B, H, Tq), f32: WavLM's gated relative-position bias
+    (module note), in inference only."""
     if alibi_period is not None and alibi_period <= 0:
         raise ValueError(f"alibi_period must be positive, got {alibi_period}")
     if not 0.0 <= dropout_rate < 1.0:
@@ -548,7 +642,10 @@ def flash_attention(
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if dropout_rate == 0.0 or dropout_seed is None:
         dropout_rate, dropout_seed, hash_index = 0.0, None, None
+    _check_rel_bias(q, rel_table, rel_gate, causal, alibi_period, dropout_rate)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if rel_table is not None:
+            raise ValueError("the gated relative-position bias serves only: it has no backward")
         if dropout_seed is not None:
             dropout_seed = torch.as_tensor(dropout_seed, device=q.device).to(torch.int32).reshape(1)
         out, lse = _FlashAttentionFunction.apply(
@@ -557,12 +654,13 @@ def flash_attention(
     else:
         out, lse = _flash_attention_forward(
             q, k, v, causal, alibi_period, kv_lengths, sm_scale, dropout_rate, dropout_seed,
-            hash_index)
+            hash_index, rel_table, rel_gate)
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
 flash_attention.f32_launches = 0
+flash_attention.relpos_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -21,22 +21,28 @@ copied.
 
 While a span recording is open (``utils/spans.py``), each call records
 ``predict`` and, inside it, ``predict.upload`` (padding and uploads),
-``predict.model`` (the model call), ``predict.sync`` (FaceFormer's wait for
-the valid frame counts), ``predict.head`` (FaceFormer's vertex head),
+``predict.model`` (the model call; FaceFormer's holds ``predict.encode``,
+its audio encoder, and ``predict.decode``, its decoder), ``predict.sync``
+(FaceFormer's wait for the valid frame counts), ``predict.head``
+(FaceFormer's vertex head),
 ``predict.copy`` (queueing each chunk's row copies and the host's waits for
 them) and ``predict.unpack`` (the results' allocation), and counts
 ``frames_valid``, ``frames_computed``, ``vertex_bytes_copied``,
 ``vertex_bytes_returned``, ``vertex_bytes_pinned`` and
 ``host_alloc_misses``; ``FramePredictor`` also counts
-``frame_graph_captures`` and ``frame_graph_replays`` (``_FrameGraph``).
+``frame_graph_captures`` and ``frame_graph_replays`` (``_FrameGraph``),
+and a WavLM encoder ``gated_bias_layers`` (its layers run with the gated
+relative-position bias, one a layer each model call).
 
 Both run on the card unless ``device="cpu"`` is asked for. Weights come
 from a reference PyTorch/Lightning checkpoint (``from_torch_checkpoint``),
 the port trainer's checkpoint (``from_checkpoint``), carried JAX variables,
 a port state dict, or a seeded random init. ``dataset="biwi"`` serves
 FaceFormer's BIWI mode (25 fps, period 25, 2-way cross softmax). The
-decoder's width (64, or 128 as the published BIWI model has it) is the
-weights' own; a random init is 64 wide. The JAX
+decoder's width (64, or 128 as the published BIWI model has it) and the
+audio encoder (wav2vec2-base, or WavLM Large with its gated
+relative-position bias: ``models/wav2vec2.py config_from_state_dict``) are
+the weights' own; a random init is 64 wide over wav2vec2-base. The JAX
 trainer's orbax checkpoints are not read: orbax imports JAX.
 
 ``mesh=`` (``parallel.make_mesh``) serves on every rank of a mesh, each
@@ -64,6 +70,7 @@ from audio2face_tpu_torch.compat.jax_params import (
     frame_model_state_dict_from_jax,
 )
 from audio2face_tpu_torch.models.faceformer import AUDIO_SR, FaceFormer
+from audio2face_tpu_torch.models.wav2vec2 import config_from_state_dict
 from audio2face_tpu_torch.ops import dsp
 from audio2face_tpu_torch.ops.dsp import fragment_starts, resample
 from audio2face_tpu_torch.utils import spans
@@ -387,12 +394,18 @@ class FaceFormerPredictor(_BucketedPredictor):
                 # rate as the PPE/ALiBi period (matches the trainer's model)
                 **({"dataset": "biwi", "period": 25} if dataset == "biwi" else {}),
                 **({} if state_dict is None
-                   else {"feature_dim": state_dict["audio_feature_map.weight"].shape[0]}),
+                   else {"feature_dim": state_dict["audio_feature_map.weight"].shape[0],
+                         "encoder_config": config_from_state_dict(state_dict, "audio_encoder.")}),
             )
 
         self.model = load_model(make, variables, state_dict,
                                 lambda v: faceformer_state_dict_from_jax(v["params"]), seed,
                                 self.device)
+        if (mesh is not None or sp_mesh is not None) and self.model.audio_encoder.config.wavlm:
+            raise ValueError(
+                "mesh= and sp_mesh= serve the wav2vec2-base encoder; these weights hold a "
+                "WavLM encoder (pre-LN layers, gated relative-position bias): serve them "
+                "on one device")
         if mesh is not None or sp_mesh is not None:
             from audio2face_tpu_torch.parallel.mesh import replicate
 

@@ -48,6 +48,7 @@ from audio2face_tpu_torch.models.faceformer import (
     FaceFormer,
     frame_count,
 )
+from audio2face_tpu_torch.models.wav2vec2 import Wav2Vec2Config, config_from_state_dict
 from audio2face_tpu_torch.serving import load_model
 from audio2face_tpu_torch.utils.device import resolve_device
 
@@ -82,13 +83,19 @@ def load_live_faceformer(
     """The vocaset FaceFormer of a live predictor, in eval mode on ``device``:
     weights from the JAX variables (numpy ``{"params": ...}``), a port state
     dict, or a random init from ``seed`` (``serving.load_model``). BIWI
-    weights are refused, and so is a decoder of another width than 64."""
+    weights are refused, and so are a decoder of another width than 64 and
+    another encoder than wav2vec2-base."""
 
     def make(state_dict):
         if state_dict is not None:
             if "cross_q.weight" in state_dict:
                 raise ValueError(_BIWI_MESSAGE)
             check_live_width(state_dict["audio_feature_map.weight"].shape[0])
+            if config_from_state_dict(state_dict, "audio_encoder.") != Wav2Vec2Config():
+                raise ValueError(
+                    "the live paths run the wav2vec2-base encoder; these weights hold "
+                    "another (WavLM's gated relative-position bias serves offline only): "
+                    "decode them via FaceFormerPredictor")
         return FaceFormer(n_verts=n_verts, n_onehot=n_onehot, dtype=dtype)
 
     return load_model(make, variables, state_dict, _live_state_dict, seed, device)

@@ -44,6 +44,15 @@ which raises (exit code != 0) on failure:
    requests (8 x 60 s, 5 clips of 3-45 s, one 44.1 kHz clip); the forward
    kernels must have launched during them; one 2 x 10 s batch is held
    against the same weights run through the plain versions;
+4b. WavLM: FaceFormer (vocaset) with the WavLM Large encoder at its
+   published widths (bf16): K1's gated-bias forward at (8, 16, 3600, 64)
+   with key lengths below T against the plain version item by item (2^-7
+   of |ref| and of sum p|v|), timed by the profiler and CUDA events beside
+   its bound (``benchmark/counts/faceformer_wavlm.py k1_relpos_work``),
+   the unbiased kernel and the plain version; one 8 x 60 s request through
+   ``FaceFormerPredictor`` (the encoder read from the weights) launching
+   the biased kernel 24 times a model call, counted from zero just before
+   it; 2 clips against the plain versions;
 5. clip to rendered frames: the same predictor's vertices for a 3.5 s clip
    on the synthetic head go through ``Renderer.render`` (pipelined, cropped
    copies into pinned buffers); the rasterizer must have launched, the
@@ -132,7 +141,9 @@ which raises (exit code != 0) on failure:
    serving, training, frame, checkpoint, data, live, CLI and parallel
    paths; K1 f32 and K4 f32 have rows of their own, counted by the
    wrappers' ``f32_launches`` on the wav2vec2 frame request and the f32
-   gradient check), then, last, ``{"ok": true, "device": {...}}``.
+   gradient check, and K1 with the gated bias, counted by
+   ``relpos_launches`` in 4b's request and in each later phase), then,
+   last, ``{"ok": true, "device": {...}}``.
 
 Gradients are off process-wide (the inference phases build no autograd
 graph); the training phases turn them on in their own scope.
@@ -689,6 +700,168 @@ def frame_epilogue_readings(torch, model, launches: int, smi: str) -> dict:
               "launches_in_request": launches, "blocks": blocks, "chunk": total, "card": smi}
     print(json.dumps({"frame_epilogue": report}), flush=True)
     return report
+
+
+# K1 with WavLM's gated bias in bf16 against its plain version on the same
+# bf16 inputs: both round P to bf16 (the kernel before the row's last
+# rescale, the plain version after the division; each p by up to 2^-8 of
+# itself, bf16's unit roundoff) and their outputs to bf16 (up to 2^-8 of
+# the value each), so an output may miss by 2^-7 of sum_j p_j |v_j| and of
+# its value; past that, 1e-4 for the summation order. Also printed: the
+# miss beyond half that bar, ``tests/test_torch_wavlm.py``'s card bar at
+# batch 2, which one output step can exceed at the cell's shape.
+K1_RELPOS_STEP, K1_RELPOS_SLACK = 2.0**-7, 1e-4
+
+
+def wavlm_phase(torch, rows, smi) -> None:
+    """4b: FaceFormer (vocaset) with the WavLM Large encoder at its
+    published widths (24 pre-LN layers, 1024 wide, 16 heads of 64, 320
+    buckets), bf16, random weights from a seed: K1's gated-bias forward at
+    the cell's longest shape (8, 16, 3600, 64) with key lengths below T,
+    against the plain version item by item and timed beside its bound and
+    the unbiased kernel; one 8 x 60 s request through
+    ``FaceFormerPredictor``, whose biased launches (counted from zero just
+    before it) must be 24 a model call; 2 clips against the same weights
+    through the plain versions. Appends the ``flash_attention_relpos`` row."""
+    from audio2face_tpu_torch.models import wav2vec2 as w2v
+    from audio2face_tpu_torch.models.faceformer import FaceFormer, frame_count
+    from audio2face_tpu_torch.ops import attention as attn_ops
+    from audio2face_tpu_torch.serving import FaceFormerPredictor
+    from audio2face_tpu_torch.utils import spans
+    from benchmark.counts.faceformer_wavlm import k1_relpos_work
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    cfg = w2v.Wav2Vec2Config(hidden_size=1024, num_layers=24, num_heads=16, intermediate_size=4096,
+                             feat_extract_norm="layer", do_stable_layer_norm=True,
+                             relative_position_buckets=320)
+    g = torch.Generator(device=dev).manual_seed(22)
+
+    # ---- K1 with the gated bias at (8, 16, 3600, 64) -----------------------
+    b, h, t, d = 8, cfg.num_heads, 3600, 64
+    q, k, v = (torch.randn(b, h, t, d, generator=g, device=dev).to(bf) for _ in range(3))
+    table = w2v.relative_position_table(torch.randn(cfg.relative_position_buckets, h, generator=g,
+                                                    device=dev))
+    radius = (table.shape[1] - 1) // 2
+    gate = 1.0 + torch.rand(b, h, t, generator=g, device=dev)
+    kv = [3600, 3593, 2700, 1800, 3421, 900, 3600, 180]
+    kvl = torch.tensor(kv, dtype=torch.int32, device=dev)
+    rel = dict(kv_lengths=kvl, rel_table=table, rel_gate=gate)
+    out = attn_ops.flash_attention(q, k, v, **rel)
+    unbiased = attn_ops.flash_attention(q, k, v, kv_lengths=kvl)
+    over = over_half = err = dropped = -math.inf
+    worst = {}  # the element furthest beyond the half bar
+    for i in range(b):
+        one = dict(kv_lengths=kvl[i:i + 1], rel_table=table, rel_gate=gate[i:i + 1])
+        want = attn_ops.mha_reference(q[i:i + 1], k[i:i + 1], v[i:i + 1], **one).float()
+        mass = attn_ops.mha_reference(q[i:i + 1], k[i:i + 1], v[i:i + 1].abs(), **one).float()
+        diff = (out[i:i + 1].float() - want).abs()
+        scale = want.abs() + mass
+        over = max(over, (diff - K1_RELPOS_STEP * scale).max().item())
+        half = (diff - 0.5 * K1_RELPOS_STEP * scale).flatten()
+        j = int(half.argmax())
+        if half[j].item() > over_half:
+            over_half = half[j].item()
+            worst = {"item": i, "err": diff.flatten()[j].item(), "ref": want.flatten()[j].item(),
+                     "sum_p_abs_v": mass.flatten()[j].item()}
+        err = max(err, diff.max().item())
+        dropped = max(dropped, (unbiased[i:i + 1].float() - want).abs().max().item())
+        del want, mass, diff, scale, half
+    torch.cuda.synchronize()
+    print(json.dumps({"check": "flash_attention gated bias (8, 16, 3600, 64) kv_lengths",
+                      "max_abs_err": err, "max_err_over_bar": over,
+                      "max_err_over_half_bar": over_half, "slack": K1_RELPOS_SLACK,
+                      "worst": worst, "unbiased_max_abs_err": dropped}), flush=True)
+    require(over <= K1_RELPOS_SLACK and bool(torch.isfinite(out.float()).all()),
+            f"K1 gated bias err beyond 2^-7 (|ref| + sum p|v|): {over} > {K1_RELPOS_SLACK}")
+    require(dropped > 0.1, f"the unbiased kernel misses the biased plain version by only {dropped}")
+    dev_ms, names = profiled_ms(torch, lambda: attn_ops.flash_attention(q, k, v, **rel), 20)
+    require(any("flash_fwd_wgmma_kernel<64, true>" in n for n in names),
+            f"the gated-bias forward launched {names}")
+    ms = cuda_ms(torch, lambda: attn_ops.flash_attention(q, k, v, **rel), 10)
+    unbiased_ms = cuda_ms(torch, lambda: attn_ops.flash_attention(q, k, v, kv_lengths=kvl), 10)
+
+    def plain():
+        for i in range(b):
+            attn_ops.mha_reference(q[i:i + 1], k[i:i + 1], v[i:i + 1], kv_lengths=kvl[i:i + 1],
+                                   rel_table=table, rel_gate=gate[i:i + 1])
+
+    plain_ms = cuda_ms(torch, plain, 1)
+    flops, nbytes = k1_relpos_work([t] * b, kv, h, d, radius)
+    bms, bby = bound(nbytes, flops / PEAK_BF16_FLOPS)
+    del q, k, v, out, unbiased
+    torch.cuda.empty_cache()
+
+    # ---- one 8 x 60 s request through FaceFormerPredictor -------------------
+    n_verts = 15069
+    ff = FaceFormer(n_verts, 12, encoder_config=cfg)
+    ff.init_parameters(torch.Generator().manual_seed(22))
+    gw = torch.Generator().manual_seed(23)
+    with torch.no_grad():  # trained-like motion maps (the init zeroes them), as phase 4
+        for lin in (ff.vertice_map, ff.vertice_map_r):
+            lin.weight.copy_(torch.randn(lin.weight.shape, generator=gw) * 0.02)
+            lin.bias.copy_(torch.randn(lin.bias.shape, generator=gw) * 0.02)
+    state = ff.state_dict()
+    del ff
+    pred = FaceFormerPredictor(n_verts=n_verts, bf16=True, max_batch=8, bucket_seconds=5.0,
+                               state_dict=state)
+    require(pred.model.audio_encoder.config == cfg,
+            f"the predictor built {pred.model.audio_encoder.config} from WavLM Large weights")
+    rng = np.random.default_rng(22)
+
+    def clip(seconds):
+        return (rng.normal(size=int(seconds * 16000)) * 0.1).astype(np.float32)
+
+    template = rng.normal(size=(n_verts // 3, 3)).astype(np.float32)
+    pred([clip(1.0)], np.eye(12, dtype=np.float32)[[0]], template)  # library warm-up
+    audios = [clip(60.0) for _ in range(8)]
+    one_hot = np.eye(12, dtype=np.float32)[rng.integers(0, 12, 8)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attn_ops.flash_attention.relpos_launches = 0
+    tic = time.perf_counter()
+    with spans.recording() as rec:
+        res = pred(audios, one_hot, template)
+    wall = time.perf_counter() - tic
+    launches = attn_ops.flash_attention.relpos_launches
+    calls = sum(1 for s_ in rec.spans if s_.name == "predict.encode")
+    for a, y in zip(audios, res):
+        require(y.shape == (frame_count(len(a)), n_verts // 3, 3) and bool(np.isfinite(y).all()),
+                f"WavLM request shape {y.shape} or not finite")
+    require(calls == 1 and launches == 24 * calls == rec.counters["gated_bias_layers"],
+            f"the WavLM request made {calls} model calls, {launches} biased K1 launches and "
+            f"{rec.counters['gated_bias_layers']} gated layers")
+    frames = sum(y.shape[0] for y in res)
+    print(json.dumps({"wavlm_request": {
+        "clips": 8, "seconds_each": 60, "wall_s": wall, "mesh_frames_per_s": frames / wall,
+        "model_calls": calls, "relpos_launches": launches,
+        "peak_bytes": torch.cuda.max_memory_allocated(), "card": smi}}), flush=True)
+    del res
+    # the same weights through the plain versions on the card: phase 4's bar
+    plain_pred = FaceFormerPredictor(n_verts=n_verts, bf16=True, max_batch=8, bucket_seconds=5.0,
+                                     state_dict=state, use_kernels=False)
+    audios = [clip(10.0), clip(7.5)]
+    one_hot = np.eye(12, dtype=np.float32)[[4, 8]]
+    got = pred(audios, one_hot, template)
+    want = plain_pred(audios, one_hot, template)
+    l2 = max(float(np.linalg.norm(a - b_, axis=-1).max()) for a, b_ in zip(got, want))
+    disp = max(float(np.abs(b_ - template).max()) for b_ in want)
+    print(json.dumps({"check": "WavLM predictor kernels vs plain, 2 clips", "max_vertex_l2": l2,
+                      "max_offset": disp, "tol": 0.05 * disp}), flush=True)
+    require(l2 <= 0.05 * disp, f"WavLM predictor vs plain: max per-vertex L2 {l2} > {0.05 * disp}")
+    rows.append({
+        # 4b's request; later phases add their counts as for every row
+        "name": "flash_attention_relpos", "route": "cuda",
+        "source": "audio2face_tpu_torch/csrc/flash_attention.cu", "replaces": None,
+        "wrapper": attn_ops.flash_attention, "counter": "relpos_launches", "launches": launches,
+        "max_abs_err": err, "max_err_over_bar": over, "max_err_over_half_bar": over_half,
+        "slack": K1_RELPOS_SLACK,
+        "shape": [b, h, t, d], "kv_lengths": kv, "radius": radius,
+        "device_ms": dev_ms, "ms_dev": sorted(dev_ms)[2], "ms": ms, "unbiased_ms": unbiased_ms,
+        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+        "roofline_pct": 100.0 * bms / sorted(dev_ms)[2], "library_ms": None,
+    })
+    del pred, plain_pred, got, want, state
+    torch.cuda.empty_cache()
 
 
 def frame_model_phases(torch, rows, by_name, smi, pred, biwi_state, n_verts_biwi) -> None:
@@ -3170,6 +3343,9 @@ def main() -> int:
 
     del plain, got, want
     torch.cuda.empty_cache()
+
+    # ---- 4b. FaceFormer with WavLM Large: K1's gated bias, one request -------
+    wavlm_phase(torch, rows, smi)
 
     # ---- 5. path 1: a clip's predicted vertices to rendered frames -----------
     one0 = np.eye(12, dtype=np.float32)[[0]]

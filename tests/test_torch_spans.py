@@ -94,10 +94,11 @@ def chunks(pred, frames: list) -> int:
     return sum(-(-max(g) // pred.frame_batch) for g in groups)
 
 
-FACEFORMER_NAMES = {"predict.upload", "predict.model", "predict.decode", "predict.sync",
-                    "predict.head", "predict.copy", "predict.unpack"}
-# spans opened inside another than ``predict``: the decoder inside the model call
-PARENTS = {"predict.decode": "predict.model"}
+FACEFORMER_NAMES = {"predict.upload", "predict.model", "predict.encode", "predict.decode",
+                    "predict.sync", "predict.head", "predict.copy", "predict.unpack"}
+# spans opened inside another than ``predict``: the encoder and the decoder
+# inside the model call
+PARENTS = {"predict.encode": "predict.model", "predict.decode": "predict.model"}
 FRAME_NAMES = {"predict.upload", "predict.model", "predict.copy", "predict.unpack"}
 
 
