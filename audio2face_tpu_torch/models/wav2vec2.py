@@ -15,8 +15,8 @@ position buckets) is the same pipeline with three changes, each a field of
 ``Wav2Vec2Config`` whose default keeps wav2vec2-base as it is:
 
 - the conv stack: a LayerNorm over channels (f32 statistics) after every
-  conv, then GELU, on the per-layer ``conv1d`` path (the fused conv-encoder
-  kernel computes the group norm only);
+  conv, then GELU; in bf16 the fused conv-encoder kernel family runs it in
+  its layer-norm mode, in f32 the per-layer ``conv1d`` path;
 - pre-LN layers (``do_stable_layer_norm``): no LayerNorm before the stack,
   one after it (``layer_norm`` keeps its name and moves there);
 - the gated relative-position bias (``relative_position_buckets``, in
@@ -285,12 +285,13 @@ class MaskedGroupNorm(nn.Module):
 class FeatureEncoder(nn.Module):
     """Raw waveform -> (B, T50, 512) latents at ~50 fps.
 
-    bf16 without conv bias (the wav2vec2-base stack) goes through
-    ``fused_conv_encoder``; f32, and every dtype when ``train`` is set (the
-    fused kernel has no backward), runs the per-layer ``conv1d`` path with
-    the masked group norm after layer 0. A "layer"-norm stack (WavLM) always
-    runs the ``conv1d`` path, each conv followed by a LayerNorm over its
-    channels: position-wise, so padded batches need no mask."""
+    bf16 without conv bias (the wav2vec2-base and WavLM Large stacks) goes
+    through ``fused_conv_encoder`` in the mode of ``feat_extract_norm``,
+    which ``config_from_state_dict`` reads from the weights: the masked
+    group norm after layer 0, or a LayerNorm over channels after every conv
+    (position-wise, so padded batches need no mask). f32, and every dtype
+    when ``train`` is set (the fused kernel has no backward), runs the
+    per-layer ``conv1d`` path with the same norms."""
 
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
@@ -312,14 +313,15 @@ class FeatureEncoder(nn.Module):
 
     def _fused_ok(self, dtype: torch.dtype) -> bool:
         """Whether the fused kernel computes this stack: the wav2vec2-base
-        shape in bf16 with the group norm (the kernel has no layer norm)."""
+        conv shape without bias in bf16, with either norm at the kernel's
+        epsilon."""
         cfg = self.config
         return (
-            cfg.feat_extract_norm == "group"
-            and not cfg.conv_bias
+            not cfg.conv_bias
             and cfg.conv_kernel == ce.CONV_KERNEL
             and cfg.conv_stride == ce.CONV_STRIDE
             and all(d == ce.C for d in cfg.conv_dim)
+            and cfg.layer_norm_eps == ce.EPS
             and dtype == torch.bfloat16
         )
 
@@ -331,7 +333,13 @@ class FeatureEncoder(nn.Module):
             # the kernel family takes the JAX (k, c_in, c_out) kernel layout
             kernels = [conv.weight.permute(2, 1, 0) for conv in self.conv_layers]
             fn = ce.fused_conv_encoder if use_kernels else ce.conv_encoder_reference
-            return fn(x, kernels, self.group_norm.weight, self.group_norm.bias, lengths)
+            norm = self.config.feat_extract_norm
+            if norm == "layer":
+                scale = [ln.weight for ln in self.layer_norms]
+                bias = [ln.bias for ln in self.layer_norms]
+            else:
+                scale, bias = self.group_norm.weight, self.group_norm.bias
+            return fn(x, kernels, scale, bias, lengths, norm=norm)
 
         h = x[:, None, :].to(dtype)  # (B, 1, L)
         feat_lengths = lengths

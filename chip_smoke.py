@@ -49,10 +49,13 @@ which raises (exit code != 0) on failure:
    with key lengths below T against the plain version item by item (2^-7
    of |ref| and of sum p|v|), timed by the profiler and CUDA events beside
    its bound (``benchmark/counts/faceformer_wavlm.py k1_relpos_work``),
-   the unbiased kernel and the plain version; one 8 x 60 s request through
-   ``FaceFormerPredictor`` (the encoder read from the weights) launching
-   the biased kernel 24 times a model call, counted from zero just before
-   it; 2 clips against the plain versions;
+   the unbiased kernel and the plain version; K2 in its layer-norm mode
+   (WavLM's conv stack) at (8, 960000) with mixed lengths against its
+   plain version (0.05 x max|ref|), timed by the profiler beside K2's
+   bound; one 8 x 60 s request through ``FaceFormerPredictor`` (the
+   encoder read from the weights) launching the biased kernel 24 times and
+   K2's layer-norm mode once a model call (``conv_layer_norms_fused`` 7),
+   counted from zero just before it; 2 clips against the plain versions;
 5. clip to rendered frames: the same predictor's vertices for a 3.5 s clip
    on the synthetic head go through ``Renderer.render`` (pipelined, cropped
    copies into pinned buffers); the rasterizer must have launched, the
@@ -278,7 +281,25 @@ def k3_check(torch, dk, label: str, cross, style, pe, weights, **kw) -> dict:
             "err_less_bf16_step" if step else "err": over, "tol": K3_F32_TOL}
 
 
-K2_KERNELS = ("conv0_moments", "gn_fold", "conv0_gelu", "conv_gemm_wgmma")
+# K2's kernels by name (its GEMM is conv_gemm_wgmma<0> in the group-norm
+# stack, <1> in the layer-norm stack)
+K2_KERNELS = ("conv0_moments", "gn_fold", "conv0_gelu", "conv0_ln_gelu", "conv_gemm_wgmma")
+
+
+def k2_work(ce, b: int, n: int) -> tuple[float, float, float]:
+    """K2's products at (b, n) samples (layer 0's, layers 1-6's) and the
+    bytes it must move: the waveform, lengths and weights in, the last
+    layer out. Every layer multiplies bf16 operands with f32 sums, layer 0
+    included, so both count against the bf16 peak. The norms add no
+    products worth counting (the layer-norm mode's seven affines, 28 KB,
+    are left out of its bytes too)."""
+    t_l, gemm_flops = (n - 10) // 5 + 1, 0.0
+    l0_flops = 2.0 * b * t_l * 10 * ce.C
+    for kk, ss in zip(ce.CONV_KERNEL[1:], ce.CONV_STRIDE[1:]):
+        t_l = (t_l - kk) // ss + 1
+        gemm_flops += 2.0 * b * t_l * kk * ce.C * ce.C
+    w_bytes = 10 * ce.C * 4 + sum(kk * ce.C * ce.C * 2 for kk in ce.CONV_KERNEL[1:]) + 2 * ce.C * 4
+    return l0_flops, gemm_flops, b * n * 4 + b * 4 + w_bytes + b * t_l * ce.C * 2
 
 
 def k2_launch_ms(torch, fn) -> list:
@@ -719,13 +740,17 @@ def wavlm_phase(torch, rows, smi) -> None:
     buckets), bf16, random weights from a seed: K1's gated-bias forward at
     the cell's longest shape (8, 16, 3600, 64) with key lengths below T,
     against the plain version item by item and timed beside its bound and
-    the unbiased kernel; one 8 x 60 s request through
+    the unbiased kernel; K2's layer-norm mode at (8, 960000) against its
+    plain version and timed beside K2's bound; one 8 x 60 s request through
     ``FaceFormerPredictor``, whose biased launches (counted from zero just
-    before it) must be 24 a model call; 2 clips against the same weights
-    through the plain versions. Appends the ``flash_attention_relpos`` row."""
+    before it) must be 24 a model call and its layer-norm K2 calls one (7
+    ``conv_layer_norms_fused``); 2 clips against the same weights through
+    the plain versions. Appends the ``flash_attention_relpos`` and
+    ``fused_conv_encoder_layer_norm`` rows."""
     from audio2face_tpu_torch.models import wav2vec2 as w2v
     from audio2face_tpu_torch.models.faceformer import FaceFormer, frame_count
     from audio2face_tpu_torch.ops import attention as attn_ops
+    from audio2face_tpu_torch.ops import conv_encoder as ce
     from audio2face_tpu_torch.serving import FaceFormerPredictor
     from audio2face_tpu_torch.utils import spans
     from benchmark.counts.faceformer_wavlm import k1_relpos_work
@@ -791,6 +816,45 @@ def wavlm_phase(torch, rows, smi) -> None:
     del q, k, v, out, unbiased
     torch.cuda.empty_cache()
 
+    # ---- K2 in its layer-norm mode at (8, 960000) ---------------------------
+    fe = w2v.FeatureEncoder(cfg).to(dev).eval()
+    for conv in fe.conv_layers:
+        fan_in = conv.weight.shape[1] * conv.weight.shape[2]
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=g, device=dev) / fan_in ** 0.5)
+    for ln in fe.layer_norms:
+        ln.weight.copy_(1.0 + 0.1 * torch.randn(ce.C, generator=g, device=dev))
+        ln.bias.copy_(0.05 * torch.randn(ce.C, generator=g, device=dev))
+    kb, kn = 8, 960000
+    wave = 0.1 * torch.randn(kb, kn, generator=g, device=dev)
+    wlens = torch.tensor([960000, 960000, 720000, 480000, 960000, 240000, 960000, 48000],
+                         dtype=torch.int32, device=dev)
+    stack = ([conv.weight.permute(2, 1, 0) for conv in fe.conv_layers],
+             [ln.weight for ln in fe.layer_norms], [ln.bias for ln in fe.layer_norms])
+    k2 = lambda: ce.fused_conv_encoder(wave, *stack, wlens, norm="layer")  # noqa: E731
+    k2_plain = lambda: ce.conv_encoder_reference(wave, *stack, wlens, norm="layer")  # noqa: E731
+    k2_out, k2_ref = k2(), k2_plain()
+    torch.cuda.synchronize()
+    k2_err = (k2_out.float() - k2_ref.float()).abs().max().item()
+    # K2's bar (phase 3b): bf16 activations between the 7 layers
+    k2_tol = 0.05 * k2_ref.float().abs().max().item()
+    print(json.dumps({"check": "fused_conv_encoder layer norm (8, 960000) mixed lengths",
+                      "max_abs_err": k2_err, "tol": k2_tol,
+                      "max_err_over_row_max": row_scaled_err(k2_out, k2_ref)}), flush=True)
+    require(k2_err <= k2_tol and bool(torch.isfinite(k2_out.float()).all()),
+            f"K2 layer-norm mode err {k2_err} > {k2_tol}")
+    del k2_out, k2_ref
+    k2_dev, k2_names = profiled_ms(torch, k2, 20)
+    require(any("conv0_ln_gelu" in n_ for n_ in k2_names)
+            and any("conv_gemm_wgmma<true>" in n_ for n_ in k2_names)
+            and not any(w_ in n_ for n_ in k2_names for w_ in ("layer_norm", "cudnn", "convolve")),
+            f"K2's layer-norm mode launched {k2_names}")
+    k2_ms, k2_plain_ms = cuda_ms(torch, k2, 10), cuda_ms(torch, k2_plain, 2)
+    k2_launches = k2_launch_ms(torch, k2)
+    l0_flops, gemm_flops, k2_bytes = k2_work(ce, kb, kn)
+    k2_bms, k2_bby = bound(k2_bytes, (l0_flops + gemm_flops) / PEAK_BF16_FLOPS)
+    del fe, wave, stack
+    torch.cuda.empty_cache()
+
     # ---- one 8 x 60 s request through FaceFormerPredictor -------------------
     n_verts = 15069
     ff = FaceFormer(n_verts, 12, encoder_config=cfg)
@@ -818,11 +882,13 @@ def wavlm_phase(torch, rows, smi) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     attn_ops.flash_attention.relpos_launches = 0
+    ce.fused_conv_encoder.layer_norm_launches = 0
     tic = time.perf_counter()
     with spans.recording() as rec:
         res = pred(audios, one_hot, template)
     wall = time.perf_counter() - tic
     launches = attn_ops.flash_attention.relpos_launches
+    k2_launches_in_request = ce.fused_conv_encoder.layer_norm_launches
     calls = sum(1 for s_ in rec.spans if s_.name == "predict.encode")
     for a, y in zip(audios, res):
         require(y.shape == (frame_count(len(a)), n_verts // 3, 3) and bool(np.isfinite(y).all()),
@@ -830,10 +896,15 @@ def wavlm_phase(torch, rows, smi) -> None:
     require(calls == 1 and launches == 24 * calls == rec.counters["gated_bias_layers"],
             f"the WavLM request made {calls} model calls, {launches} biased K1 launches and "
             f"{rec.counters['gated_bias_layers']} gated layers")
+    fused_norms = rec.counters.get("conv_layer_norms_fused", 0)
+    require(k2_launches_in_request == calls and fused_norms == 7 * calls,
+            f"the WavLM request made {k2_launches_in_request} layer-norm K2 calls and "
+            f"{fused_norms} fused conv LayerNorms in {calls} model calls")
     frames = sum(y.shape[0] for y in res)
     print(json.dumps({"wavlm_request": {
         "clips": 8, "seconds_each": 60, "wall_s": wall, "mesh_frames_per_s": frames / wall,
         "model_calls": calls, "relpos_launches": launches,
+        "layer_norm_k2_launches": k2_launches_in_request, "conv_layer_norms_fused": fused_norms,
         "peak_bytes": torch.cuda.max_memory_allocated(), "card": smi}}), flush=True)
     del res
     # the same weights through the plain versions on the card: phase 4's bar
@@ -859,6 +930,17 @@ def wavlm_phase(torch, rows, smi) -> None:
         "device_ms": dev_ms, "ms_dev": sorted(dev_ms)[2], "ms": ms, "unbiased_ms": unbiased_ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
         "roofline_pct": 100.0 * bms / sorted(dev_ms)[2], "library_ms": None,
+    })
+    rows.append({
+        # 4b's request; later phases add their counts as for every row
+        "name": "fused_conv_encoder_layer_norm", "route": "cuda",
+        "source": "audio2face_tpu_torch/csrc/conv_encoder_ln.cu", "replaces": None,
+        "wrapper": ce.fused_conv_encoder, "counter": "layer_norm_launches",
+        "launches": k2_launches_in_request, "max_abs_err": k2_err, "tol": k2_tol,
+        "shape": [kb, kn], "device_ms": k2_dev, "ms_dev": sorted(k2_dev)[2], "ms": k2_ms,
+        "plain_ms": k2_plain_ms, "bound_ms": k2_bms, "bound_by": k2_bby,
+        "roofline_pct": 100.0 * k2_bms / sorted(k2_dev)[2], "launch_ms": k2_launches,
+        "library_ms": None,
     })
     del pred, plain_pred, got, want, state
     torch.cuda.empty_cache()
@@ -2560,13 +2642,14 @@ def main() -> int:
     for lib in ("flash_attention", "flash_attention_bwd"):
         for name, rep_ in ptxas_report((_build.BUILD_DIR / f"{lib}.log").read_text()).items():
             if "wgmma" in name:
-                resources[name] = rep_
+                # the forward without the gated bias (<D, 0>) keeps its key <D>
+                resources[name.replace(", 0>", ">")] = rep_
     for d_ in (16, 32, 64, 128):
         for name, occ in attn_ops.wgmma_occupancy(d_).items():
             resources[f"{name}<{d_}>"].update(occ)
     print(json.dumps({"attention_kernel_resources": resources}), flush=True)
     require(all(r_["spill_store_bytes"] == 0 and r_["spill_load_bytes"] == 0
-                for n_, r_ in resources.items() if n_.endswith("<64>")),
+                for n_, r_ in resources.items() if n_.endswith(("<64>", "<64, 1>"))),
             "a bf16 attention kernel spills at head dim 64")
     # the f32 attention kernels' registers and spills (-Xptxas -v) and their
     # launch plans at the frame-window, training and predictor shapes
@@ -2581,7 +2664,7 @@ def main() -> int:
           flush=True)
     # K2's and K3's registers and spills (-Xptxas -v)
     dc_resources = {}
-    for lib in ("conv_encoder", "decode_loop"):
+    for lib in ("conv_encoder", "conv_encoder_ln", "decode_loop"):
         dc_resources.update(ptxas_report((_build.BUILD_DIR / f"{lib}.log").read_text()))
     print(json.dumps({"decode_conv_kernel_resources": dc_resources}), flush=True)
     # K5's registers, spills and shared memory a block (-Xptxas -v)
@@ -2671,14 +2754,7 @@ def main() -> int:
     require(err <= tol and bool(torch.isfinite(out.float()).all()), f"K2 err {err} > {tol}")
     ms = cuda_ms(torch, lambda: ce.fused_conv_encoder(x, kernels, gscale, gbias, lens), 5)
     plain_ms = cuda_ms(torch, lambda: ce.conv_encoder_reference(x, kernels, gscale, gbias, lens), 2)
-    t_l, gemm_flops = (n - 10) // 5 + 1, 0.0
-    l0_flops = 2.0 * b * t_l * 10 * ce.C
-    for kk, ss in zip(ce.CONV_KERNEL[1:], ce.CONV_STRIDE[1:]):
-        t_l = (t_l - kk) // ss + 1
-        gemm_flops += 2.0 * b * t_l * kk * ce.C * ce.C
-    w_bytes = 10 * ce.C * 4 + sum(kk * ce.C * ce.C * 2 for kk in ce.CONV_KERNEL[1:]) + 2 * ce.C * 4
-    nbytes = b * n * 4 + b * 4 + w_bytes + b * t_l * ce.C * 2
-    # every layer multiplies bf16 operands with f32 sums, layer 0 included
+    l0_flops, gemm_flops, nbytes = k2_work(ce, b, n)
     bms, bby = bound(nbytes, (l0_flops + gemm_flops) / PEAK_BF16_FLOPS)
     launch_ms = k2_launch_ms(torch, lambda: ce.fused_conv_encoder(x, kernels, gscale, gbias, lens))
     gemm_ms = sum(m_ for k_, m_ in launch_ms if k_ == "conv_gemm_wgmma")
@@ -2689,7 +2765,7 @@ def main() -> int:
         "wrapper": ce.fused_conv_encoder, "max_abs_err": err, "tol": tol,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, "library_ms": None,
         "launch_ms": launch_ms, "gemm_share_of_bf16_peak": gemm_flops / PEAK_BF16_FLOPS / (gemm_ms / 1e3),
-        "resources": {k_: dc_resources[k_] for k_ in K2_KERNELS},
+        "resources": {k_: v_ for k_, v_ in dc_resources.items() if k_.split("<")[0] in K2_KERNELS},
     })
     print(json.dumps({"check": "fused_conv_encoder (8, 960000) mixed lengths", "max_abs_err": err,
                       "tol": tol, "ms": ms, "launch_ms": launch_ms}), flush=True)

@@ -1,7 +1,7 @@
 """The decode loop's and the conv encoder's C interface and what their
 wrappers hand it, on the CPU: each ``extern "C"`` entry point of
-``csrc/decode_loop.cu``, ``csrc/conv_encoder.cu`` and
-``csrc/frame_epilogue.cu`` against the ctypes argument types its wrapper
+``csrc/decode_loop.cu``, ``csrc/conv_encoder.cu``, ``csrc/conv_encoder_ln.cu``
+and ``csrc/frame_epilogue.cu`` against the ctypes argument types its wrapper
 binds; the decode weights' packing (bf16 storage is the f32 packing of the
 same bf16 weights, in the order of the C layout constants); the Python mirror of K3's shared-memory plan (cache rows a CTA,
 the capacity boundary, bytes a CTA) against the C constants; and the decode
@@ -55,6 +55,7 @@ C128 = c_constants("decode_loop.cu", 128)
     ("decode_loop.cu", "a2f_decode_plan", dk._PLAN_ARGTYPES),
     ("decode_loop.cu", "a2f_decode_layout", dk._LAYOUT_ARGTYPES),
     ("conv_encoder.cu", "a2f_conv_encoder", ce._ARGTYPES),
+    ("conv_encoder_ln.cu", "a2f_conv_encoder_ln", ce._LN_ARGTYPES),
     ("frame_epilogue.cu", "a2f_frame_epilogue", fe._ARGTYPES),
 ])
 def test_entry_point_matches_ctypes_binding(source, symbol, argtypes):

@@ -11,14 +11,17 @@
   the dense bias;
 - the predictor on a padded batch of unequal clips against the reference,
   and the reference without its table, which must miss by far;
-- the conv stack's path, the encoder's span and counter, and what refuses
-  the encoder (training, the backward, f32 kernels, the live paths, the
+- the conv stack's path (K2's layer-norm mode in bf16, ``conv1d`` in f32
+  and in training), the encoder's span and counter, and what refuses the
+  encoder (training, the backward, f32 kernels, the live paths, the
   sequence-parallel split, a bias without pre-LN layers).
 
 The last tests need the card (skipped without CUDA): K1's biased bf16
-forward against ``mha_reference``, an 8 x 60 s group's peak memory, and
-the span and counter there (``python3 -m pytest --noconftest
-tests/test_torch_wavlm.py -q`` on the card: this file imports no JAX).
+forward against ``mha_reference``, K2's layer-norm mode against its plain
+version at batch 1 and 8 and its counter (7 a model call), an 8 x 60 s
+group's peak memory, and the spans and counters there (``python3 -m pytest
+--noconftest tests/test_torch_wavlm.py -q`` on the card: this file imports
+no JAX).
 """
 
 from __future__ import annotations
@@ -258,25 +261,42 @@ def test_encode_span_and_gated_bias_counter():
     assert rec.counters["gated_bias_layers"] == 2 * cfg["wavlm"]["num_hidden_layers"]
 
 
-def test_layer_norm_stack_takes_the_conv1d_path(monkeypatch):
-    """Only a group-norm stack takes K2: a layer-norm stack in bf16 runs
-    ``conv1d`` with its per-conv LayerNorms."""
-    base = w2v.FeatureEncoder(w2v.Wav2Vec2Config())
-    layer = w2v.FeatureEncoder(w2v.Wav2Vec2Config(feat_extract_norm="layer"))
-    assert base._fused_ok(torch.bfloat16) and not layer._fused_ok(torch.bfloat16)
+def test_layer_norm_stack_takes_the_fused_entry(monkeypatch):
+    """A bf16 layer-norm stack of K2's shape goes to ``fused_conv_encoder``
+    in its layer-norm mode, with the seven LayerNorms' affines, and
+    wav2vec2-base's in the group-norm mode; f32 and ``train`` keep
+    ``conv1d``; on the CPU the entry runs the plain version and counts no
+    ``conv_layer_norms_fused``."""
+    base = w2v.FeatureEncoder(w2v.Wav2Vec2Config()).eval()
+    layer = w2v.FeatureEncoder(w2v.Wav2Vec2Config(feat_extract_norm="layer")).eval()
+    assert base._fused_ok(torch.bfloat16) and layer._fused_ok(torch.bfloat16)
+    assert not layer._fused_ok(torch.float32)
+    calls = []
+    fused = ce.fused_conv_encoder
 
-    def refuse(*args, **kwargs):
-        raise AssertionError("the fused conv stack ran")
+    def record(x, kernels, scale, bias, lengths=None, *, norm="group"):
+        calls.append((norm, scale, bias))
+        return fused(x, kernels, scale, bias, lengths, norm=norm)
 
-    monkeypatch.setattr(ce, "fused_conv_encoder", refuse)
-    monkeypatch.setattr(ce, "conv_encoder_reference", refuse)
-    layer.eval()
+    monkeypatch.setattr(ce, "fused_conv_encoder", record)
     x = torch.randn(2, 4000, generator=torch.Generator().manual_seed(0))
-    with torch.no_grad():
+    with torch.no_grad(), spans.recording() as rec:
         got = layer(x, dtype=torch.bfloat16)
+        assert len(calls) == 1
+        norm, scale, bias = calls[0]
+        assert norm == "layer" and len(scale) == len(bias) == 7
+        assert all(s is ln.weight and b is ln.bias
+                   for s, b, ln in zip(scale, bias, layer.layer_norms))
         want = layer(x)
-    assert got.dtype == torch.bfloat16 and got.shape == want.shape == (2, 12, 512)
+        trained = layer(x, dtype=torch.bfloat16, train=True)
+        assert len(calls) == 1  # f32 and train ran conv1d
+        base(x, dtype=torch.bfloat16)
+    assert [c[0] for c in calls] == ["layer", "group"] and calls[1][1] is base.group_norm.weight
+    assert rec.counters.get("conv_layer_norms_fused", 0) == 0
+    assert got.dtype == trained.dtype == torch.bfloat16
+    assert got.shape == trained.shape == want.shape == (2, 12, 512)
     torch.testing.assert_close(got.float(), want, rtol=0.05, atol=0.05)  # bf16 products
+    torch.testing.assert_close(trained.float(), want, rtol=0.05, atol=0.05)
 
 
 def test_base_weights_give_the_default_config():
@@ -361,12 +381,74 @@ def test_biased_kernel_matches_the_plain_version(cuda, t):
     assert (plain.float() - want.float()).abs().max().item() > 0.1
 
 
+def _layer_norm_stack(device, seed: int):
+    """WavLM Large's conv stack with random kernels and LayerNorm affines."""
+    fe = w2v.FeatureEncoder(w2v.Wav2Vec2Config(feat_extract_norm="layer")).to(device).eval()
+    g = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for conv in fe.conv_layers:
+            fan_in = conv.weight.shape[1] * conv.weight.shape[2]
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=g, device=device)
+                              / fan_in ** 0.5)
+        for ln in fe.layer_norms:
+            ln.weight.copy_(1.0 + 0.1 * torch.randn(512, generator=g, device=device))
+            ln.bias.copy_(0.05 * torch.randn(512, generator=g, device=device))
+    return fe
+
+
+@pytest.mark.parametrize("batch,seconds", [(1, 60.0), (8, 10.0)])
+def test_layer_norm_conv_stack_matches_the_plain_version(cuda, batch, seconds):
+    """K2 in its layer-norm mode against ``conv_encoder_reference`` in the
+    same mode on the same inputs (mixed lengths at batch 8), at K2's bar,
+    0.05 x max|ref|: both multiply bf16 operands with f32 sums and round
+    each layer's output once to bf16, in other orders of summation and with
+    layer 0's statistics taken analytically by the kernel."""
+    fe = _layer_norm_stack(cuda, batch)
+    n = int(seconds * 16000)
+    x = 0.1 * torch.randn(batch, n, generator=torch.Generator(device=cuda).manual_seed(7),
+                          device=cuda)
+    lengths = torch.tensor([n - 16000 * (i % 4) for i in range(batch)], device=cuda)
+    kernels = [conv.weight.permute(2, 1, 0) for conv in fe.conv_layers]
+    scale = [ln.weight for ln in fe.layer_norms]
+    bias = [ln.bias for ln in fe.layer_norms]
+    before = ce.fused_conv_encoder.layer_norm_launches
+    with torch.no_grad():
+        out = ce.fused_conv_encoder(x, kernels, scale, bias, lengths, norm="layer")
+        ref = ce.conv_encoder_reference(x, kernels, scale, bias, lengths, norm="layer")
+    torch.cuda.synchronize()
+    assert ce.fused_conv_encoder.layer_norm_launches == before + 1
+    assert out.shape == ref.shape == (batch, ce.stack_output_length(n), 512)
+    assert bool(torch.isfinite(out.float()).all())
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err < 0.05 * ref.float().abs().max().item(), err
+
+
+def test_model_call_counts_seven_fused_layer_norms(cuda):
+    """A bf16 call of a WavLM-shaped encoder (K2's conv stack with its
+    LayerNorms, two small pre-LN layers) counts 7 ``conv_layer_norms_fused``;
+    wav2vec2-base's stack counts none."""
+    small = dict(hidden_size=128, num_layers=2, num_heads=2, intermediate_size=256,
+                 pos_conv_kernel=16, pos_conv_groups=4)
+    counts = []
+    for cfg in (w2v.Wav2Vec2Config(feat_extract_norm="layer", do_stable_layer_norm=True,
+                                   relative_position_buckets=320, **small),
+                w2v.Wav2Vec2Config(**small)):
+        enc = w2v.Wav2Vec2Encoder(cfg).to(cuda).eval()
+        x = 0.1 * torch.randn(2, 32000, device=cuda)
+        with torch.no_grad(), spans.recording() as rec:
+            enc(x, lengths=torch.tensor([32000, 20000], device=cuda), dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        counts.append(rec.counters.get("conv_layer_norms_fused", 0))
+    assert counts == [7, 0]
+
+
 def test_long_group_holds_no_dense_bias(cuda):
     """An 8 x 60 s group through the WavLM Large encoder at its published
     widths (bf16): its peak memory above the weights stays within what a
     materialised (8, 16, 3600, 3600) bf16 bias would add (3.3 GB) of the
-    same call without the bias; ``predict.encode`` and
-    ``gated_bias_layers`` (24) are recorded."""
+    same call without the bias; ``predict.encode``,
+    ``gated_bias_layers`` (24) and ``conv_layer_norms_fused`` (7) are
+    recorded."""
     from audio2face_tpu_torch.models.faceformer import FaceFormer
 
     cfg = json.loads((BENCH / "configs" / "faceformer_wavlm_large.json").read_text())
@@ -398,6 +480,7 @@ def test_long_group_holds_no_dense_bias(cuda):
                 enc.config, relative_position_buckets=embed.num_embeddings))
         if bias:
             assert rec.counters["gated_bias_layers"] == 24
+            assert rec.counters["conv_layer_norms_fused"] == 7
             assert [s.name for s in rec.spans] == ["predict.encode", "predict.decode"]
         return torch.cuda.max_memory_allocated() - base
 

@@ -10,7 +10,7 @@ width 128, its plain loop), and split K2's launches by the profiler.
 ``python3 tools/torch_decode_conv_check.py`` from the repository root. It
 prints readings (one JSON object a line) and holds no bars
 (``chip_smoke.py`` does): it is the first, cheap run after an edit of
-``csrc/decode_loop.cu`` or ``csrc/conv_encoder.cu``. The cache walk is taken
+``csrc/decode_loop.cu`` or of K2 (``csrc/conv_encoder*``). The cache walk is taken
 out in a copy of ``csrc/decode_loop.cu`` built into
 ``build/decode_conv_variants/`` (each CTA then attends to row 0 alone: wrong
 results on purpose), which gives the dense chain's own time a step.
@@ -30,8 +30,6 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 import chip_smoke as cs  # noqa: E402
-
-K2_KERNELS = ("conv0_moments", "gn_fold", "conv0_gelu", "conv_gemm_wgmma")
 
 # the copies of a source with parts changed: (source, {text: replacement})
 N_STAMPS = 16
@@ -81,16 +79,16 @@ VARIANTS = {
     }),
     # K2's GEMM: no GELU in the epilogue; no tile copies past the ring's
     # first fill (stale tiles); no products
-    "no_gelu": ("conv_encoder.cu", {
+    "no_gelu": ("conv_encoder.cuh", {
         "pack_bf16(gelu(acc[4 * j + 2 * hh]), gelu(acc[4 * j + 2 * hh + 1]))":
             "pack_bf16(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1])",
     }),
-    "no_loads": ("conv_encoder.cu", {
+    "no_loads": ("conv_encoder.cuh", {
         "    if (tid == 0 && kt < nk) {": "    if (tid == 0 && kt < nk && kt < STAGES) {",
         "    mbar_wait(full + 8 * (kt % STAGES), (kt / STAGES) & 1);":
             "    if (kt < STAGES) mbar_wait(full + 8 * (kt % STAGES), (kt / STAGES) & 1);",
     }),
-    "no_mma": ("conv_encoder.cu", {
+    "no_mma": ("conv_encoder.cuh", {
         "      wgmma_ss_n256(acc, desc_sw128(stage + 64 * wg * BK * 2 + 32 * kk),\n"
         "                    desc_sw128(stage + A_BYTES + 32 * kk), 1);": "      ;",
     }),
@@ -103,25 +101,28 @@ WIDTHS = (64, 128)
 
 
 def build_variants(out_dir: Path) -> dict[str, Path]:
-    """Each of VARIANTS built into ``out_dir`` (in parallel)."""
+    """Each of VARIANTS built into ``out_dir`` (in parallel): the sources
+    copied into a directory of its own with its one file changed, and the
+    library of that file's stem built (a header's: its ``.cu`` of the same
+    name)."""
     from audio2face_tpu_torch.ops import _build
 
-    src_dir = out_dir / "src"
-    src_dir.mkdir(parents=True, exist_ok=True)
-    for header in _build.CSRC.glob("*.cuh"):
-        (src_dir / header.name).write_text(header.read_text())
     flags = [f for f in _build.NVCC_FLAGS if f != "-Xptxas=-v"]
     procs, libs = {}, {}
     for name, (source, hooks) in VARIANTS.items():
+        src_dir = out_dir / "src" / name
+        src_dir.mkdir(parents=True, exist_ok=True)
+        for f in (*_build.CSRC.glob("*.cuh"), *_build.CSRC.glob("*.cu")):
+            (src_dir / f.name).write_text(f.read_text())
         text = (_build.CSRC / source).read_text()
         for old, new in hooks.items():
             if text.count(old) != 1:
                 raise RuntimeError(f"variant {name}: {old!r} is not once in csrc/{source} any more")
             text = text.replace(old, new)
-        (src_dir / f"{name}.cu").write_text(text)
+        (src_dir / source).write_text(text)
         libs[name] = out_dir / f"lib{name}.so"
         procs[name] = subprocess.Popen([_build._nvcc(), *flags, "-o", str(libs[name]),
-                                        str(src_dir / f"{name}.cu")])
+                                        str(src_dir / (source.rsplit(".", 1)[0] + ".cu"))])
     failed = [name for name, proc in procs.items() if proc.wait() != 0]
     if failed:
         raise RuntimeError(f"nvcc failed for {failed}")
@@ -184,7 +185,7 @@ def main() -> int:
     tic = time.perf_counter()
     _build.build_all()
     print(json.dumps({"build_s": time.perf_counter() - tic}), flush=True)
-    for lib in ("decode_loop", "conv_encoder"):
+    for lib in ("decode_loop", "conv_encoder", "conv_encoder_ln"):
         log = (_build.BUILD_DIR / f"{lib}.log").read_text()
         warnings = [line for line in log.splitlines() if "warning" in line.lower()]
         print(json.dumps({lib: cs.ptxas_report(log), "warnings": warnings[-10:]}), flush=True)

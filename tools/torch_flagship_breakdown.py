@@ -55,7 +55,8 @@ GROUPS = (  # (group, substrings of CUDA kernel names)
     ("K1 flash_attention", ("flash_fwd_wgmma_kernel", "flash_fwd_f32_kernel")),
     ("K4 flash_attention_bwd", ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                                 "flash_bwd_dkdv_f32_kernel", "flash_bwd_dq_f32_kernel")),
-    ("K2 conv encoder", ("conv0_moments", "gn_fold", "conv0_gelu", "conv_gemm_wgmma")),
+    ("K2 conv encoder", ("conv0_moments", "gn_fold", "conv0_gelu", "conv0_ln_gelu",
+                         "conv_gemm_wgmma")),
     ("K3 decode loop", ("decode_cluster_kernel",)),
     ("K5 rasterizer", ("raster_subtile_kernel",)),
     ("library fft", ("regular_fft", "vector_fft", "cufft")),
