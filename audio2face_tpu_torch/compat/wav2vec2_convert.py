@@ -16,6 +16,15 @@ HF ``WavLMModel`` names convert too: a LayerNorm after every conv
 (1, heads, 1, 1), to (heads,)) and layer 0's relative-position table
 (``attention.rel_attn_embed``, to the encoder's ``rel_attn_embed``, which
 every layer shares). The layer count is the weights' own.
+
+HF ``Wav2Vec2ConformerModel`` names convert inbound too (a depthwise conv
+in layer 0 tells them): the conv biases, each block's ``ffn1``, ``ffn2``,
+their LayerNorms, ``self_attn.linear_{q,k,v,out,pos}``, ``pos_bias_u`` and
+``pos_bias_v``, and ``conv_module.*`` (the pointwise convs' (out, in, 1)
+kernels as (out, in) matrices, the BatchNorm's affine and running
+statistics; ``num_batches_tracked`` dropped) keep their names under
+``layers.{i}``; the positional conv, which the Conformer builds and never
+calls, is skipped. The outbound direction refuses Conformer weights.
 """
 
 from __future__ import annotations
@@ -75,6 +84,10 @@ def convert_wav2vec2(sd: Mapping) -> dict[str, torch.Tensor]:
         put("feature_encoder.group_norm", "feature_extractor.conv_layers.0.layer_norm")
     put("feature_projection.layer_norm", "feature_projection.layer_norm")
     put("feature_projection.projection", "feature_projection.projection")
+    if "encoder.layers.0.conv_module.depthwise_conv.weight" in sd:
+        put("layer_norm", "encoder.layer_norm")
+        _convert_conformer_blocks(sd, out)
+        return _masked_spec_embed(sd, out)
     out["pos_conv_embed.conv.weight"] = _pos_conv_weight(sd)
     out["pos_conv_embed.conv.bias"] = _t(sd["encoder.pos_conv_embed.conv.bias"])
     put("layer_norm", "encoder.layer_norm")
@@ -91,11 +104,41 @@ def convert_wav2vec2(sd: Mapping) -> dict[str, torch.Tensor]:
         put(f"layers.{i}.final_layer_norm", f"{p}.final_layer_norm")
     if "encoder.layers.0.attention.rel_attn_embed.weight" in sd:
         out["rel_attn_embed.weight"] = _t(sd["encoder.layers.0.attention.rel_attn_embed.weight"])
+    return _masked_spec_embed(sd, out)
+
+
+def _masked_spec_embed(sd: Mapping, out: dict) -> dict:
     if "masked_spec_embed" in sd:
         out["masked_spec_embed"] = _t(sd["masked_spec_embed"])
     else:
         out["masked_spec_embed"] = torch.zeros(out["feature_projection.projection.weight"].shape[0])
     return out
+
+
+# a Conformer block's tensors whose names the port keeps
+_CONFORMER_KEPT = tuple(
+    [f"{n}.{leaf}" for n in ("ffn1_layer_norm", "self_attn_layer_norm", "ffn2_layer_norm",
+                             "final_layer_norm", "conv_module.layer_norm",
+                             "ffn1.intermediate_dense", "ffn1.output_dense",
+                             "ffn2.intermediate_dense", "ffn2.output_dense", "self_attn.linear_q",
+                             "self_attn.linear_k", "self_attn.linear_v", "self_attn.linear_out")
+     for leaf in ("weight", "bias")]
+    + ["self_attn.linear_pos.weight", "self_attn.pos_bias_u", "self_attn.pos_bias_v",
+       "conv_module.depthwise_conv.weight"]
+    + [f"conv_module.batch_norm.{leaf}" for leaf in ("weight", "bias", "running_mean",
+                                                      "running_var")])
+
+
+def _convert_conformer_blocks(sd: Mapping, out: dict) -> None:
+    """HF ``Wav2Vec2ConformerEncoderLayer`` tensors -> the port's
+    ``layers.{i}`` (module note)."""
+    for i in range(_count(sd, "encoder.layers.{}.self_attn.linear_q.weight")):
+        src, dst = f"encoder.layers.{i}.", f"layers.{i}."
+        for name in _CONFORMER_KEPT:
+            out[dst + name] = _t(sd[src + name])
+        for name in ("pointwise_conv1", "pointwise_conv2"):
+            out[f"{dst}conv_module.{name}.weight"] = _t(
+                sd[f"{src}conv_module.{name}.weight"]).squeeze(-1)
 
 
 def strip_prefix(sd: Mapping, prefix: str) -> dict:
@@ -121,7 +164,11 @@ def export_wav2vec2(sd: Mapping) -> dict[str, np.ndarray]:
     weight-norm form (dim=2: one norm per kernel position over (O, I)), so
     ``g * v / ||v||`` gives the folded kernel back at load. Lets FaceFormer
     models trained by the port load into the reference's module, which
-    expects the full ``audio_encoder.*`` key set."""
+    expects the full ``audio_encoder.*`` key set. Conformer weights are
+    refused."""
+    if "layers.0.conv_module.depthwise_conv.weight" in sd:
+        raise ValueError("export_wav2vec2 writes wav2vec2 and WavLM names; the Conformer "
+                         "encoder's outbound names are not mapped")
     out: dict[str, np.ndarray] = {}
 
     def put(dst: str, src: str) -> None:

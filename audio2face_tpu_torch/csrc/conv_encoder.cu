@@ -171,5 +171,5 @@ extern "C" int a2f_conv_encoder(const float* x, const int* feat_len,
   conv0_gelu<<<dim3((t0 + L0_FRAMES - 1) / L0_FRAMES, batch), C / 2, 0, s>>>(
       x, w0, gs, gb, static_cast<__nv_bfloat16*>(buf0), n_samples, t0);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return gemm_layers<false>(w_stack, buf0, buf1, out, batch, t0, nullptr, nullptr, s);
+  return gemm_layers<false>(w_stack, buf0, buf1, out, batch, t0, nullptr, nullptr, nullptr, s);
 }

@@ -31,7 +31,9 @@
 //     memory after a cluster barrier: the mean first, then the squared
 //     deviations from it (two passes, so the variance does not cancel).
 //     Both blocks add the same two numbers, so they use the same
-//     statistics. Then the affine, the GELU and one bf16 rounding.
+//     statistics. Then the affine, the GELU and one bf16 rounding. A conv
+//     bias (the wav2vec2-Conformer's stack; null for WavLM's) is added to
+//     the accumulators first, so the statistics are the biased output's.
 // The GELU is the exact erf form (erff).
 
 #pragma once
@@ -98,13 +100,15 @@ __device__ __forceinline__ void cluster_wait() {
 // transposed kernel (512, k*512), columns 64 kt...; both K-major in the
 // 128-byte swizzle. Grid: (512 / BN, M tiles, batch), so the blocks that
 // share an A tile run side by side and read it from L2. LN: the layer-norm
-// epilogue (ln_scale, ln_bias: the layer's affine, f32), launched with
-// those two blocks as a cluster; the group-norm stack passes nulls.
+// epilogue (ln_scale, ln_bias: the layer's affine, f32; conv_bias: the
+// conv's f32 bias or null), launched with those two blocks as a cluster;
+// the group-norm stack passes nulls.
 template <bool LN>
 __global__ void __launch_bounds__(GEMM_THREADS, 1)
 conv_gemm_wgmma(const __grid_constant__ CUtensorMap tm_h, const __grid_constant__ CUtensorMap tm_w,
                 __nv_bfloat16* __restrict__ out, int t_out, int k_taps,
-                const float* __restrict__ ln_scale, const float* __restrict__ ln_bias) {
+                const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
+                const float* __restrict__ conv_bias) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t full = ring + STAGES * STAGE_BYTES;  // mbarrier of stage s at full + 8 s
@@ -174,6 +178,18 @@ conv_gemm_wgmma(const __grid_constant__ CUtensorMap tm_h, const __grid_constant_
     const int r0 = 64 * wg + 16 * wq + l / 4;  // the thread's rows r0 and r0 + 8
     const uint32_t peer = map_rank(smem_u32(&part[0][0]), cluster_rank() ^ 1u);
     float mean[2], rstd[2], own[2];
+    if (conv_bias != nullptr) {
+      const float2* cb = reinterpret_cast<const float2*>(conv_bias + n0) + l % 4;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float2 bj = cb[4 * j];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          acc[4 * j + 2 * hh] += bj.x;
+          acc[4 * j + 2 * hh + 1] += bj.y;
+        }
+      }
+    }
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       float s = 0.f;
@@ -265,11 +281,11 @@ bool encode(CUtensorMap* tm, const void* base, int rank, const cuuint64_t* dims,
 
 // one layer: h (batch, t_in, 512) -> out (batch, t_out, 512); w the
 // transposed kernel (512, k*512); LN: the layer's LayerNorm (ln_scale,
-// ln_bias), each block pair along N a cluster
+// ln_bias) after its conv bias (or null), each block pair along N a cluster
 template <bool LN>
 cudaError_t conv_layer(const __nv_bfloat16* h, const __nv_bfloat16* w, __nv_bfloat16* out,
                        int batch, int t_in, int t_out, int k, const float* ln_scale,
-                       const float* ln_bias, cudaStream_t s) {
+                       const float* ln_bias, const float* conv_bias, cudaStream_t s) {
   CUtensorMap tm_h, tm_w;
   const cuuint64_t h_dims[3] = {C, (cuuint64_t)t_in, (cuuint64_t)batch};
   const cuuint64_t h_strides[2] = {C * 2, (cuuint64_t)t_in * C * 2};
@@ -283,7 +299,7 @@ cudaError_t conv_layer(const __nv_bfloat16* h, const __nv_bfloat16* w, __nv_bflo
   dim3 grid(C / BN, (t_out + BM - 1) / BM, batch);
   if constexpr (!LN) {
     conv_gemm_wgmma<false><<<grid, GEMM_THREADS, GEMM_SMEM, s>>>(tm_h, tm_w, out, t_out, k,
-                                                                  nullptr, nullptr);
+                                                                  nullptr, nullptr, nullptr);
     return cudaGetLastError();
   } else {
     cudaLaunchConfig_t cfg = {};
@@ -299,7 +315,7 @@ cudaError_t conv_layer(const __nv_bfloat16* h, const __nv_bfloat16* w, __nv_bflo
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     cudaError_t err = cudaLaunchKernelEx(&cfg, conv_gemm_wgmma<true>, tm_h, tm_w, out, t_out, k,
-                                         ln_scale, ln_bias);
+                                         ln_scale, ln_bias, conv_bias);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
   }
@@ -310,10 +326,12 @@ constexpr int KERNEL[7] = {10, 3, 3, 3, 3, 2, 2};
 int out_len(int n, int k, int s) { return (n - k) / s + 1; }
 
 // layers 1-6 from buf0 (layer 0's output, t0 rows) to out; LN: each
-// layer's affine at ln_scale + 512 layer, ln_bias + 512 layer
+// layer's affine at ln_scale + 512 layer, ln_bias + 512 layer, and its conv
+// bias at conv_bias + 512 layer (conv_bias null: none)
 template <bool LN>
 cudaError_t gemm_layers(const void* w_stack, void* buf0, void* buf1, void* out, int batch, int t0,
-                        const float* ln_scale, const float* ln_bias, cudaStream_t s) {
+                        const float* ln_scale, const float* ln_bias, const float* conv_bias,
+                        cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(conv_gemm_wgmma<LN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
   if (err != cudaSuccess) return err;
@@ -328,7 +346,8 @@ cudaError_t gemm_layers(const void* w_stack, void* buf0, void* buf1, void* out, 
     const __nv_bfloat16* src = bufs[(layer + 1) % 2];
     __nv_bfloat16* dst = layer == 6 ? static_cast<__nv_bfloat16*>(out) : bufs[layer % 2];
     err = conv_layer<LN>(src, w, dst, batch, t_in, t_out, k,
-                         LN ? ln_scale + layer * C : nullptr, LN ? ln_bias + layer * C : nullptr, s);
+                         LN ? ln_scale + layer * C : nullptr, LN ? ln_bias + layer * C : nullptr,
+                         LN && conv_bias ? conv_bias + layer * C : nullptr, s);
     if (err != cudaSuccess) return err;
     w += (size_t)k * C * C;
     t_in = t_out;

@@ -19,8 +19,9 @@ loop:
 
 The decoder width d is ``feature_dim``: 64 by default (the repo's models),
 128 for FaceFormer's published BIWI decoder (4 heads of d / 4, FFN 2d).
-The audio encoder is ``encoder_config``'s: wav2vec2-base by default, or
-WavLM Large (``models/wav2vec2.py``), inside the span ``predict.encode``.
+The audio encoder is ``encoder_config``'s: wav2vec2-base by default, WavLM
+Large, or the wav2vec2-Conformer (``models/wav2vec2.py``), inside the span
+``predict.encode``.
 ``FaceFormer.decode`` is the decoder: the latents' cross projections and
 the decode loop, inside the span ``predict.decode`` (``utils/spans.py``),
 counting ``decode_steps`` (batch rows x steps) and, in the kernel,

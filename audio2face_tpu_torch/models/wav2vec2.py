@@ -35,6 +35,16 @@ position buckets) is the same pipeline with three changes, each a field of
   ``gated_bias_layers`` (``utils/spans.py``). The WavLM encoder serves
   only: training, the live paths and the parallel hooks refuse it.
 
+The wav2vec2-Conformer with relative positions (``layer_kind=
+"conformer"``; HF ``Wav2Vec2ConformerModel``, the
+``facebook/wav2vec2-conformer-rel-pos-large`` config) keeps the conv stack
+(in the layer-norm mode, with the conv bias), the fps adapter and the
+projection, and replaces the rest: no positional conv, Conformer blocks
+(``models/conformer.py``: macaron half-step FFNs, Transformer-XL
+relative-position attention inside K1, the convolution module) on the
+sinusoid of the call's offsets, and one LayerNorm after the stack. It
+serves only, as WavLM does.
+
 Parameters stay f32; each layer computes in the caller's ``dtype`` (f32,
 or bf16 for serving), casting weights at use as the JAX modules do. The
 conv stack goes through the fused conv-encoder kernel family in bf16 and
@@ -114,11 +124,25 @@ class Wav2Vec2Config:
     feat_extract_norm: str = "group"
     do_stable_layer_norm: bool = False
     relative_position_buckets: int = 0
+    # the wav2vec2-Conformer (module note): "conformer" blocks with their
+    # depthwise conv's kernel
+    layer_kind: str = "transformer"
+    conv_depthwise_kernel_size: int = 31
 
     def __post_init__(self):
         if self.relative_position_buckets > 0 and not self.do_stable_layer_norm:
             raise ValueError("the gated relative-position bias runs in pre-LN layers only "
                              "(do_stable_layer_norm), as WavLM Large has them")
+        if self.layer_kind not in ("transformer", "conformer"):
+            raise ValueError(f"layer_kind {self.layer_kind!r}: want 'transformer' or 'conformer'")
+        if self.conformer and (self.do_stable_layer_norm or self.relative_position_buckets):
+            raise ValueError("Conformer blocks have their own norms and positions: no "
+                             "do_stable_layer_norm or relative_position_buckets")
+
+    @property
+    def conformer(self) -> bool:
+        """Whether the layers are Conformer blocks: inference only."""
+        return self.layer_kind == "conformer"
 
     @property
     def wavlm(self) -> bool:
@@ -313,11 +337,11 @@ class FeatureEncoder(nn.Module):
 
     def _fused_ok(self, dtype: torch.dtype) -> bool:
         """Whether the fused kernel computes this stack: the wav2vec2-base
-        conv shape without bias in bf16, with either norm at the kernel's
-        epsilon."""
+        conv shape in bf16, with either norm at the kernel's epsilon; a conv
+        bias only in the layer-norm mode (the wav2vec2-Conformer's)."""
         cfg = self.config
         return (
-            not cfg.conv_bias
+            (not cfg.conv_bias or cfg.feat_extract_norm == "layer")
             and cfg.conv_kernel == ce.CONV_KERNEL
             and cfg.conv_stride == ce.CONV_STRIDE
             and all(d == ce.C for d in cfg.conv_dim)
@@ -337,8 +361,10 @@ class FeatureEncoder(nn.Module):
             if norm == "layer":
                 scale = [ln.weight for ln in self.layer_norms]
                 bias = [ln.bias for ln in self.layer_norms]
-            else:
-                scale, bias = self.group_norm.weight, self.group_norm.bias
+                extra = ({"conv_bias": [conv.bias for conv in self.conv_layers]}
+                         if self.config.conv_bias else {})
+                return fn(x, kernels, scale, bias, lengths, norm=norm, **extra)
+            scale, bias = self.group_norm.weight, self.group_norm.bias
             return fn(x, kernels, scale, bias, lengths, norm=norm)
 
         h = x[:, None, :].to(dtype)  # (B, 1, L)
@@ -575,10 +601,17 @@ class Wav2Vec2Encoder(nn.Module):
         self.feature_encoder = FeatureEncoder(config)
         self.feature_projection = FeatureProjection(config)
         self.masked_spec_embed = nn.Parameter(torch.zeros(config.hidden_size))
-        self.pos_conv_embed = PositionalConvEmbedding(config)
-        # before the layers, or after them with do_stable_layer_norm
+        if not config.conformer:
+            self.pos_conv_embed = PositionalConvEmbedding(config)
+        # before the layers, or after them with do_stable_layer_norm or
+        # Conformer blocks
         self.layer_norm = nn.LayerNorm(config.hidden_size, eps=config.layer_norm_eps)
-        self.layers = nn.ModuleList(EncoderLayer(config) for _ in range(config.num_layers))
+        if config.conformer:
+            from audio2face_tpu_torch.models.conformer import ConformerLayer
+
+            self.layers = nn.ModuleList(ConformerLayer(config) for _ in range(config.num_layers))
+        else:
+            self.layers = nn.ModuleList(EncoderLayer(config) for _ in range(config.num_layers))
         if config.relative_position_buckets > 0:
             # HF's layer 0 table, shared by every layer
             self.rel_attn_embed = nn.Embedding(config.relative_position_buckets, config.num_heads)
@@ -600,6 +633,9 @@ class Wav2Vec2Encoder(nn.Module):
                 m.weight.normal_(0.0, 1.0, generator=generator)
             elif isinstance(m, EncoderLayer) and hasattr(m, "gru_rel_pos_const"):
                 m.gru_rel_pos_const.fill_(1.0)
+            elif hasattr(m, "running_var"):  # a Conformer block's eval BatchNorm
+                m.weight.fill_(1.0)
+                m.bias.zero_()
         self.masked_spec_embed.uniform_(0.0, 1.0, generator=generator)
 
     def forward(
@@ -684,6 +720,12 @@ class Wav2Vec2Encoder(nn.Module):
             # zero padded positions before the (global) positional conv
             valid = torch.arange(h.shape[1], device=h.device)[None, :] < feat_lengths.to(h.device)[:, None]
             h = h * valid[..., None].to(h.dtype)
+        if cfg.conformer:
+            if train or pre_layers_only:
+                raise ValueError(
+                    "the Conformer encoder (relative-position attention, conv modules) serves "
+                    "only: no training and no sequence-parallel split")
+            return self._conformer_layers(h, feat_lengths, dtype, use_kernels)
         h = h + self.pos_conv_embed(h, dtype)
         if cfg.wavlm:
             if train or pre_layers_only:
@@ -726,6 +768,21 @@ class Wav2Vec2Encoder(nn.Module):
                       rel_table=table)
         return layer_norm(h, self.layer_norm, dtype)
 
+    def _conformer_layers(self, h: torch.Tensor, feat_lengths, dtype: torch.dtype,
+                          use_kernels: bool) -> torch.Tensor:
+        """The Conformer stack on the sinusoid of the call's offsets (made
+        once a call), the LayerNorm after it."""
+        from audio2face_tpu_torch.models.conformer import relative_sinusoid
+
+        t = h.shape[1]
+        pe = relative_sinusoid(t, self.config.hidden_size, h.device)
+        valid = None
+        if feat_lengths is not None:
+            valid = torch.arange(t, device=h.device)[None, :] < feat_lengths.to(h.device)[:, None]
+        for layer in self.layers:
+            h = layer(h, pe, feat_lengths, valid, dtype=dtype, use_kernels=use_kernels)
+        return layer_norm(h, self.layer_norm, dtype)
+
 
 def config_from_state_dict(sd, prefix: str = "") -> Wav2Vec2Config:
     """The encoder config of a port state dict (its keys under ``prefix``):
@@ -737,7 +794,9 @@ def config_from_state_dict(sd, prefix: str = "") -> Wav2Vec2Config:
     wide, as every wav2vec2 and WavLM size has them. The rest (conv
     strides) is the default, so wav2vec2-base weights give
     ``Wav2Vec2Config()`` back; a table without the per-conv LayerNorms
-    (WavLM Base's post-LN layout) is refused."""
+    (WavLM Base's post-LN layout) is refused. A depthwise conv in layer 0
+    makes the layers Conformer blocks (heads from ``pos_bias_u``, the
+    kernel from the conv's shape)."""
 
     def get(key):
         return sd[prefix + key]
@@ -745,22 +804,31 @@ def config_from_state_dict(sd, prefix: str = "") -> Wav2Vec2Config:
     n_convs = n_layers = 0
     while prefix + f"feature_encoder.conv_layers.{n_convs}.weight" in sd:
         n_convs += 1
-    while prefix + f"layers.{n_layers}.q_proj.weight" in sd:
-        n_layers += 1
     convs = [get(f"feature_encoder.conv_layers.{i}.weight").shape for i in range(n_convs)]
     hidden = get("feature_projection.projection.weight").shape[0]
-    pos = get("pos_conv_embed.conv.weight").shape
     layer_norms = prefix + "feature_encoder.layer_norms.0.weight" in sd
+    stack = dict(conv_dim=tuple(c[0] for c in convs), conv_kernel=tuple(c[2] for c in convs),
+                 conv_bias=prefix + "feature_encoder.conv_layers.0.bias" in sd,
+                 hidden_size=hidden, feat_extract_norm="layer" if layer_norms else "group")
+    if prefix + "layers.0.conv_module.depthwise_conv.weight" in sd:
+        while prefix + f"layers.{n_layers}.self_attn.linear_q.weight" in sd:
+            n_layers += 1
+        return dataclasses.replace(
+            Wav2Vec2Config(), **stack, num_layers=n_layers,
+            num_heads=get("layers.0.self_attn.pos_bias_u").shape[0],
+            intermediate_size=get("layers.0.ffn1.intermediate_dense.weight").shape[0],
+            layer_kind="conformer",
+            conv_depthwise_kernel_size=get("layers.0.conv_module.depthwise_conv.weight").shape[2],
+        )
+    while prefix + f"layers.{n_layers}.q_proj.weight" in sd:
+        n_layers += 1
+    pos = get("pos_conv_embed.conv.weight").shape
     table = sd.get(prefix + "rel_attn_embed.weight")
     return dataclasses.replace(
-        Wav2Vec2Config(),
-        conv_dim=tuple(c[0] for c in convs), conv_kernel=tuple(c[2] for c in convs),
-        conv_bias=prefix + "feature_encoder.conv_layers.0.bias" in sd,
-        hidden_size=hidden, num_layers=n_layers,
+        Wav2Vec2Config(), **stack, num_layers=n_layers,
         num_heads=hidden // 64 if table is None else table.shape[1],
         intermediate_size=get("layers.0.intermediate_dense.weight").shape[0],
         pos_conv_kernel=pos[2], pos_conv_groups=hidden // pos[1],
-        feat_extract_norm="layer" if layer_norms else "group",
         do_stable_layer_norm=layer_norms,
         relative_position_buckets=0 if table is None else table.shape[0],
     )

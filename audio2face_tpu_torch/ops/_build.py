@@ -23,8 +23,8 @@ from typing import Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("flash_attention", "flash_attention_bwd", "conv_encoder", "conv_encoder_ln",
-           "decode_loop", "rasterizer", "frame_epilogue")
+SOURCES = ("flash_attention", "flash_attention_bwd", "flash_attention_xl", "conv_encoder",
+           "conv_encoder_ln", "decode_loop", "rasterizer", "frame_epilogue")
 # frame models on MFCC features launch no other kernel; the others take ~20 s
 # to build
 ALONE = ("frame_epilogue",)

@@ -43,6 +43,18 @@ memory and two gate values a thread, so no (Tq, Tk) tensor exists;
 under autograd, with dropout, a causal mask or ALiBi, an f32 launch, and
 the backward refuse it.
 
+``rel_pos`` (H, 2R + 1, D) and ``rel_pos_bias`` (H, 2R + 1) f32 make the
+attention Transformer-XL's relative-position attention (Dai et al.,
+arXiv:1901.02860 §3.3), as the wav2vec2-Conformer computes it: the score
+of query i and key j in head h is ``sm_scale * (q_i . k_j + q_i .
+rel_pos[h, i - j + R] + rel_pos_bias[h, i - j + R])``, with the caller's
+``pos_bias_u`` folded into q and ``rel_pos_bias = (v - u) . r`` (no TPU
+counterpart: the JAX package has no Conformer). bf16 CUDA launches compute
+both terms inside ``csrc/flash_attention_xl.cu`` (head dim 64, R at least
+``max(Tq, Tk) - 1``), so no (Tq, Tk) or (Tq, 2R + 1) tensor exists;
+``mha_reference`` builds the dense term. Like the gated bias it serves
+only, and refuses the same options.
+
 ``decode_step_attention`` (one KV-cached decode step of the live decoders)
 is plain torch operations, as the JAX package's is XLA einsums.
 """
@@ -211,14 +223,59 @@ def _check_rel_bias(q, rel_table, rel_gate, causal, alibi_period, dropout_rate):
         raise TypeError("rel_table and rel_gate are f32")
 
 
+def relative_position_scores(q: torch.Tensor, rel_pos: torch.Tensor, rel_pos_bias: torch.Tensor,
+                             t_k: int) -> torch.Tensor:
+    """Dense (B, H, Tq, Tk) Transformer-XL term ``q_i . rel_pos[h, i - j +
+    R] + rel_pos_bias[h, i - j + R]``, unscaled, in the accumulation type,
+    for the plain versions: the (B, H, Tq, 2R + 1) product, then the pick
+    of offset i - j for each score (HF's shift)."""
+    acc = _acc_dtype(q)
+    r = (rel_pos.shape[1] - 1) // 2
+    t_q = q.shape[2]
+    full = torch.einsum("bhqd,hmd->bhqm", q.to(acc), rel_pos.to(acc))
+    full = full + rel_pos_bias.to(acc)[None, :, None]
+    dev = q.device
+    off = torch.arange(t_q, device=dev)[:, None] - torch.arange(t_k, device=dev)[None, :] + r
+    idx = off[None, None].expand(q.shape[0], q.shape[1], t_q, t_k)
+    return torch.gather(full, 3, idx)
+
+
+def _check_rel_pos(q, k, rel_pos, rel_pos_bias, rel_table, causal, alibi_period, dropout_rate):
+    """Refuse what Transformer-XL attention is not for, and shapes that do
+    not fit q and k."""
+    if (rel_pos is None) != (rel_pos_bias is None):
+        raise ValueError("rel_pos and rel_pos_bias go together")
+    if rel_pos is None:
+        return
+    b, h, t_q, d = q.shape
+    t_k = k.shape[2]
+    if causal or alibi_period is not None or dropout_rate > 0.0 or rel_table is not None:
+        raise ValueError("relative-position attention takes no causal mask, ALiBi, dropout or "
+                         "gated bias")
+    shape = tuple(rel_pos.shape)
+    if len(shape) != 3 or (shape[0], shape[2]) != (h, d) or shape[1] % 2 != 1:
+        raise ValueError(f"rel_pos {tuple(rel_pos.shape)}: want ({h}, 2R + 1, {d})")
+    if (rel_pos.shape[1] - 1) // 2 < max(t_q, t_k) - 1:
+        raise ValueError(f"rel_pos holds offsets to {(rel_pos.shape[1] - 1) // 2}; "
+                         f"{t_q} queries and {t_k} keys need {max(t_q, t_k) - 1}")
+    if tuple(rel_pos_bias.shape) != tuple(rel_pos.shape[:2]):
+        raise ValueError(
+            f"rel_pos_bias {tuple(rel_pos_bias.shape)}: want {tuple(rel_pos.shape[:2])}")
+    if rel_pos.dtype != q.dtype or rel_pos_bias.dtype != torch.float32:
+        raise TypeError("rel_pos is in q's dtype, rel_pos_bias f32")
+
+
 def _masked_scores(q, k, causal, alibi_period, kv_lengths, sm_scale, rel_table=None,
-                   rel_gate=None):
+                   rel_gate=None, rel_pos=None, rel_pos_bias=None):
     """Scaled, biased scores (B, H, Tq, Tk) in the accumulation type, masked
     positions at ``DEFAULT_MASK_VALUE``, and the boolean validity mask."""
     b, h, t_q, _ = q.shape
     t_k = k.shape[2]
     acc = _acc_dtype(q)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * sm_scale
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc))
+    if rel_pos is not None:
+        s = s + relative_position_scores(q, rel_pos, rel_pos_bias, t_k)
+    s = s * sm_scale
     i = torch.arange(t_q, device=q.device)[:, None]
     j = torch.arange(t_k, device=q.device)[None, :]
     if alibi_period is not None:
@@ -249,6 +306,8 @@ def mha_reference(
     hash_index=None,
     rel_table: Optional[torch.Tensor] = None,
     rel_gate: Optional[torch.Tensor] = None,
+    rel_pos: Optional[torch.Tensor] = None,
+    rel_pos_bias: Optional[torch.Tensor] = None,
 ):
     """Plain multi-head attention. q, k, v: (B, H, T, D) -> (B, H, Tq, D).
 
@@ -258,15 +317,19 @@ def mha_reference(
     ``dropout_seed`` (int or one-element tensor) the normalized
     probabilities are multiplied by the hash mask of ``dropout_keep_mask``
     (``hash_index`` as in ``hash_batch_heads``). ``rel_table`` and
-    ``rel_gate``: the gated relative-position bias (module note), dense."""
+    ``rel_gate``: the gated relative-position bias (module note), dense;
+    ``rel_pos`` and ``rel_pos_bias``: Transformer-XL's term (module note),
+    dense."""
     b, h, t_q, d = q.shape
     t_k = k.shape[2]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    _check_rel_bias(q, rel_table, rel_gate, causal, alibi_period,
-                    dropout_rate if dropout_seed is not None else 0.0)
+    rate = dropout_rate if dropout_seed is not None else 0.0
+    _check_rel_bias(q, rel_table, rel_gate, causal, alibi_period, rate)
+    _check_rel_pos(q, k, rel_pos, rel_pos_bias, rel_table, causal, alibi_period, rate)
     acc = _acc_dtype(q)
-    s, _ = _masked_scores(q, k, causal, alibi_period, kv_lengths, sm_scale, rel_table, rel_gate)
+    s, _ = _masked_scores(q, k, causal, alibi_period, kv_lengths, sm_scale, rel_table, rel_gate,
+                          rel_pos, rel_pos_bias)
     p = torch.softmax(s, dim=-1)
     if dropout_rate > 0.0 and dropout_seed is not None:
         p = p * attention_keep_mask(
@@ -333,6 +396,9 @@ _BWD_ARGTYPES = [ctypes.c_void_p] * 12 + _TAIL_ARGTYPES
 # head_dim, radius; sm_scale; stream
 _RELPOS_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                     + [ctypes.c_float, ctypes.c_void_p])
+# q, k, v, o, lse, kv_len, rel; batch, heads, t_q, t_k, head_dim, radius;
+# sm_scale; stream
+_XL_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 # head_dim, int info[4]
 _OCCUPANCY_ARGTYPES = [ctypes.c_int, ctypes.c_void_p]
 # head_dim, batch_heads, t_q, t_k, int info[5]
@@ -434,6 +500,57 @@ def _flash_attention_relpos_cuda(q, k, v, kv_lengths, sm_scale, rel_table, rel_g
     return out, lse
 
 
+def xl_position_rows(rel_pos: torch.Tensor, rel_pos_bias: torch.Tensor) -> torch.Tensor:
+    """The (H, 2R + 1, 80) bf16 rows the Transformer-XL kernel reads:
+    ``rel_pos`` (64), then ``rel_pos_bias`` as ``c_hi + c_lo`` (two bf16
+    columns, which the kernel's ones operand adds to each score's f32 sum),
+    then 14 zeros."""
+    h, n, d = rel_pos.shape
+    rows = torch.zeros((h, n, d + 16), dtype=torch.bfloat16, device=rel_pos.device)
+    rows[..., :d] = rel_pos
+    hi = rel_pos_bias.to(torch.bfloat16)
+    rows[..., d] = hi
+    rows[..., d + 1] = (rel_pos_bias - hi.float()).to(torch.bfloat16)
+    return rows
+
+
+def _flash_attention_xl_cuda(q, k, v, kv_lengths, sm_scale, rel_pos, rel_pos_bias):
+    """(out, lse) of the bf16 forward with Transformer-XL's relative-position
+    term computed in the kernel."""
+    _check_kernel_inputs("flash_attention", q, k, v)
+    b, h, t_q, d = q.shape
+    t_k = k.shape[2]
+    if q.dtype != torch.bfloat16 or d != 64 or not sm_scale > 0:
+        raise ValueError(
+            "relative-position attention runs in the bf16 kernel at head dim 64 with a positive "
+            f"scale, not {q.dtype} at {d}, scale {sm_scale}")
+    qf, kf, vf = _kernel_layout(q), _kernel_layout(k), _kernel_layout(v)
+    kvlen = _kernel_side_inputs(q, t_k, kv_lengths, 0.0, None)[0]
+    rows = xl_position_rows(rel_pos, rel_pos_bias)
+    out = torch.empty((b, h, t_q, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device)
+    fn = _build.function("flash_attention_xl", "a2f_flash_attention_fwd_xl", _XL_ARGTYPES)
+    rc = fn(
+        qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        kvlen.data_ptr(), rows.data_ptr(), b, h, t_q, t_k, d, (rel_pos.shape[1] - 1) // 2,
+        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(rc, "flash_attention_xl")
+    flash_attention.launches += 1
+    flash_attention.xl_launches += 1
+    return out, lse
+
+
+def xl_occupancy() -> dict[str, int]:
+    """Shared memory per block (bytes) and resident blocks per SM of the
+    Transformer-XL kernel, as the CUDA runtime reports them."""
+    info = (ctypes.c_int * 2)()
+    fn = _build.function("flash_attention_xl", "a2f_flash_attention_fwd_xl_occupancy",
+                         [ctypes.c_void_p])
+    _build.check(fn(info), "a2f_flash_attention_fwd_xl_occupancy")
+    return {"smem_bytes": info[0], "blocks_per_sm": info[1]}
+
+
 def _flash_attention_bwd_cuda(
     q, k, v, out, lse, g, causal, alibi_period, kv_lengths, sm_scale, dropout_rate, dropout_seed,
     hash_index=None,
@@ -524,6 +641,8 @@ def flash_attention_bwd(
     hash_index=None,
     rel_table: Optional[torch.Tensor] = None,
     rel_gate: Optional[torch.Tensor] = None,
+    rel_pos: Optional[torch.Tensor] = None,
+    rel_pos_bias: Optional[torch.Tensor] = None,
 ):
     """Backward of ``flash_attention``: (dq, dk, dv) in q's dtype from the
     forward's ``out`` and ``lse`` and the output gradient ``g``.
@@ -531,10 +650,13 @@ def flash_attention_bwd(
     CUDA tensors launch the two backward kernels (dq with delta, then dk/dv)
     for every shape; CPU tensors run ``flash_attention_bwd_reference``. With
     dropout, ``dropout_seed`` and ``hash_index`` must be the forward's. The
-    gated relative-position bias has no backward: ``rel_table`` or
-    ``rel_gate`` raises."""
+    gated relative-position bias and Transformer-XL's term have no
+    backward: ``rel_table``, ``rel_gate``, ``rel_pos`` or ``rel_pos_bias``
+    raises."""
     if rel_table is not None or rel_gate is not None:
         raise ValueError("the gated relative-position bias serves only: it has no backward")
+    if rel_pos is not None or rel_pos_bias is not None:
+        raise ValueError("relative-position attention serves only: it has no backward")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -585,7 +707,7 @@ class _FlashAttentionFunction(torch.autograd.Function):
 
 def _flash_attention_forward(
     q, k, v, causal, alibi_period, kv_lengths, sm_scale, dropout_rate, dropout_seed, hash_index,
-    rel_table=None, rel_gate=None,
+    rel_table=None, rel_gate=None, rel_pos=None, rel_pos_bias=None,
 ):
     """(out, lse): the kernel for CUDA tensors, the plain version for CPU."""
     if q.device.type == "cpu":
@@ -593,10 +715,12 @@ def _flash_attention_forward(
             q, k, v, causal=causal, alibi_period=alibi_period, kv_lengths=kv_lengths,
             sm_scale=sm_scale, return_lse=True, dropout_rate=dropout_rate,
             dropout_seed=dropout_seed, hash_index=hash_index, rel_table=rel_table,
-            rel_gate=rel_gate,
+            rel_gate=rel_gate, rel_pos=rel_pos, rel_pos_bias=rel_pos_bias,
         )
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if rel_pos is not None:
+        return _flash_attention_xl_cuda(q, k, v, kv_lengths, sm_scale, rel_pos, rel_pos_bias)
     if rel_table is not None:
         return _flash_attention_relpos_cuda(q, k, v, kv_lengths, sm_scale, rel_table, rel_gate)
     return _flash_attention_cuda(
@@ -619,6 +743,8 @@ def flash_attention(
     hash_index=None,
     rel_table: Optional[torch.Tensor] = None,
     rel_gate: Optional[torch.Tensor] = None,
+    rel_pos: Optional[torch.Tensor] = None,
+    rel_pos_bias: Optional[torch.Tensor] = None,
 ):
     """Fused MHA. q, k, v: (B, H, T, D) f32 or bf16 -> (B, H, Tq, D).
 
@@ -633,7 +759,9 @@ def flash_attention(
     larger call's (``hash_batch_heads``). Differentiable in q, k and v: the
     backward is ``flash_attention_bwd``. ``rel_table`` (H, 2R + 1) and
     ``rel_gate`` (B, H, Tq), f32: WavLM's gated relative-position bias
-    (module note), in inference only."""
+    (module note), in inference only. ``rel_pos`` (H, 2R + 1, D) in q's
+    dtype and ``rel_pos_bias`` (H, 2R + 1) f32: Transformer-XL's
+    relative-position term (module note), in inference only."""
     if alibi_period is not None and alibi_period <= 0:
         raise ValueError(f"alibi_period must be positive, got {alibi_period}")
     if not 0.0 <= dropout_rate < 1.0:
@@ -643,9 +771,12 @@ def flash_attention(
     if dropout_rate == 0.0 or dropout_seed is None:
         dropout_rate, dropout_seed, hash_index = 0.0, None, None
     _check_rel_bias(q, rel_table, rel_gate, causal, alibi_period, dropout_rate)
+    _check_rel_pos(q, k, rel_pos, rel_pos_bias, rel_table, causal, alibi_period, dropout_rate)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         if rel_table is not None:
             raise ValueError("the gated relative-position bias serves only: it has no backward")
+        if rel_pos is not None:
+            raise ValueError("relative-position attention serves only: it has no backward")
         if dropout_seed is not None:
             dropout_seed = torch.as_tensor(dropout_seed, device=q.device).to(torch.int32).reshape(1)
         out, lse = _FlashAttentionFunction.apply(
@@ -654,13 +785,14 @@ def flash_attention(
     else:
         out, lse = _flash_attention_forward(
             q, k, v, causal, alibi_period, kv_lengths, sm_scale, dropout_rate, dropout_seed,
-            hash_index, rel_table, rel_gate)
+            hash_index, rel_table, rel_gate, rel_pos, rel_pos_bias)
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
 flash_attention.f32_launches = 0
 flash_attention.relpos_launches = 0
+flash_attention.xl_launches = 0
 
 
 # ---------------------------------------------------------------------------

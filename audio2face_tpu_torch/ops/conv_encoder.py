@@ -25,7 +25,10 @@ norm needs no length mask. The kernel takes layer 0's statistics
 analytically per frame (``conv0_layer_norm_stats``) and layers 1-6's from
 the accumulators (two passes over a cluster of two blocks); the plain
 version takes them from the f32 sums. A CUDA call counts
-``conv_layer_norms_fused`` (``utils/spans.py``), 7 a call.
+``conv_layer_norms_fused`` (``utils/spans.py``), 7 a call. ``conv_bias``
+(7 of (512,), the wav2vec2-Conformer's stack) adds each conv's f32 bias to
+its f32 sums before the LayerNorm; layer 0's statistics then gain the
+bias's terms (``conv0_layer_norm_stats``).
 """
 
 from __future__ import annotations
@@ -85,21 +88,29 @@ def conv0_groupnorm_stats(
     return mean, torch.rsqrt(var + EPS)
 
 
-def conv0_layer_norm_stats(w0: torch.Tensor) -> torch.Tensor:
+def conv0_layer_norm_stats(w0: torch.Tensor, b0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Layer 0's per-frame LayerNorm statistics as quadratic forms of the
     frame's 10 samples x (layer 0 is linear): the channel mean ``wbar . x``
     and the variance ``x^T S x``, with ``wbar`` the bf16-rounded (10, C)
     kernel's mean over channels and ``S = (W - wbar)(W - wbar)^T / C`` its
     centred second moment (no ``E[y^2] - mean^2`` to cancel). Computed in
     f64, returned in f32 as the kernel reads them: ``wbar`` (10), then S's
-    upper triangle row by row with the off-diagonal entries doubled (55)."""
+    upper triangle row by row with the off-diagonal entries doubled (55).
+    With layer 0's bias ``b0`` (C,) the mean gains ``bbar`` and the variance
+    ``e . x + |b - bbar|^2 / C``, ``e = 2 (W - wbar)(b - bbar) / C``: then
+    ``e`` (10), ``bbar`` and ``|b - bbar|^2 / C`` follow (77 in all)."""
     w = w0.reshape(K0, C).to(torch.bfloat16).double()
     wbar = w.mean(dim=1)
     d = w - wbar[:, None]
     s = d @ d.T / C
     j, k = torch.triu_indices(K0, K0, device=w.device)
     tri = s[j, k] * torch.where(j == k, 1.0, 2.0).to(s)
-    return torch.cat([wbar, tri]).float()
+    parts = [wbar, tri]
+    if b0 is not None:
+        b = b0.to(w)
+        db = b - b.mean()
+        parts += [2.0 * (d @ db) / C, b.mean()[None], db.square().mean()[None]]
+    return torch.cat(parts).float()
 
 
 def _feat_lengths(lengths: Optional[torch.Tensor], b: int, n: int, device) -> torch.Tensor:
@@ -126,6 +137,18 @@ def _norm_params(norm_scale, norm_bias, norm: str) -> tuple[torch.Tensor, torch.
             raise ValueError(f"layer-norm {name} must be {len(CONV_KERNEL)} of (512,)")
         out.append(torch.stack(list(p)))
     return out[0], out[1]
+
+
+def _conv_biases(conv_bias, norm: str) -> Optional[torch.Tensor]:
+    """The conv biases as the kernel takes them: None, or (7, C) stacked
+    from 7 of (C,); the layer-norm mode only."""
+    if conv_bias is None:
+        return None
+    if norm != "layer":
+        raise ValueError("a conv bias runs in the layer-norm mode only")
+    if len(conv_bias) != len(CONV_KERNEL) or any(t.shape != (C,) for t in conv_bias):
+        raise ValueError(f"conv biases must be {len(CONV_KERNEL)} of (512,)")
+    return torch.stack(list(conv_bias))
 
 
 def _check(x, kernels, norm_scale, norm_bias, norm):
@@ -156,14 +179,18 @@ def conv_encoder_reference(
     lengths: Optional[torch.Tensor] = None,
     *,
     norm: str = "group",
+    conv_bias=None,
 ) -> torch.Tensor:
     """Plain version of the kernel family, with its numerics (module doc)."""
     scale, bias = _check(x, kernels, norm_scale, norm_bias, norm)
+    cb = _conv_biases(conv_bias, norm)
     b, n = x.shape
     x = x.float()
     w0 = kernels[0].reshape(K0, C).float()
     xi = _im2col10(x)
     y0 = xi.to(torch.bfloat16).float() @ w0.to(torch.bfloat16).float()
+    if cb is not None:
+        y0 = y0 + cb[0].float()
     if norm == "layer":
         h = _layer_norm_gelu(y0, scale[0], bias[0])
     else:
@@ -175,15 +202,17 @@ def conv_encoder_reference(
     for i, (k, s, w) in enumerate(zip(CONV_KERNEL[1:], CONV_STRIDE[1:], kernels[1:]), start=1):
         wt = w.to(torch.bfloat16).float().permute(2, 1, 0)  # (c_out, c_in, k)
         y = F.conv1d(h.float().transpose(1, 2), wt, stride=s).transpose(1, 2)
+        if cb is not None:
+            y = y + cb[i].float()
         h = _layer_norm_gelu(y, scale[i], bias[i]) if norm == "layer" else F.gelu(y).to(torch.bfloat16)
     return h
 
 
 _ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-_LN_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_LN_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
-def _conv_encoder_cuda(x, kernels, scale, bias, lengths, norm):
+def _conv_encoder_cuda(x, kernels, scale, bias, lengths, norm, conv_bias=None):
     b, n = x.shape
     dev = x.device
     t0 = (n - K0) // S0 + 1
@@ -201,11 +230,15 @@ def _conv_encoder_cuda(x, kernels, scale, bias, lengths, norm):
     out = torch.empty((b, stack_output_length(n), C), dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if norm == "layer":
-        stats = conv0_layer_norm_stats(w0)
+        cb = None
+        if conv_bias is not None:
+            cb = conv_bias.to(device=dev, dtype=torch.float32).contiguous()
+        stats = conv0_layer_norm_stats(w0, None if cb is None else cb[0])
         fn = _build.function("conv_encoder_ln", "a2f_conv_encoder_ln", _LN_ARGTYPES)
         rc = fn(
             xf.data_ptr(), w0.data_ptr(), stats.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            w_stack.data_ptr(), buf0.data_ptr(), buf1.data_ptr(), out.data_ptr(), b, n, stream,
+            None if cb is None else cb.data_ptr(), w_stack.data_ptr(), buf0.data_ptr(),
+            buf1.data_ptr(), out.data_ptr(), b, n, stream,
         )
     else:
         feat = _feat_lengths(lengths, b, n, dev).contiguous()
@@ -222,6 +255,8 @@ def _conv_encoder_cuda(x, kernels, scale, bias, lengths, norm):
     fused_conv_encoder.launches += 1
     if norm == "layer":
         fused_conv_encoder.layer_norm_launches += 1
+        if cb is not None:
+            fused_conv_encoder.conv_bias_launches += 1
         spans.count("conv_layer_norms_fused", len(CONV_KERNEL))
     return out
 
@@ -234,6 +269,7 @@ def fused_conv_encoder(
     lengths: Optional[torch.Tensor] = None,  # (B,) valid samples
     *,
     norm: str = "group",  # "group" (wav2vec2-base) or "layer" (WavLM Large)
+    conv_bias=None,  # layer mode: 7 of (C,), each conv's bias (the wav2vec2-Conformer's)
 ) -> torch.Tensor:
     """Waveform -> (B, T_out, 512) bf16 latents (conv stack + norm + GELU).
 
@@ -241,20 +277,23 @@ def fused_conv_encoder(
     gradients enabled and an input that requires one it raises. CPU tensors
     run the plain version."""
     if x.device.type == "cpu":
-        return conv_encoder_reference(x, kernels, norm_scale, norm_bias, lengths, norm=norm)
+        return conv_encoder_reference(x, kernels, norm_scale, norm_bias, lengths, norm=norm,
+                                      conv_bias=conv_bias)
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv_encoder runs on cuda or cpu, not {x.device}")
     scale, bias = _check(x, kernels, norm_scale, norm_bias, norm)
+    cb = _conv_biases(conv_bias, norm)
     if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (x, *kernels, scale, bias)
+        t.requires_grad for t in (x, *kernels, scale, bias, *([] if cb is None else [cb]))
     ):
         raise RuntimeError(
             "fused_conv_encoder has no backward: call it under torch.no_grad(), or ask "
             "for the differentiable conv path (FaceFormer(..., differentiable=True), "
             "FeatureEncoder(..., train=True))"
         )
-    return _conv_encoder_cuda(x, kernels, scale, bias, lengths, norm)
+    return _conv_encoder_cuda(x, kernels, scale, bias, lengths, norm, cb)
 
 
 fused_conv_encoder.launches = 0
 fused_conv_encoder.layer_norm_launches = 0  # calls in the layer-norm mode
+fused_conv_encoder.conv_bias_launches = 0  # of those, calls with the conv biases

@@ -40,9 +40,10 @@ the port trainer's checkpoint (``from_checkpoint``), carried JAX variables,
 a port state dict, or a seeded random init. ``dataset="biwi"`` serves
 FaceFormer's BIWI mode (25 fps, period 25, 2-way cross softmax). The
 decoder's width (64, or 128 as the published BIWI model has it) and the
-audio encoder (wav2vec2-base, or WavLM Large with its gated
-relative-position bias: ``models/wav2vec2.py config_from_state_dict``) are
-the weights' own; a random init is 64 wide over wav2vec2-base. The JAX
+audio encoder (wav2vec2-base, WavLM Large with its gated
+relative-position bias, or the wav2vec2-Conformer with Transformer-XL
+attention: ``models/wav2vec2.py config_from_state_dict``) are the weights'
+own; a random init is 64 wide over wav2vec2-base. The JAX
 trainer's orbax checkpoints are not read: orbax imports JAX.
 
 ``mesh=`` (``parallel.make_mesh``) serves on every rank of a mesh, each
@@ -401,11 +402,12 @@ class FaceFormerPredictor(_BucketedPredictor):
         self.model = load_model(make, variables, state_dict,
                                 lambda v: faceformer_state_dict_from_jax(v["params"]), seed,
                                 self.device)
-        if (mesh is not None or sp_mesh is not None) and self.model.audio_encoder.config.wavlm:
+        enc = self.model.audio_encoder.config
+        if (mesh is not None or sp_mesh is not None) and (enc.wavlm or enc.conformer):
             raise ValueError(
                 "mesh= and sp_mesh= serve the wav2vec2-base encoder; these weights hold a "
-                "WavLM encoder (pre-LN layers, gated relative-position bias): serve them "
-                "on one device")
+                f"{'WavLM' if enc.wavlm else 'Conformer'} encoder (relative positions): serve "
+                "them on one device")
         if mesh is not None or sp_mesh is not None:
             from audio2face_tpu_torch.parallel.mesh import replicate
 

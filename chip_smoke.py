@@ -56,6 +56,20 @@ which raises (exit code != 0) on failure:
    encoder read from the weights) launching the biased kernel 24 times and
    K2's layer-norm mode once a model call (``conv_layer_norms_fused`` 7),
    counted from zero just before it; 2 clips against the plain versions;
+4c. Conformer: K1 with Transformer-XL relative-position attention (the
+   wav2vec2-Conformer's) at (8, 16, 3600, 64) with key lengths 180-3600
+   against the plain version item by item (2^-7 of |ref| and of sum p|v|),
+   timed by the profiler beside its bound
+   (``benchmark/counts/faceformer_conformer.py k1_xl_work``) and the
+   unbiased kernel; K2's layer-norm mode with the conv biases at (8,
+   960000) with mixed lengths against its plain version (0.05 x max|ref|),
+   timed by the profiler beside K2's bound; one 8 x 60 s request through
+   ``FaceFormerPredictor`` with the Conformer Large encoder at its
+   published widths (bf16; the encoder read from the weights) launching
+   the kernel 24 times a model call (``relpos_attention_layers`` and
+   ``conformer_conv_modules`` 24, ``conv_layer_norms_fused`` 7 with the
+   conv biases, K2's biased mode once), counted from zero just before it;
+   2 clips against the plain versions;
 5. clip to rendered frames: the same predictor's vertices for a 3.5 s clip
    on the synthetic head go through ``Renderer.render`` (pipelined, cropped
    copies into pinned buffers); the rasterizer must have launched, the
@@ -144,8 +158,10 @@ which raises (exit code != 0) on failure:
    serving, training, frame, checkpoint, data, live, CLI and parallel
    paths; K1 f32 and K4 f32 have rows of their own, counted by the
    wrappers' ``f32_launches`` on the wav2vec2 frame request and the f32
-   gradient check, and K1 with the gated bias, counted by
-   ``relpos_launches`` in 4b's request and in each later phase), then,
+   gradient check, K1 with the gated bias, counted by ``relpos_launches``
+   in 4b's request and in each later phase, and K1 with Transformer-XL
+   attention, counted by ``xl_launches`` from 4c's request on, and K2
+   with the conv biases, counted by ``conv_bias_launches`` likewise), then,
    last, ``{"ok": true, "device": {...}}``.
 
 Gradients are off process-wide (the inference phases build no autograd
@@ -732,6 +748,219 @@ def frame_epilogue_readings(torch, model, launches: int, smi: str) -> dict:
 # miss beyond half that bar, ``tests/test_torch_wavlm.py``'s card bar at
 # batch 2, which one output step can exceed at the cell's shape.
 K1_RELPOS_STEP, K1_RELPOS_SLACK = 2.0**-7, 1e-4
+
+
+def conformer_phase(torch, rows, smi) -> None:
+    """4c: K1 with Transformer-XL relative-position attention at the
+    Conformer cell's longest shape (8, 16, 3600, 64) with key lengths below
+    T, against the plain version item by item (4b's bar) and timed beside
+    its bound and the unbiased kernel; K2's layer-norm mode with the conv
+    biases at (8, 960000) with mixed lengths against its plain version
+    (0.05 x max|ref|) and timed beside K2's bound; one 8 x 60 s request
+    through ``FaceFormerPredictor`` with the wav2vec2-Conformer Large
+    encoder (24 blocks, 1024 wide, 16 heads of 64, FFN 4096, depthwise
+    kernel 31, conv biases), whose launches (counted from zero just before
+    it) must be 24 a model call, with 24 conv modules and K2's biased
+    layer-norm mode once (7 ``conv_layer_norms_fused``); 2 clips against
+    the same weights through the plain versions (4b's bar). Appends the
+    ``flash_attention_xl`` and ``fused_conv_encoder_layer_norm_bias``
+    rows."""
+    from audio2face_tpu_torch.models import wav2vec2 as w2v
+    from audio2face_tpu_torch.models.faceformer import FaceFormer, frame_count
+    from audio2face_tpu_torch.ops import attention as attn_ops
+    from audio2face_tpu_torch.ops import conv_encoder as ce
+    from audio2face_tpu_torch.serving import FaceFormerPredictor
+    from audio2face_tpu_torch.utils import spans
+    from benchmark.counts.faceformer_conformer import k1_xl_work
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(24)
+    b, h, t, d = 8, 16, 3600, 64
+    q, k, v = (torch.randn(b, h, t, d, generator=g, device=dev).to(bf) for _ in range(3))
+    rel_pos = torch.randn(h, 2 * t - 1, d, generator=g, device=dev).to(bf)
+    table = 8.0 * torch.randn(h, 2 * t - 1, generator=g, device=dev)
+    kv = [3600, 3593, 2700, 1800, 3421, 900, 3600, 180]
+    kvl = torch.tensor(kv, dtype=torch.int32, device=dev)
+    rel = dict(kv_lengths=kvl, rel_pos=rel_pos, rel_pos_bias=table)
+    out = attn_ops.flash_attention(q, k, v, **rel)
+    unbiased = attn_ops.flash_attention(q, k, v, kv_lengths=kvl)
+    over = err = dropped = -math.inf
+    f32 = torch.float32
+    for i in range(b):
+        one = dict(kv_lengths=kvl[i:i + 1], rel_pos=rel_pos.to(f32), rel_pos_bias=table)
+        qi, ki, vi = (x[i:i + 1].to(f32) for x in (q, k, v))
+        want = attn_ops.mha_reference(qi, ki, vi, **one)
+        mass = attn_ops.mha_reference(qi, ki, vi.abs(), **one)
+        diff = (out[i:i + 1].float() - want).abs()
+        over = max(over, (diff - K1_RELPOS_STEP * (want.abs() + mass)).max().item())
+        err = max(err, diff.max().item())
+        dropped = max(dropped, (unbiased[i:i + 1].float() - want).abs().max().item())
+        del want, mass, diff
+    torch.cuda.synchronize()
+    print(json.dumps({"check": "flash_attention Transformer-XL (8, 16, 3600, 64) kv_lengths",
+                      "max_abs_err": err, "max_err_over_bar": over, "slack": K1_RELPOS_SLACK,
+                      "unbiased_max_abs_err": dropped}), flush=True)
+    require(over <= K1_RELPOS_SLACK and bool(torch.isfinite(out.float()).all()),
+            f"K1 Transformer-XL err beyond 2^-7 (|ref| + sum p|v|): {over} > {K1_RELPOS_SLACK}")
+    require(dropped > 0.1, f"the unbiased kernel misses the XL plain version by only {dropped}")
+    dev_ms, names = profiled_ms(torch, lambda: attn_ops.flash_attention(q, k, v, **rel), 20)
+    require(any("flash_fwd_xl_kernel" in n for n in names),
+            f"the Transformer-XL forward launched {names}")
+    unbiased_dev, _ = profiled_ms(torch, lambda: attn_ops.flash_attention(q, k, v, kv_lengths=kvl),
+                                  20)
+    ms = cuda_ms(torch, lambda: attn_ops.flash_attention(q, k, v, **rel), 10)
+    flops, nbytes = k1_xl_work([t] * b, kv, h, d)
+    bms, bby = bound(nbytes, flops / PEAK_BF16_FLOPS)
+    del q, k, v, out, unbiased, rel_pos, table
+    torch.cuda.empty_cache()
+
+    # ---- K2's layer-norm mode with the conv biases at (8, 960000) ----------
+    cfg = w2v.Wav2Vec2Config(hidden_size=1024, num_layers=24, num_heads=16, intermediate_size=4096,
+                             feat_extract_norm="layer", conv_bias=True, layer_kind="conformer",
+                             conv_depthwise_kernel_size=31)
+    fe = w2v.FeatureEncoder(cfg).to(dev).eval()
+    for conv in fe.conv_layers:
+        fan_in = conv.weight.shape[1] * conv.weight.shape[2]
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=g, device=dev) / fan_in ** 0.5)
+        conv.bias.copy_(0.3 * torch.randn(ce.C, generator=g, device=dev))
+    for ln in fe.layer_norms:
+        ln.weight.copy_(1.0 + 0.1 * torch.randn(ce.C, generator=g, device=dev))
+        ln.bias.copy_(0.05 * torch.randn(ce.C, generator=g, device=dev))
+    kb, kn = 8, 960000
+    wave = 0.1 * torch.randn(kb, kn, generator=g, device=dev)
+    wlens = torch.tensor([960000, 960000, 720000, 480000, 960000, 240000, 960000, 48000],
+                         dtype=torch.int32, device=dev)
+    stack = ([conv.weight.permute(2, 1, 0) for conv in fe.conv_layers],
+             [ln.weight for ln in fe.layer_norms], [ln.bias for ln in fe.layer_norms])
+    cb = [conv.bias for conv in fe.conv_layers]
+    k2 = lambda: ce.fused_conv_encoder(wave, *stack, wlens, norm="layer", conv_bias=cb)  # noqa: E731
+    k2_plain = lambda: ce.conv_encoder_reference(wave, *stack, wlens, norm="layer",  # noqa: E731
+                                                 conv_bias=cb)
+    k2_out, k2_ref = k2(), k2_plain()
+    k2_unbiased = ce.fused_conv_encoder(wave, *stack, wlens, norm="layer")
+    torch.cuda.synchronize()
+    k2_err = (k2_out.float() - k2_ref.float()).abs().max().item()
+    k2_dropped = (k2_unbiased.float() - k2_ref.float()).abs().max().item()
+    k2_tol = 0.05 * k2_ref.float().abs().max().item()  # K2's bar (phase 3b)
+    print(json.dumps({"check": "fused_conv_encoder layer norm with conv biases (8, 960000) "
+                               "mixed lengths", "max_abs_err": k2_err, "tol": k2_tol,
+                      "max_err_over_row_max": row_scaled_err(k2_out, k2_ref),
+                      "unbiased_max_abs_err": k2_dropped}), flush=True)
+    require(k2_err <= k2_tol and bool(torch.isfinite(k2_out.float()).all()),
+            f"K2 layer-norm mode with conv biases err {k2_err} > {k2_tol}")
+    require(k2_dropped > k2_tol, f"K2 without the conv biases misses by only {k2_dropped}")
+    del k2_out, k2_ref, k2_unbiased
+    k2_dev, k2_names = profiled_ms(torch, k2, 20)
+    require(any("conv0_ln_gelu" in n_ for n_ in k2_names)
+            and any("conv_gemm_wgmma<true>" in n_ for n_ in k2_names)
+            and not any(w_ in n_ for n_ in k2_names for w_ in ("layer_norm", "cudnn", "convolve")),
+            f"K2's layer-norm mode with conv biases launched {k2_names}")
+    k2_ms, k2_plain_ms = cuda_ms(torch, k2, 10), cuda_ms(torch, k2_plain, 2)
+    k2_launches = k2_launch_ms(torch, k2)
+    l0_flops, gemm_flops, k2_bytes = k2_work(ce, kb, kn)
+    k2_bms, k2_bby = bound(k2_bytes, (l0_flops + gemm_flops) / PEAK_BF16_FLOPS)
+    del fe, wave, stack, cb
+    torch.cuda.empty_cache()
+
+    # ---- one 8 x 60 s request through FaceFormerPredictor -------------------
+    n_verts = 15069
+    ff = FaceFormer(n_verts, 12, encoder_config=cfg)
+    ff.init_parameters(torch.Generator().manual_seed(24))
+    gw = torch.Generator().manual_seed(25)
+    with torch.no_grad():  # trained-like motion maps (the init zeroes them), as phase 4
+        for lin in (ff.vertice_map, ff.vertice_map_r):
+            lin.weight.copy_(torch.randn(lin.weight.shape, generator=gw) * 0.02)
+            lin.bias.copy_(torch.randn(lin.bias.shape, generator=gw) * 0.02)
+        # and the Conformer's own tensors away from their zero or unit init,
+        # so that the plain comparison below sees each (the benchmark's rule)
+        enc = ff.audio_encoder
+        for conv in enc.feature_encoder.conv_layers:
+            conv.bias.copy_(torch.randn(conv.bias.shape, generator=gw) * 0.3)
+        for layer in enc.layers:
+            att, bn = layer.self_attn, layer.conv_module.batch_norm
+            for t_ in (att.pos_bias_u, att.pos_bias_v):
+                t_.copy_(torch.randn(t_.shape, generator=gw) * 0.5)
+            bn.running_mean.copy_(torch.randn(bn.running_mean.shape, generator=gw) * 0.1)
+            bn.running_var.copy_(torch.exp(torch.randn(bn.running_var.shape, generator=gw) * 0.1))
+    state = ff.state_dict()
+    del ff, enc
+    pred = FaceFormerPredictor(n_verts=n_verts, bf16=True, max_batch=8, bucket_seconds=5.0,
+                               state_dict=state)
+    require(pred.model.audio_encoder.config == cfg,
+            f"the predictor built {pred.model.audio_encoder.config} from Conformer weights")
+    rng = np.random.default_rng(24)
+
+    def clip(seconds):
+        return (rng.normal(size=int(seconds * 16000)) * 0.1).astype(np.float32)
+
+    template = rng.normal(size=(n_verts // 3, 3)).astype(np.float32)
+    pred([clip(1.0)], np.eye(12, dtype=np.float32)[[0]], template)  # library warm-up
+    audios = [clip(60.0) for _ in range(8)]
+    one_hot = np.eye(12, dtype=np.float32)[rng.integers(0, 12, 8)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attn_ops.flash_attention.xl_launches = 0
+    ce.fused_conv_encoder.conv_bias_launches = 0
+    tic = time.perf_counter()
+    with spans.recording() as rec:
+        res = pred(audios, one_hot, template)
+    wall = time.perf_counter() - tic
+    launches = attn_ops.flash_attention.xl_launches
+    calls = sum(1 for s_ in rec.spans if s_.name == "predict.encode")
+    for a, y in zip(audios, res):
+        require(y.shape == (frame_count(len(a)), n_verts // 3, 3) and bool(np.isfinite(y).all()),
+                f"Conformer request shape {y.shape} or not finite")
+    c = rec.counters
+    require(calls == 1 and launches == 24 * calls == c["relpos_attention_layers"]
+            == c["conformer_conv_modules"] and c.get("conv_layer_norms_fused", 0) == 7 * calls,
+            f"the Conformer request made {calls} model calls, {launches} XL launches, counters {c}")
+    k2_launches_in_request = ce.fused_conv_encoder.conv_bias_launches
+    require(k2_launches_in_request == calls,
+            f"the Conformer request made {k2_launches_in_request} biased K2 calls in {calls}")
+    frames = sum(y.shape[0] for y in res)
+    print(json.dumps({"conformer_request": {
+        "clips": 8, "seconds_each": 60, "wall_s": wall, "mesh_frames_per_s": frames / wall,
+        "model_calls": calls, "xl_launches": launches,
+        "conv_bias_k2_launches": k2_launches_in_request, "counters": dict(c),
+        "peak_bytes": torch.cuda.max_memory_allocated(), "card": smi}}), flush=True)
+    del res
+    # the same weights through the plain versions on the card: phase 4's bar
+    plain_pred = FaceFormerPredictor(n_verts=n_verts, bf16=True, max_batch=8, bucket_seconds=5.0,
+                                     state_dict=state, use_kernels=False)
+    audios = [clip(10.0), clip(7.5)]
+    one_hot = np.eye(12, dtype=np.float32)[[4, 8]]
+    got = pred(audios, one_hot, template)
+    want = plain_pred(audios, one_hot, template)
+    l2 = max(float(np.linalg.norm(a - b_, axis=-1).max()) for a, b_ in zip(got, want))
+    disp = max(float(np.abs(b_ - template).max()) for b_ in want)
+    print(json.dumps({"check": "Conformer predictor kernels vs plain, 2 clips",
+                      "max_vertex_l2": l2, "max_offset": disp, "tol": 0.05 * disp}), flush=True)
+    require(l2 <= 0.05 * disp,
+            f"Conformer predictor vs plain: max per-vertex L2 {l2} > {0.05 * disp}")
+    rows.append({
+        # 4c's request; later phases add their counts as for every row
+        "name": "flash_attention_xl", "route": "cuda",
+        "source": "audio2face_tpu_torch/csrc/flash_attention_xl.cu", "replaces": None,
+        "wrapper": attn_ops.flash_attention, "counter": "xl_launches", "launches": launches,
+        "max_abs_err": err, "max_err_over_bar": over, "slack": K1_RELPOS_SLACK,
+        "shape": [b, h, t, d], "kv_lengths": kv, "device_ms": dev_ms,
+        "ms_dev": sorted(dev_ms)[2], "ms": ms, "unbiased_ms_dev": sorted(unbiased_dev)[2],
+        "bound_ms": bms, "bound_by": bby, "roofline_pct": 100.0 * bms / sorted(dev_ms)[2],
+        "library_ms": None,
+    })
+    rows.append({
+        # 4c's request; later phases add their counts as for every row
+        "name": "fused_conv_encoder_layer_norm_bias", "route": "cuda",
+        "source": "audio2face_tpu_torch/csrc/conv_encoder_ln.cu", "replaces": None,
+        "wrapper": ce.fused_conv_encoder, "counter": "conv_bias_launches",
+        "launches": k2_launches_in_request, "max_abs_err": k2_err, "tol": k2_tol,
+        "unbiased_max_abs_err": k2_dropped, "shape": [kb, kn], "device_ms": k2_dev,
+        "ms_dev": sorted(k2_dev)[2], "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bms,
+        "bound_by": k2_bby, "roofline_pct": 100.0 * k2_bms / sorted(k2_dev)[2],
+        "launch_ms": k2_launches, "library_ms": None,
+    })
+    del pred, plain_pred, got, want, state
+    torch.cuda.empty_cache()
 
 
 def wavlm_phase(torch, rows, smi) -> None:
@@ -3422,6 +3651,9 @@ def main() -> int:
 
     # ---- 4b. FaceFormer with WavLM Large: K1's gated bias, one request -------
     wavlm_phase(torch, rows, smi)
+
+    # ---- 4c. FaceFormer with the Conformer: K1's Transformer-XL term --------
+    conformer_phase(torch, rows, smi)
 
     # ---- 5. path 1: a clip's predicted vertices to rendered frames -----------
     one0 = np.eye(12, dtype=np.float32)[[0]]

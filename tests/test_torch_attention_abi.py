@@ -51,6 +51,8 @@ def kind_of_ctypes(t) -> str:
 @pytest.mark.parametrize("source, symbol, argtypes", [
     ("flash_attention.cu", "a2f_flash_attention_fwd", attn._FWD_ARGTYPES),
     ("flash_attention.cu", "a2f_flash_attention_fwd_relpos", attn._RELPOS_ARGTYPES),
+    ("flash_attention_xl.cu", "a2f_flash_attention_fwd_xl", attn._XL_ARGTYPES),
+    ("flash_attention_xl.cu", "a2f_flash_attention_fwd_xl_occupancy", [attn.ctypes.c_void_p]),
     ("flash_attention_bwd.cu", "a2f_flash_attention_bwd", attn._BWD_ARGTYPES),
     ("flash_attention.cu", "a2f_flash_attention_fwd_occupancy", attn._OCCUPANCY_ARGTYPES),
     ("flash_attention_bwd.cu", "a2f_flash_attention_bwd_occupancy", attn._OCCUPANCY_ARGTYPES),

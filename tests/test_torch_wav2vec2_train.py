@@ -40,13 +40,14 @@ def _tiny_encoder(seed=0, **overrides):
 
 
 def test_config_carries_the_jax_defaults():
-    """Every field of the JAX config at its value; the port's WavLM fields
-    (no JAX counterpart) at the wav2vec2-base defaults."""
+    """Every field of the JAX config at its value; the port's WavLM and
+    Conformer fields (no JAX counterpart) at the wav2vec2-base defaults."""
     ours, ref = dataclasses.asdict(w2v.Wav2Vec2Config()), dataclasses.asdict(JaxConfig())
     assert {k: ours[k] for k in ref} == ref
     assert {k: v for k, v in ours.items() if k not in ref} == {
         "feat_extract_norm": "group", "do_stable_layer_norm": False,
-        "relative_position_buckets": 0}
+        "relative_position_buckets": 0, "layer_kind": "transformer",
+        "conv_depthwise_kernel_size": 31}
     ours, ref = w2v.Wav2Vec2Config(), JaxConfig()
     assert ours.feat_extract_output_length(16000) == ref.feat_extract_output_length(16000) == 49
 
